@@ -1,0 +1,382 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (hivemall_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py [--seed N]
+
+Phases (any failure exits non-zero; nothing is caught):
+1. device  — require CUDA; print the card's name and power limit.
+2. build   — build the exact-scan kernel from kernels/csrc/linear_scan.cu
+             (nvcc, at first use) and print the build seconds and ptxas report.
+3. families — the kernel against its plain torch version on the card, for
+             every rule form the kernel has, at D=2^14, B=1000, K=32 with pad
+             and duplicate lanes, from a warm random state. Tolerance rtol
+             1e-4 / atol 1e-5: the kernel sums a row's lanes in warp-shuffle
+             order, the plain version in torch's order, and 1000 sequential
+             rows carry those last-bit differences forward.
+4. width   — AROW at full width (D=2^22, K=32, B=4096, log-uniform hashed
+             ids): kernel vs plain version, both timed on the card, beside
+             the kernel's bytes bound and its row-serial latency floor (the
+             library's row_chain_floor kernel: the per-row dependent chain
+             alone, timed on the same block).
+5. main    — the user's path: train_arow(..., "-dims 4194304 -pallas
+             -block_size 4096") on 262,144 synthetic CTR rows with the kernel's
+             launch count read around the run, then the same data with
+             -mini_batch 4096; holdout accuracy/logloss, predict and
+             model_rows shapes, and a small -pallas fit on the card held
+             against the same fit on the CPU.
+Prints a kernels JSON line, the nvidia-smi line, and last
+{"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+RTOL, ATOL = 1e-4, 1e-5
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+FP32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
+FULL_DIMS = 1 << 22
+WIDTH = 32
+ROWS = 262144  # rows the main path trains on
+
+
+def workload_ids(rng, shape, dims):
+    """Log-uniform (head-heavy) id frequency, placed by a fixed permutation
+    of the hashed space — the id distribution of the repo's CTR benchmark
+    (hivemall_tpu/runtime/benchmark.py::make_workload_ids)."""
+    perm = np.random.RandomState(12345).permutation(dims).astype(np.int32)
+    u = rng.random_sample(shape)
+    ids = np.exp(u * np.log(float(dims))).astype(np.int64) % dims
+    return perm[ids]
+
+
+def rule_cases():
+    """(rule, hyper, is_binary) for every rule form the kernel has."""
+    from hivemall_tpu_torch.models import classifier as C
+    from hivemall_tpu_torch.models import regression as R
+
+    pa_regr = {"c": 1.0, "epsilon": 0.01}
+    return [
+        (C.PERCEPTRON, {}, True), (C.PA, {}, True), (C.PA1, {"c": 1.0}, True),
+        (C.PA2, {"c": 1.0}, True), (C.CW, {"phi": 1.0}, True),
+        (C.AROW, {"r": 0.1}, True), (C.AROWH, {"r": 0.1, "c": 1.0}, True),
+        (C.SCW1, {"phi": 1.0, "c": 1.0}, True),
+        (C.SCW2, {"phi": 1.0, "c": 1.0}, True),
+        (C.ADAGRAD_RDA, {"eta": 0.1, "lambda": 1e-6, "scale": 100.0}, True),
+        (R.ADAGRAD_REGR, {"eta": 1.0, "eps": 1.0, "scale": 100.0}, False),
+        (R.ADADELTA_REGR, {"rho": 0.95, "eps": 1e-6, "scale": 100.0}, False),
+        (R.PA1_REGR, pa_regr, False), (R.PA1A_REGR, pa_regr, False),
+        (R.PA2_REGR, pa_regr, False), (R.PA2A_REGR, pa_regr, False),
+        (R.AROW_REGR, {"r": 0.1}, False),
+        (R.AROWE_REGR, {"r": 0.1, "epsilon": 0.01}, False),
+        (R.AROWE2_REGR, {"r": 0.1, "epsilon": 0.01}, False),
+    ]
+
+
+def block(rng, b, k, dims):
+    """A block with pad lanes (every 3rd row ends in two) and duplicate
+    lanes (every 4th row repeats its first id; head-heavy ids repeat too)."""
+    idx = workload_ids(rng, (b, k), dims).astype(np.int32)
+    val = rng.randn(b, k).astype(np.float32)
+    idx[::4, 1] = idx[::4, 0]
+    idx[::3, -2:] = dims
+    val[::3, -2:] = 0.0
+    y = np.sign(rng.randn(b)).astype(np.float32)
+    y[y == 0] = 1.0
+    return idx, val, y
+
+
+def warm_state(rng, rule, dims, device):
+    from hivemall_tpu_torch.core.state import linear_state_from_numpy
+
+    d = {
+        "weights": (0.1 * rng.randn(dims)).astype(np.float32),
+        "covars": rng.uniform(0.5, 1.5, dims).astype(np.float32)
+        if rule.use_covariance else None,
+        "slots": {},
+        "touched": (rng.rand(dims) < 0.5).astype(np.int8),
+        "step": 1000,
+        "globals": {g: v for g, v in (("n", 10.0), ("mean", 0.1), ("m2", 2.0))
+                    if g in rule.global_names},
+    }
+    for s in rule.slot_names:
+        d["slots"][s] = (rng.randn(dims) if s == "sum_grad"
+                         else rng.uniform(0, 1, dims)).astype(np.float32)
+    return linear_state_from_numpy(d, device=device)
+
+
+def compare(tag, got, ref, got_loss, ref_loss):
+    """Assert kernel == plain version within tolerance; return max |err|."""
+    from hivemall_tpu_torch.core.state import linear_state_to_numpy
+
+    a, b = linear_state_to_numpy(got), linear_state_to_numpy(ref)
+    pairs = [("weights", a["weights"], b["weights"]),
+             ("loss", got_loss.cpu().numpy(), ref_loss.cpu().numpy())]
+    if a["covars"] is not None:
+        pairs.append(("covars", a["covars"], b["covars"]))
+    pairs += [(f"slot {s}", a["slots"][s], b["slots"][s]) for s in b["slots"]]
+    pairs += [(f"global {g}", a["globals"][g], b["globals"][g])
+              for g in b["globals"]]
+    err = 0.0
+    for name, x, y in pairs:
+        np.testing.assert_allclose(x, y, rtol=RTOL, atol=ATOL,
+                                   err_msg=f"{tag}: {name}")
+        err = max(err, float(np.max(np.abs(x - y))) if x.size else 0.0)
+    assert np.array_equal(a["touched"], b["touched"]), f"{tag}: touched"
+    assert a["step"] == b["step"], f"{tag}: step"
+    return err
+
+
+def cuda_ms(fn, reps):
+    """Mean ms of fn() over reps, by CUDA events, after one warm-up."""
+    import torch
+
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def chain_floor_ms(ti, tv, dims, reps):
+    """ms per block of the library's row_chain_floor kernel on this block
+    (a scratch w table): the scan's per-row dependent chain alone."""
+    import torch
+
+    from hivemall_tpu_torch.kernels.linear_scan import _library
+
+    lib = _library()
+    b, k = ti.shape
+    w = torch.zeros(dims, dtype=torch.float32, device=ti.device)
+    out = torch.empty(b, dtype=torch.float32, device=ti.device)
+    stream = torch.cuda.current_stream(ti.device).cuda_stream
+
+    def run():
+        rc = lib.hm_row_chain_floor(ti.data_ptr(), tv.data_ptr(),
+                                    out.data_ptr(), w.data_ptr(), b, k, dims,
+                                    stream)
+        assert rc == 0, lib.hm_cuda_error_string(rc).decode()
+
+    ms = cuda_ms(run, reps)
+    assert torch.isfinite(out).all(), "row_chain_floor: non-finite sums"
+    return ms
+
+
+def phase_build():
+    from hivemall_tpu_torch.kernels import build, linear_scan
+
+    t0 = time.perf_counter()
+    linear_scan._library()
+    secs = time.perf_counter() - t0
+    print(f"[build] linear_scan.cu built and loaded in {secs:.2f} s")
+    for line in build.build_logs.get("linear_scan", "").splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"[build] {line.strip()}")
+
+
+def phase_families(seed, dev):
+    import torch
+
+    from hivemall_tpu_torch.kernels.linear_scan import (
+        linear_scan, linear_scan_reference)
+
+    dims, b, k = 1 << 14, 1000, WIDTH
+    err = 0.0
+    for i, (rule, hyper, binary) in enumerate(rule_cases()):
+        rng = np.random.RandomState(seed + i)
+        idx, val, y = block(rng, b, k, dims)
+        if not binary:
+            y = (0.3 * rng.randn(b)).astype(np.float32)
+        ti, tv, ty = (torch.from_numpy(a).to(dev) for a in (idx, val, y))
+        st_k = warm_state(np.random.RandomState(seed + 100 + i), rule, dims, dev)
+        st_r = warm_state(np.random.RandomState(seed + 100 + i), rule, dims, dev)
+        got, got_loss = linear_scan(rule, hyper, st_k, ti, tv, ty)
+        torch.cuda.synchronize()
+        ref, ref_loss = linear_scan_reference(rule, hyper, st_r, ti, tv, ty)
+        e = compare(rule.name, got, ref, got_loss, ref_loss)
+        err = max(err, e)
+        print(f"[families] {rule.name:14s} kernel == plain  max|err| {e:.3g}")
+    # the row chain with tables resident in L1/L2: AROW at D=2^14
+    rule, hyper, _ = rule_cases()[5]
+    rng = np.random.RandomState(seed)
+    idx, val, y = block(rng, b, k, dims)
+    ti, tv, ty = (torch.from_numpy(a).to(dev) for a in (idx, val, y))
+    st = warm_state(rng, rule, dims, dev)
+    ms = cuda_ms(lambda: linear_scan(rule, hyper, st, ti, tv, ty), 10)
+    print(f"[families] arow kernel at D=2^14 B={b} K={k}: {ms:.4f} ms/block "
+          f"= {1e3 * ms / b:.4f} us/row")
+    return err
+
+
+def bytes_per_block(idx, dims, n_tables):
+    """Least bytes one block moves: idx+val+y read, loss written, each
+    distinct live feature's table entries read once and written once."""
+    b, k = idx.shape
+    live = idx[(idx >= 0) & (idx < dims)]
+    uniq = np.unique(live).size
+    return b * k * 8 + b * 8 + uniq * n_tables * 4 * 2, uniq
+
+
+def phase_width(seed, dev):
+    import torch
+
+    from hivemall_tpu_torch.kernels.linear_scan import (
+        linear_scan, linear_scan_reference)
+
+    rule, hyper, _ = rule_cases()[5]  # AROW
+    b = 4096
+    rng = np.random.RandomState(seed + 7)
+    idx, val, y = block(rng, b, WIDTH, FULL_DIMS)
+    ti, tv, ty = (torch.from_numpy(a).to(dev) for a in (idx, val, y))
+    st_k = warm_state(np.random.RandomState(seed + 8), rule, FULL_DIMS, dev)
+    st_r = warm_state(np.random.RandomState(seed + 8), rule, FULL_DIMS, dev)
+    got, got_loss = linear_scan(rule, hyper, st_k, ti, tv, ty)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref, ref_loss = linear_scan_reference(rule, hyper, st_r, ti, tv, ty)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    err = compare("arow@2^22", got, ref, got_loss, ref_loss)
+    # time the kernel on a scratch state (launches keep training it)
+    st_t = warm_state(np.random.RandomState(seed + 9), rule, FULL_DIMS, dev)
+    ms = cuda_ms(lambda: linear_scan(rule, hyper, st_t, ti, tv, ty), 20)
+    nbytes, uniq = bytes_per_block(idx, FULL_DIMS, n_tables=2)
+    flops = b * WIDTH * 12
+    bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS)
+    floor_ms = chain_floor_ms(ti, tv, FULL_DIMS, 20)
+    print(f"[width] arow D=2^22 B={b} K={WIDTH}: kernel {ms:.4f} ms/block "
+          f"({1e3 * ms / b:.4f} us/row, {b / ms * 1e3:.0f} rows/s), plain "
+          f"{plain_ms:.1f} ms/block, bound {bound_ms:.6f} ms "
+          f"({nbytes} B, {uniq} distinct ids), max|err| {err:.3g}")
+    print(f"[width] row-serial latency floor (row_chain_floor, same block): "
+          f"{floor_ms:.4f} ms/block ({1e3 * floor_ms / b:.4f} us/row); the "
+          f"scan takes {ms / floor_ms:.2f}x its floor")
+    return err, ms, plain_ms, bound_ms, floor_ms
+
+
+def ctr_rows(rng, n, dims, w_true):
+    """Synthetic CTR rows: 32 hashed ids of value 1.0, label from a hidden
+    linear model (logistic noise)."""
+    idx = workload_ids(rng, (n, WIDTH), dims)
+    logit = w_true[idx].sum(axis=1)
+    y = (logit + rng.logistic(size=n) > 0).astype(np.float32)
+    return idx, np.ones((n, WIDTH), np.float32), y
+
+
+def holdout(model, idx, val, y):
+    score = model.predict((list(idx), list(val)))
+    assert score.shape == (len(y),) and np.all(np.isfinite(score)), \
+        "predict: bad scores"
+    p = 1.0 / (1.0 + np.exp(-np.clip(score, -30, 30)))
+    acc = float(np.mean((score > 0) == (y > 0)))
+    ll = float(-np.mean(y * np.log(np.clip(p, 1e-7, 1)) +
+                        (1 - y) * np.log(np.clip(1 - p, 1e-7, 1))))
+    return acc, ll
+
+
+def phase_main(seed, dev):
+    import torch
+
+    from hivemall_tpu_torch.kernels.linear_scan import LAUNCHES
+    from hivemall_tpu_torch.models.classifier import train_arow
+
+    rng = np.random.RandomState(seed + 11)
+    w_true = (rng.randn(FULL_DIMS) * 0.5).astype(np.float32)
+    idx, val, y = ctr_rows(rng, ROWS, FULL_DIMS, w_true)
+    h_idx, h_val, h_y = ctr_rows(rng, 32768, FULL_DIMS, w_true)
+    feats = (list(idx), list(val))
+    out = {}
+    for name, opts in (("pallas", "-dims 4194304 -pallas -block_size 4096"),
+                       ("mini_batch", "-dims 4194304 -mini_batch 4096")):
+        LAUNCHES["linear_scan"] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = train_arow(feats, y, opts)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = LAUNCHES["linear_scan"]
+        acc, ll = holdout(model, h_idx, h_val, h_y)
+        feats_out, w_out, c_out = model.model_rows()
+        assert feats_out.shape == w_out.shape == c_out.shape, "model_rows"
+        assert np.all(np.isfinite(w_out)) and np.all(c_out > 0), "model_rows"
+        print(f"[main] train_arow {opts}: {ROWS} rows in {secs:.3f} s = "
+              f"{ROWS / secs:.0f} rows/s; holdout acc {acc:.4f} logloss "
+              f"{ll:.4f}; kernel launches {launches}; model_rows "
+              f"{feats_out.shape[0]}")
+        out[name] = (launches, acc)
+    assert out["pallas"][0] > 0, "the -pallas run launched no kernel"
+    assert out["mini_batch"][0] == 0
+    for name, (_, acc) in out.items():
+        assert acc > 0.55, f"{name}: holdout accuracy {acc} is near chance"
+
+    # a small -pallas fit on the card against the same fit on the CPU
+    rng = np.random.RandomState(seed + 12)
+    s_idx, _, s_y = ctr_rows(rng, 3000, 1 << 12, w_true[:1 << 12])
+    small = (list(s_idx), list(rng.randn(3000, WIDTH).astype(np.float32)))
+    m_gpu = train_arow(small, s_y, "-dims 4096 -pallas -block_size 1024")
+    m_cpu = train_arow(small, s_y, "-dims 4096 -pallas -block_size 1024",
+                       device="cpu")
+    np.testing.assert_allclose(m_gpu.state.weights.cpu().numpy(),
+                               m_cpu.state.weights.numpy(), rtol=RTOL,
+                               atol=ATOL, err_msg="small fit: weights")
+    np.testing.assert_allclose(m_gpu.state.covars.cpu().numpy(),
+                               m_cpu.state.covars.numpy(), rtol=RTOL,
+                               atol=ATOL, err_msg="small fit: covars")
+    print("[main] small -pallas fit: card == CPU")
+    return out["pallas"][0]
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    import hivemall_tpu_torch  # noqa: F401  (fails outside the repo)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    print(f"[device] {torch.cuda.get_device_name(0)}; torch "
+          f"{torch.__version__} cuda {torch.version.cuda}; {smi}")
+    t_start = time.perf_counter()
+    phase_build()
+    err = phase_families(args.seed, dev)
+    w_err, ms, plain_ms, bound_ms, floor_ms = phase_width(args.seed, dev)
+    launches = phase_main(args.seed, dev)
+    kernel = {"name": "linear_scan", "route": "cuda",
+              "source": "hivemall_tpu_torch/kernels/csrc/linear_scan.cu",
+              "replaces": "hivemall_tpu/kernels/linear_scan.py:44",
+              "launches": launches, "max_abs_err": max(err, w_err), "ms": ms,
+              "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+              "library_ms": None, "latency_floor_ms": floor_ms}
+    print(f"[done] {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": [kernel]}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,97 @@
+"""Feature parsing — the host-side front door of the framework.
+
+The linear learners' feature grammar: ``"name"`` or ``"name:value"`` —
+split at the FIRST colon, value defaults to 1.0, name may be an int index or
+arbitrary string (ref: core/.../model/FeatureValue.java:74-93). (The FM/FFM
+grammar is a later slice of the port.)
+
+String names are folded into the hashed feature space with bit-identical
+MurmurHash3 (see utils/hashing.py), which is the reference's own default
+canonicalization (ref: ftvec/hashing/FeatureHashingUDF.java:172).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Sequence, Tuple, Union
+
+import numpy as np
+
+from .hashing import DEFAULT_NUM_FEATURES, murmurhash3_bytes_batch
+
+FeatureLike = Union[str, Tuple[int, float], Tuple[str, float]]
+
+
+@dataclass
+class FeatureValue:
+    """Parsed (feature, value) pair (ref: model/FeatureValue.java:26)."""
+
+    feature: Union[int, str]
+    value: float = 1.0
+
+    @staticmethod
+    def parse(s: str) -> "FeatureValue":
+        if not s:
+            raise ValueError("feature string is empty")
+        pos = s.find(":")
+        if pos == 0:
+            raise ValueError(f"invalid feature {s!r}")
+        if pos < 0:
+            name: Union[int, str] = s
+            value = 1.0
+        else:
+            name = s[:pos]
+            vs = s[pos + 1 :]
+            if not vs:
+                raise ValueError(f"invalid feature value {s!r}")
+            value = float(vs)
+        try:
+            name = int(name)
+        except (TypeError, ValueError):
+            pass
+        return FeatureValue(name, value)
+
+
+def parse_feature(s: str) -> Tuple[Union[int, str], float]:
+    fv = FeatureValue.parse(s)
+    return fv.feature, fv.value
+
+
+def parse_features_batch(
+    rows: Sequence[Sequence[FeatureLike]],
+    num_features: int = DEFAULT_NUM_FEATURES,
+) -> Tuple[List[np.ndarray], List[np.ndarray]]:
+    """Parse many rows of features into (indices, values) numpy arrays.
+
+    Accepts per-row lists of "name[:value]" strings or (name, value) tuples.
+    String names are bulk murmur-hashed; int names index the space directly,
+    matching the reference's dense-model int-feature path
+    (ref: LearnerBaseUDTF.java:164-196 dense vs sparse model selection).
+    """
+    idx_rows: List[np.ndarray] = []
+    val_rows: List[np.ndarray] = []
+    # Collect string names for one vectorized hash pass.
+    str_names: List[str] = []
+    str_slots: List[Tuple[int, int]] = []  # (row, k) positions to backfill
+    for r, row in enumerate(rows):
+        idxs = np.empty(len(row), dtype=np.int64)
+        vals = np.empty(len(row), dtype=np.float32)
+        for k, f in enumerate(row):
+            if isinstance(f, str):
+                name, value = parse_feature(f)
+            else:
+                name, value = f
+            vals[k] = value
+            if isinstance(name, (int, np.integer)):
+                idxs[k] = int(name) % num_features
+            else:
+                idxs[k] = -1
+                str_slots.append((r, k))
+                str_names.append(str(name))
+        idx_rows.append(idxs)
+        val_rows.append(vals)
+    if str_names:
+        hashed = murmurhash3_bytes_batch(str_names, num_features)
+        for (r, k), h in zip(str_slots, hashed):
+            idx_rows[r][k] = h
+    return idx_rows, val_rows

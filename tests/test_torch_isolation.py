@@ -1,0 +1,89 @@
+"""The port stands alone: hivemall_tpu_torch and chip_smoke.py import neither
+jax (nor flax) nor anything of the JAX package, and the port's entry points
+do not carry on on the CPU by themselves."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / "hivemall_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "hivemall_tpu")
+
+
+def _port_sources():
+    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _is_forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def test_no_forbidden_import_in_sources():
+    bad = []
+    for path in _port_sources():
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [f"{path.relative_to(ROOT)}: {n}" for n in names
+                    if _is_forbidden(n)]
+    assert not bad, bad
+
+
+def test_importing_every_module_loads_no_jax():
+    mods = [".".join(p.relative_to(ROOT).with_suffix("").parts)
+            for p in PKG.rglob("*.py")]
+    mods = [m[: -len(".__init__")] if m.endswith(".__init__") else m
+            for m in mods]
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r}]\n"
+        "print(','.join(bad))\n"
+        "sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300,
+                          env={**os.environ, "PYTHONPATH": str(ROOT)})
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_default_device_without_cuda_raises():
+    """No GPU and no device named: a RuntimeError, not a quiet CPU run."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default is taken")
+    from hivemall_tpu_torch.device import resolve_device
+    from hivemall_tpu_torch.models.classifier import train_arow
+
+    feats = ([np.array([1, 2])], [np.ones(2, np.float32)])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_arow(feats, [1], "-dims 16")
+    with pytest.raises(RuntimeError):
+        resolve_device()
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_chip_smoke_refuses_without_cuda(tmp_path):
+    """chip_smoke.py exits non-zero and prints no result line without a GPU
+    (and, alone in a directory, without the package)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    script = tmp_path / "chip_smoke.py"
+    script.write_text((ROOT / "chip_smoke.py").read_text())
+    proc = subprocess.run([sys.executable, str(script)], cwd=tmp_path,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout

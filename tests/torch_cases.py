@@ -1,0 +1,80 @@
+"""Shared helpers for the torch-port parity tests (tests/test_torch_*.py):
+the port's rules by name, numpy carriers of a state between the JAX package
+and the port, and the state comparison at the reference's tolerances."""
+
+import numpy as np
+
+from hivemall_tpu.core.state import init_linear_state as jax_init_state
+from hivemall_tpu_torch.core.state import linear_state_to_numpy
+from hivemall_tpu_torch.models import classifier as TC
+from hivemall_tpu_torch.models import regression as TR
+
+RTOL, ATOL = 1e-5, 1e-6
+PORT_RULES = {r.name: r for mod in (TC, TR) for r in vars(mod).values()
+              if isinstance(r, type(TC.AROW))}
+
+
+def jax_state_numpy(st):
+    """The JAX state's fields as writable numpy copies."""
+    return {
+        "weights": np.array(st.weights, np.float32),
+        "covars": None if st.covars is None else np.array(st.covars,
+                                                          np.float32),
+        "slots": {k: np.array(v) for k, v in st.slots.items()},
+        "touched": np.array(st.touched),
+        "step": np.int32(st.step),
+        "globals": {k: np.array(v) for k, v in st.globals.items()},
+    }
+
+
+def warm_numpy(rule, dims, seed):
+    """A warm state as numpy fields: random tables, globals and step."""
+    rng = np.random.RandomState(seed)
+    return {
+        "weights": (0.1 * rng.randn(dims)).astype(np.float32),
+        "covars": rng.uniform(0.5, 1.5, dims).astype(np.float32)
+        if rule.use_covariance else None,
+        "slots": {s: (rng.randn(dims) if s == "sum_grad"
+                      else rng.uniform(0, 1, dims)).astype(np.float32)
+                  for s in rule.slot_names},
+        "touched": (rng.rand(dims) < 0.3).astype(np.int8),
+        "step": np.int32(500),
+        "globals": {g: np.float32(v) for g, v in
+                    (("n", 7.0), ("mean", 0.05), ("m2", 1.5))
+                    if g in rule.global_names},
+    }
+
+
+def jax_state_from_numpy(d):
+    import jax.numpy as jnp
+
+    st = jax_init_state(d["weights"].shape[0],
+                        use_covariance=d["covars"] is not None,
+                        slot_names=tuple(d["slots"]),
+                        global_names=tuple(d["globals"]))
+    return st.replace(
+        weights=jnp.asarray(d["weights"]),
+        covars=None if d["covars"] is None else jnp.asarray(d["covars"]),
+        slots={k: jnp.asarray(v) for k, v in d["slots"].items()},
+        touched=jnp.asarray(d["touched"]),
+        step=jnp.asarray(d["step"], jnp.int32),
+        globals={k: jnp.asarray(v, jnp.float32)
+                 for k, v in d["globals"].items()})
+
+
+def assert_states_match(got, want, got_loss, want_loss):
+    a, b = linear_state_to_numpy(got), want
+    np.testing.assert_allclose(a["weights"], b["weights"], rtol=RTOL, atol=ATOL)
+    if b["covars"] is not None:
+        np.testing.assert_allclose(a["covars"], b["covars"], rtol=RTOL,
+                                   atol=ATOL)
+    for s in b["slots"]:
+        np.testing.assert_allclose(a["slots"][s], b["slots"][s], rtol=RTOL,
+                                   atol=ATOL)
+    for g in b["globals"]:
+        np.testing.assert_allclose(a["globals"][g], b["globals"][g],
+                                   rtol=RTOL, atol=ATOL)
+    np.testing.assert_array_equal(a["touched"], b["touched"])
+    assert int(a["step"]) == int(b["step"])
+    np.testing.assert_allclose(np.asarray(got_loss), np.asarray(want_loss),
+                               rtol=RTOL, atol=ATOL)
