@@ -5,25 +5,35 @@
 
 Phases (any failure exits non-zero; nothing is caught):
 1. device  — require CUDA; print the card's name and power limit.
-2. build   — build the exact-scan kernel from kernels/csrc/linear_scan.cu
-             (nvcc, at first use) and print the build seconds and ptxas report.
-3. families — the kernel against its plain torch version on the card, for
-             every rule form the kernel has, at D=2^14, B=1000, K=32 with pad
-             and duplicate lanes, from a warm random state. Tolerance rtol
-             1e-4 / atol 1e-5: the kernel sums a row's lanes in warp-shuffle
-             order, the plain version in torch's order, and 1000 sequential
-             rows carry those last-bit differences forward.
-4. width   — AROW at full width (D=2^22, K=32, B=4096, log-uniform hashed
-             ids): kernel vs plain version, both timed on the card, beside
-             the kernel's bytes bound and its row-serial latency floor (the
-             library's row_chain_floor kernel: the per-row dependent chain
-             alone, timed on the same block).
-5. main    — the user's path: train_arow(..., "-dims 4194304 -pallas
-             -block_size 4096") on 262,144 synthetic CTR rows with the kernel's
-             launch count read around the run, then the same data with
+2. build   — build the kernels of kernels/csrc/linear_scan.cu (nvcc, at
+             first use) and print the build seconds, the ptxas report and
+             the scan's look-ahead depth by row width.
+3. families — the scan (plan kernel + scan kernel) against its plain torch
+             version on the card, for every rule form the kernel has (logress
+             under each of its four eta schedules), at D=2^14, B=1000, K=32
+             with pad and duplicate lanes, from a warm random state.
+             Tolerance rtol 1e-4 / atol 1e-5: the kernel sums a row's lanes
+             in warp-shuffle order, the plain version in torch's order, and
+             1000 sequential rows carry those last-bit differences forward.
+4. stress  — forwarding stress blocks at K in {8, 32, 64, 256}: one feature
+             repeated at every row distance 1..depth+2, every row identical,
+             and head-heavy repeats inside rows; then blocks at K=1024 and
+             the widest K the scan takes (shallower depths, down to 0). The
+             plan kernel equals its plain version exactly and the scan
+             matches the plain version (run on the CPU) as in phase 3.
+5. width   — AROW at full width (D=2^22, K=32, B=4096, log-uniform hashed
+             ids): plan and scan vs their plain versions, all timed on the
+             card, beside each kernel's bound and the row-serial latency
+             floor of the unpipelined design (row_chain_floor, same block);
+             the scan's timing instance's clock ticks per stage of a row.
+6. main    — the user's path: train_arow(..., "-dims 4194304 -pallas
+             -block_size 4096") on 262,144 synthetic CTR rows with the
+             kernels' launch counts read around the run and the host-staging
+             seconds of the same rows timed apart, then the same data with
              -mini_batch 4096; holdout accuracy/logloss, predict and
-             model_rows shapes, and a small -pallas fit on the card held
-             against the same fit on the CPU.
+             model_rows shapes; small -pallas fits of train_arow and
+             train_logistic_regr on the card held against the same fits on
+             the CPU.
 Prints a kernels JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 """
@@ -32,6 +42,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -56,8 +67,21 @@ def workload_ids(rng, shape, dims):
     return perm[ids]
 
 
+def logress_cases():
+    """(tag, rule, hyper) of logress under each eta schedule; `simple`'s
+    total_steps falls inside the families block's t range."""
+    from hivemall_tpu_torch.models import regression as R
+    from hivemall_tpu_torch.ops import eta as E
+
+    ests = (E.fixed(0.1), E.simple(0.1, 1500), E.invscaling(0.1, 0.1),
+            E.EtaEstimator("adjusting", eta0=0.3))
+    return [(f"logress/{e.kind}", R._make_logress_rule(e), R.logress_hyper(e))
+            for e in ests]
+
+
 def rule_cases():
-    """(rule, hyper, is_binary) for every rule form the kernel has."""
+    """(rule, hyper, is_binary) for every rule form the kernel has but
+    logress (see logress_cases)."""
     from hivemall_tpu_torch.models import classifier as C
     from hivemall_tpu_torch.models import regression as R
 
@@ -177,36 +201,72 @@ def phase_build():
     from hivemall_tpu_torch.kernels import build, linear_scan
 
     t0 = time.perf_counter()
-    linear_scan._library()
+    lib = linear_scan._library()
     secs = time.perf_counter() - t0
     print(f"[build] linear_scan.cu built and loaded in {secs:.2f} s")
-    for line in build.build_logs.get("linear_scan", "").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] {line.strip()}")
+    log = build.build_logs.get("linear_scan", "")
+    regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+    spills = sum(int(n) for n in re.findall(r"(\d+) bytes spill", log))
+    print(f"[build] ptxas: {len(regs)} kernels, {min(regs)}-{max(regs)} "
+          f"registers a thread, {spills} bytes of spills")
+    arow = linear_scan.KERNEL_FORMS["arow"][0]
+    print("[build] scan look-ahead (AROW) by row width: " + ", ".join(
+        f"K={k}: {lib.hm_linear_scan_depth(arow, k)}"
+        for k in (8, 32, 256, 1024, 2048, lib.hm_linear_scan_max_k())))
+
+
+def check_plan(tag, ti, dims, depth):
+    """The plan kernel == its plain version, exactly; returns the plan."""
+    import torch
+
+    from hivemall_tpu_torch.kernels.linear_scan import (
+        linear_scan_plan, linear_scan_plan_reference)
+
+    got = linear_scan_plan(ti, dims, depth)
+    want = linear_scan_plan_reference(ti, dims, depth)
+    for name, g, w in zip(("lead", "next", "fwd"), got, want):
+        assert torch.equal(g, w), f"{tag}: plan {name} differs"
+    return got
+
+
+def check_scan(tag, rule, hyper, idx, val, y, dims, seed, dev, ref_dev=None):
+    """Plan + scan kernels vs the plain version (on `ref_dev`, default the
+    card) on one block from a warm state; returns max |err|."""
+    import torch
+
+    from hivemall_tpu_torch.kernels.linear_scan import (
+        linear_scan, linear_scan_reference, scan_depth)
+
+    ti, tv, ty = (torch.from_numpy(a).to(dev) for a in (idx, val, y))
+    check_plan(tag, ti, dims, scan_depth(rule, idx.shape[1]))
+    st_k = warm_state(np.random.RandomState(seed), rule, dims, dev)
+    ref_dev = ref_dev or dev
+    st_r = warm_state(np.random.RandomState(seed), rule, dims, ref_dev)
+    got, got_loss = linear_scan(rule, hyper, st_k, ti, tv, ty)
+    torch.cuda.synchronize()
+    ref, ref_loss = linear_scan_reference(
+        rule, hyper, st_r, *(t.to(ref_dev) for t in (ti, tv, ty)))
+    return compare(tag, got, ref, got_loss, ref_loss)
 
 
 def phase_families(seed, dev):
     import torch
 
-    from hivemall_tpu_torch.kernels.linear_scan import (
-        linear_scan, linear_scan_reference)
+    from hivemall_tpu_torch.kernels.linear_scan import linear_scan
 
     dims, b, k = 1 << 14, 1000, WIDTH
     err = 0.0
-    for i, (rule, hyper, binary) in enumerate(rule_cases()):
+    cases = [(r.name, r, h, binary) for r, h, binary in rule_cases()]
+    cases += [(tag, r, h, False) for tag, r, h in logress_cases()]
+    for i, (tag, rule, hyper, binary) in enumerate(cases):
         rng = np.random.RandomState(seed + i)
         idx, val, y = block(rng, b, k, dims)
         if not binary:
             y = (0.3 * rng.randn(b)).astype(np.float32)
-        ti, tv, ty = (torch.from_numpy(a).to(dev) for a in (idx, val, y))
-        st_k = warm_state(np.random.RandomState(seed + 100 + i), rule, dims, dev)
-        st_r = warm_state(np.random.RandomState(seed + 100 + i), rule, dims, dev)
-        got, got_loss = linear_scan(rule, hyper, st_k, ti, tv, ty)
-        torch.cuda.synchronize()
-        ref, ref_loss = linear_scan_reference(rule, hyper, st_r, ti, tv, ty)
-        e = compare(rule.name, got, ref, got_loss, ref_loss)
+        e = check_scan(tag, rule, hyper, idx, val, y, dims, seed + 100 + i,
+                       dev)
         err = max(err, e)
-        print(f"[families] {rule.name:14s} kernel == plain  max|err| {e:.3g}")
+        print(f"[families] {tag:20s} kernel == plain  max|err| {e:.3g}")
     # the row chain with tables resident in L1/L2: AROW at D=2^14
     rule, hyper, _ = rule_cases()[5]
     rng = np.random.RandomState(seed)
@@ -214,8 +274,67 @@ def phase_families(seed, dev):
     ti, tv, ty = (torch.from_numpy(a).to(dev) for a in (idx, val, y))
     st = warm_state(rng, rule, dims, dev)
     ms = cuda_ms(lambda: linear_scan(rule, hyper, st, ti, tv, ty), 10)
-    print(f"[families] arow kernel at D=2^14 B={b} K={k}: {ms:.4f} ms/block "
-          f"= {1e3 * ms / b:.4f} us/row")
+    print(f"[families] arow plan + scan kernels at D=2^14 B={b} K={k}: "
+          f"{ms:.4f} ms/block = {1e3 * ms / b:.4f} us/row")
+    return err
+
+
+def stress_blocks(rng, b, k, dims, depth):
+    """(name, idx) forwarding stress blocks: one feature at every row
+    distance 1..depth+2 (lane 0, else hashed ids), every row identical, and
+    head-heavy repeats inside rows (ids drawn from a few hot features)."""
+    idx = workload_ids(rng, (b, k), dims).astype(np.int32)
+    hot = int(idx[0, 0])
+    r = 0
+    for dist in range(1, depth + 3):
+        r += dist
+        idx[r % b, 0] = hot
+    same = np.repeat(idx[1:2], b, 0)
+    head = workload_ids(rng, (b, k), 4 * k).astype(np.int32)
+    return [("distances", idx), ("same", same), ("head", head)]
+
+
+def phase_stress(seed, dev):
+    """The plain version runs on the CPU here: its index_add_ sums a
+    feature's lanes in lane order there, as the kernel does, while on the
+    card it adds them with atomics in no set order — which the head-heavy
+    blocks (hundreds of large deltas per feature) would turn into
+    differences of cancellation, not of the kernel."""
+    from hivemall_tpu_torch.kernels.linear_scan import _library, scan_depth
+
+    dims, b = 1 << 14, 256
+    err = 0.0
+    # cov (arow), two slots and derive_w (adagrad_rda), one slot
+    # (adagrad_regr); adadelta_regr is left to phase families: at K=256 it
+    # turns the row sums' order (warp shuffles vs torch) into differences
+    # past the tolerance, in the unpipelined kernel's arithmetic too
+    picks = [c for c in rule_cases() if c[0].name in
+             ("arow", "adagrad_rda", "adagrad_regr")]
+    for k in (8, 32, 64, 256):
+        for rule, hyper, binary in picks:
+            rng = np.random.RandomState(seed + k)
+            depth = scan_depth(rule, k)
+            val = (0.5 * rng.randn(b, k)).astype(np.float32)
+            y = (np.sign(rng.randn(b)) if binary
+                 else 0.3 * rng.randn(b)).astype(np.float32)
+            for name, idx in stress_blocks(rng, b, k, dims, depth):
+                e = check_scan(f"stress K={k} {rule.name} {name}", rule,
+                               hyper, idx, val, y, dims, seed + 200 + k, dev,
+                               ref_dev="cpu")
+                err = max(err, e)
+            print(f"[stress] K={k:3d} depth {depth} {rule.name:14s} "
+                  f"distances/same/head: plan exact, kernel == plain")
+    # the widest rows the scan takes run at a shallower depth, down to 0
+    lib_max = _library().hm_linear_scan_max_k()
+    for k in (1024, lib_max):
+        for rule, hyper, binary in picks[:2]:
+            rng = np.random.RandomState(seed + k)
+            idx, val, y = block(rng, 8, k, dims)
+            e = check_scan(f"wide K={k} {rule.name}", rule, hyper, idx, val,
+                           y, dims, seed + 300, dev, ref_dev="cpu")
+            err = max(err, e)
+            print(f"[stress] K={k} depth {scan_depth(rule, k)} {rule.name}: "
+                  f"plan exact, kernel == plain")
     return err
 
 
@@ -228,17 +347,36 @@ def bytes_per_block(idx, dims, n_tables):
     return b * k * 8 + b * 8 + uniq * n_tables * 4 * 2, uniq
 
 
+def plan_compares(lead, nxt, fwd, depth):
+    """Integer compares the plan kernel makes on this block (each lane's
+    scans stop at their first match): the leader scan, the next-lane scan
+    and the forwarding scan over earlier rows."""
+    b, k = lead.shape
+    lane = np.arange(k)[None, :]
+    row = np.arange(b)[:, None]
+    live = lead >= 0
+    lead_n = np.where(lead < lane, lead + 1, lane)
+    next_n = np.where(nxt >= 0, nxt - lane, k - 1 - lane)
+    dist, src = fwd >> 16, fwd & 0xFFFF
+    fwd_n = np.where(fwd >= 0, (dist - 1) * k + src + 1,
+                     np.minimum(depth, row) * k)
+    return int(np.sum(np.where(live, lead_n + next_n + fwd_n, 0)))
+
+
 def phase_width(seed, dev):
     import torch
 
     from hivemall_tpu_torch.kernels.linear_scan import (
-        linear_scan, linear_scan_reference)
+        _library, linear_scan, linear_scan_plan, linear_scan_plan_reference,
+        linear_scan_reference, scan_depth)
 
     rule, hyper, _ = rule_cases()[5]  # AROW
     b = 4096
+    depth = scan_depth(rule, WIDTH)
     rng = np.random.RandomState(seed + 7)
     idx, val, y = block(rng, b, WIDTH, FULL_DIMS)
     ti, tv, ty = (torch.from_numpy(a).to(dev) for a in (idx, val, y))
+    plan = check_plan("arow@2^22", ti, FULL_DIMS, depth)
     st_k = warm_state(np.random.RandomState(seed + 8), rule, FULL_DIMS, dev)
     st_r = warm_state(np.random.RandomState(seed + 8), rule, FULL_DIMS, dev)
     got, got_loss = linear_scan(rule, hyper, st_k, ti, tv, ty)
@@ -248,21 +386,75 @@ def phase_width(seed, dev):
     torch.cuda.synchronize()
     plain_ms = 1e3 * (time.perf_counter() - t0)
     err = compare("arow@2^22", got, ref, got_loss, ref_loss)
-    # time the kernel on a scratch state (launches keep training it)
+
+    # the scan kernel alone on the block's plan, on a scratch state
+    # (launches keep training it)
     st_t = warm_state(np.random.RandomState(seed + 9), rule, FULL_DIMS, dev)
-    ms = cuda_ms(lambda: linear_scan(rule, hyper, st_t, ti, tv, ty), 20)
+    ms = cuda_ms(lambda: linear_scan(rule, hyper, st_t, ti, tv, ty, plan=plan),
+                 20)
     nbytes, uniq = bytes_per_block(idx, FULL_DIMS, n_tables=2)
     flops = b * WIDTH * 12
     bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS)
     floor_ms = chain_floor_ms(ti, tv, FULL_DIMS, 20)
-    print(f"[width] arow D=2^22 B={b} K={WIDTH}: kernel {ms:.4f} ms/block "
-          f"({1e3 * ms / b:.4f} us/row, {b / ms * 1e3:.0f} rows/s), plain "
-          f"{plain_ms:.1f} ms/block, bound {bound_ms:.6f} ms "
-          f"({nbytes} B, {uniq} distinct ids), max|err| {err:.3g}")
-    print(f"[width] row-serial latency floor (row_chain_floor, same block): "
-          f"{floor_ms:.4f} ms/block ({1e3 * floor_ms / b:.4f} us/row); the "
-          f"scan takes {ms / floor_ms:.2f}x its floor")
-    return err, ms, plain_ms, bound_ms, floor_ms
+    print(f"[width] arow D=2^22 B={b} K={WIDTH} depth {depth}: scan kernel "
+          f"{ms:.4f} ms/block ({1e3 * ms / b:.4f} us/row, "
+          f"{b / ms * 1e3:.0f} rows/s), plain {plain_ms:.1f} ms/block, bound "
+          f"{bound_ms:.6f} ms ({nbytes} B, {uniq} distinct ids), max|err| "
+          f"{err:.3g}")
+    print(f"[width] row-serial latency floor of the unpipelined design "
+          f"(row_chain_floor, same block): {floor_ms:.4f} ms/block "
+          f"({1e3 * floor_ms / b:.4f} us/row); the scan takes "
+          f"{ms / floor_ms:.3f}x it")
+
+    # the plan kernel: time, plain version's time, bound
+    plan_ms = cuda_ms(lambda: linear_scan_plan(ti, FULL_DIMS, depth), 20)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    linear_scan_plan_reference(ti, FULL_DIMS, depth)
+    torch.cuda.synchronize()
+    plan_plain_ms = 1e3 * (time.perf_counter() - t0)
+    lead, nxt, fwd = (t.cpu().numpy() for t in plan)
+    compares = plan_compares(lead, nxt, fwd, depth)
+    plan_bytes = b * WIDTH * 4 * 4  # idx read, three tables written
+    plan_bound = 1e3 * max(plan_bytes / HBM_BYTES_PER_S, compares / FP32_FLOPS)
+    plan_by = ("bytes" if plan_bytes / HBM_BYTES_PER_S >= compares / FP32_FLOPS
+               else "operations")
+    print(f"[width] plan kernel: {plan_ms:.4f} ms/block, plain "
+          f"{plan_plain_ms:.2f} ms, bound {plan_bound:.6f} ms by {plan_by} "
+          f"({plan_bytes} B, {compares} compares)")
+
+    # the scan's timing instance: clock ticks of each stage of a row
+    lib = _library()
+    stages = lib.hm_linear_scan_stage_names().decode().split(",")
+    cycles = torch.zeros(len(stages), dtype=torch.int64, device=dev)
+    st_c = warm_state(np.random.RandomState(seed + 9), rule, FULL_DIMS, dev)
+    linear_scan(rule, hyper, st_c, ti, tv, ty, plan=plan, stage_cycles=cycles)
+    torch.cuda.synchronize()
+    per_row = {n: round(float(c) / b, 1)
+               for n, c in zip(stages, cycles.cpu().tolist())}
+    print(f"[width] scan clock ticks per row by stage (lane 0, timing "
+          f"instance): {json.dumps(per_row)}; total "
+          f"{sum(per_row.values()):.1f}")
+    scan = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "latency_floor_ms": floor_ms, "err": err}
+    plan_k = {"ms": plan_ms, "plain_ms": plan_plain_ms, "bound_ms": plan_bound,
+              "bound_by": plan_by}
+    return scan, plan_k
+
+
+def stage_rows_secs(feats, y, dims, block_size):
+    """Host seconds to stage and pack these rows into blocks, the fit's
+    host work before each block's copy to the card (`_stage_rows` and
+    `iter_blocks`)."""
+    from hivemall_tpu_torch.core.batch import iter_blocks, pad_to_bucket
+    from hivemall_tpu_torch.models.base import _stage_rows
+
+    t0 = time.perf_counter()
+    idx_rows, val_rows = _stage_rows(feats, dims)
+    width = pad_to_bucket(max(len(r) for r in idx_rows))
+    for _ in iter_blocks(idx_rows, val_rows, y, dims, block_size, width):
+        pass
+    return time.perf_counter() - t0
 
 
 def ctr_rows(rng, n, dims, w_true):
@@ -290,6 +482,7 @@ def phase_main(seed, dev):
 
     from hivemall_tpu_torch.kernels.linear_scan import LAUNCHES
     from hivemall_tpu_torch.models.classifier import train_arow
+    from hivemall_tpu_torch.models.regression import train_logistic_regr
 
     rng = np.random.RandomState(seed + 11)
     w_true = (rng.randn(FULL_DIMS) * 0.5).astype(np.float32)
@@ -297,15 +490,17 @@ def phase_main(seed, dev):
     h_idx, h_val, h_y = ctr_rows(rng, 32768, FULL_DIMS, w_true)
     feats = (list(idx), list(val))
     out = {}
+    staging = stage_rows_secs(feats, y, FULL_DIMS, 4096)
     for name, opts in (("pallas", "-dims 4194304 -pallas -block_size 4096"),
                        ("mini_batch", "-dims 4194304 -mini_batch 4096")):
-        LAUNCHES["linear_scan"] = 0
+        for key in LAUNCHES:
+            LAUNCHES[key] = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         model = train_arow(feats, y, opts)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        launches = LAUNCHES["linear_scan"]
+        launches = dict(LAUNCHES)
         acc, ll = holdout(model, h_idx, h_val, h_y)
         feats_out, w_out, c_out = model.model_rows()
         assert feats_out.shape == w_out.shape == c_out.shape, "model_rows"
@@ -315,8 +510,11 @@ def phase_main(seed, dev):
               f"{ll:.4f}; kernel launches {launches}; model_rows "
               f"{feats_out.shape[0]}")
         out[name] = (launches, acc)
-    assert out["pallas"][0] > 0, "the -pallas run launched no kernel"
-    assert out["mini_batch"][0] == 0
+    print(f"[main] host staging of the same {ROWS} rows (_stage_rows + "
+          f"iter_blocks, timed apart): {staging:.3f} s")
+    assert all(n > 0 for n in out["pallas"][0].values()), \
+        "the -pallas run skipped a kernel"
+    assert not any(out["mini_batch"][0].values())
     for name, (_, acc) in out.items():
         assert acc > 0.55, f"{name}: holdout accuracy {acc} is near chance"
 
@@ -333,8 +531,24 @@ def phase_main(seed, dev):
     np.testing.assert_allclose(m_gpu.state.covars.cpu().numpy(),
                                m_cpu.state.covars.numpy(), rtol=RTOL,
                                atol=ATOL, err_msg="small fit: covars")
-    print("[main] small -pallas fit: card == CPU")
-    return out["pallas"][0]
+    print("[main] small train_arow -pallas fit: card == CPU")
+
+    # logress, the repo's default regressor, through the kernel on the card
+    s_t = (rng.rand(3000) < 0.3).astype(np.float32)
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+    opts = "-dims 4096 -pallas -block_size 1024 -eta0 0.5"
+    m_gpu = train_logistic_regr(small, s_t, opts)
+    torch.cuda.synchronize()
+    launched = LAUNCHES["linear_scan"]
+    assert launched > 0, "train_logistic_regr -pallas launched no kernel"
+    m_cpu = train_logistic_regr(small, s_t, opts, device="cpu")
+    np.testing.assert_allclose(m_gpu.state.weights.cpu().numpy(),
+                               m_cpu.state.weights.numpy(), rtol=RTOL,
+                               atol=ATOL, err_msg="logress fit: weights")
+    print(f"[main] small train_logistic_regr -pallas fit: {launched} scan "
+          f"launches; card == CPU")
+    return out["pallas"][0], staging
 
 
 def main(argv=None) -> int:
@@ -361,16 +575,26 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     phase_build()
     err = phase_families(args.seed, dev)
-    w_err, ms, plain_ms, bound_ms, floor_ms = phase_width(args.seed, dev)
-    launches = phase_main(args.seed, dev)
-    kernel = {"name": "linear_scan", "route": "cuda",
-              "source": "hivemall_tpu_torch/kernels/csrc/linear_scan.cu",
-              "replaces": "hivemall_tpu/kernels/linear_scan.py:44",
-              "launches": launches, "max_abs_err": max(err, w_err), "ms": ms,
-              "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
-              "library_ms": None, "latency_floor_ms": floor_ms}
+    err = max(err, phase_stress(args.seed, dev))
+    scan, plan = phase_width(args.seed, dev)
+    launches, _ = phase_main(args.seed, dev)
+    source = "hivemall_tpu_torch/kernels/csrc/linear_scan.cu"
+    replaces = "hivemall_tpu/kernels/linear_scan.py:44"
+    kernels = [
+        {"name": "linear_scan", "route": "cuda", "source": source,
+         "replaces": replaces, "launches": launches["linear_scan"],
+         "max_abs_err": max(err, scan["err"]), "ms": scan["ms"],
+         "plain_ms": scan["plain_ms"], "bound_ms": scan["bound_ms"],
+         "bound_by": "bytes", "library_ms": None,
+         "latency_floor_ms": scan["latency_floor_ms"]},
+        {"name": "linear_scan_plan", "route": "cuda", "source": source,
+         "replaces": replaces, "launches": launches["linear_scan_plan"],
+         "max_abs_err": 0.0, "ms": plan["ms"], "plain_ms": plan["plain_ms"],
+         "bound_ms": plan["bound_ms"], "bound_by": plan["bound_by"],
+         "library_ms": None},
+    ]
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -65,6 +65,14 @@ def _make_logress_rule(eta_est):
     return Rule("logress", update, is_regression=True)
 
 
+def logress_hyper(eta_est) -> dict:
+    """The eta schedule's fields under the names of the CUDA scan kernel's
+    logress form (kernels/csrc/linear_scan.cu); the rule's own update reads
+    `eta_est` and ignores them."""
+    return {"schedule": eta_est.kind, "eta0": eta_est.eta0,
+            "total_steps": eta_est.total_steps, "power_t": eta_est.power_t}
+
+
 def train_logistic_regr(features: FeatureRows, targets, options: Optional[str] = None, **kw):
     o = base_options()
     o.add("t", "total_steps", True, "total of n_samples * epochs time steps", type=int)
@@ -74,8 +82,9 @@ def train_logistic_regr(features: FeatureRows, targets, options: Optional[str] =
     o.add("eta", None, True, "Fixed learning rate", type=float)
     o.add("boldDriver", None, False, "Use bold-driver eta adjustment")
     cl = o.parse(options, "train_logistic_regr")
-    rule = _make_logress_rule(get_eta(cl))
-    return fit_linear(rule, {}, cl, features, targets, **kw)
+    eta_est = get_eta(cl)
+    return fit_linear(_make_logress_rule(eta_est), logress_hyper(eta_est), cl,
+                      features, targets, **kw)
 
 
 train_logress = train_logistic_regr
