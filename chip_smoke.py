@@ -34,6 +34,19 @@ Phases (any failure exits non-zero; nothing is caught):
              model_rows shapes; small -pallas fits of train_arow and
              train_logistic_regr on the card held against the same fits on
              the CPU.
+7. serve   — main's -pallas model frozen at f32, bf16 and int8 (block 64),
+             loaded, and served by one ServingEngine each on the card
+             (max_batch 512, max_width 256: 42 buckets, warmed): table
+             bytes, warmup seconds and new allocator segments; scores of
+             1/8/64/512/2048-row flat pre-parsed requests against
+             model.predict (f32, rtol 1e-6 / atol 1e-7), the CPU engine
+             (bf16) and the numpy dequantized table (int8; both rtol 1e-5 /
+             atol 1e-6); holdout per precision (f32 equals main's digits);
+             p50/p99 host-clock latency of 200 requests of 1/64/512 rows
+             with no new allocator segment after warmup; then HTTP: f32
+             deployed as ctr v1 behind serve(), 4 clients x 16 POST
+             /predict of 64 string rows, a hot swap to int8 v2 mid-run,
+             zero failed requests.
 Prints a kernels JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 """
@@ -466,15 +479,20 @@ def ctr_rows(rng, n, dims, w_true):
     return idx, np.ones((n, WIDTH), np.float32), y
 
 
-def holdout(model, idx, val, y):
-    score = model.predict((list(idx), list(val)))
-    assert score.shape == (len(y),) and np.all(np.isfinite(score)), \
-        "predict: bad scores"
+def log_loss_acc(score, y):
+    """(accuracy, logloss) of margin scores against 0/1 labels."""
     p = 1.0 / (1.0 + np.exp(-np.clip(score, -30, 30)))
     acc = float(np.mean((score > 0) == (y > 0)))
     ll = float(-np.mean(y * np.log(np.clip(p, 1e-7, 1)) +
                         (1 - y) * np.log(np.clip(1 - p, 1e-7, 1))))
     return acc, ll
+
+
+def holdout(model, idx, val, y):
+    score = model.predict((list(idx), list(val)))
+    assert score.shape == (len(y),) and np.all(np.isfinite(score)), \
+        "predict: bad scores"
+    return log_loss_acc(score, y)
 
 
 def phase_main(seed, dev):
@@ -510,6 +528,8 @@ def phase_main(seed, dev):
               f"{ll:.4f}; kernel launches {launches}; model_rows "
               f"{feats_out.shape[0]}")
         out[name] = (launches, acc)
+        if name == "pallas":
+            served = (model, (h_idx, h_val, h_y), (acc, ll))
     print(f"[main] host staging of the same {ROWS} rows (_stage_rows + "
           f"iter_blocks, timed apart): {staging:.3f} s")
     assert all(n > 0 for n in out["pallas"][0].values()), \
@@ -548,7 +568,240 @@ def phase_main(seed, dev):
                                atol=ATOL, err_msg="logress fit: weights")
     print(f"[main] small train_logistic_regr -pallas fit: {launched} scan "
           f"launches; card == CPU")
-    return out["pallas"][0], staging
+    return out["pallas"][0], staging, served
+
+
+SERVE_SIZES = (1, 8, 64, 512, 2048)  # request rows; 2048 chunks at 512
+LATENCY_SIZES = (1, 64, 512)
+LATENCY_REQUESTS = 200
+
+
+def flat_rows(idx, val, s, n):
+    """Rows [s, s+n) of a [N, K] block in the engine's flat pre-parsed
+    request form (flat ids, flat values, row lengths)."""
+    k = idx.shape[1]
+    return (idx[s:s + n].ravel(), val[s:s + n].ravel(),
+            np.full(n, k, np.int64))
+
+
+def percentile_ms(secs, q):
+    return 1e3 * float(np.percentile(np.asarray(secs), q))
+
+
+def serve_http(paths, rows, want, dev):
+    """Deploy f32 as ctr v1, serve it on 127.0.0.1:0, run 4 client threads
+    x 16 POST /predict of 64 string rows each, hot-swap to the int8
+    artifact as v2 while they run; every answer must be whole and match
+    its version's engine scores. Returns (answers by version, seconds)."""
+    import threading
+    import urllib.request
+
+    from hivemall_tpu_torch.serving import ModelRegistry, serve
+
+    registry = ModelRegistry(max_batch=512, max_delay_ms=2.0, device=dev,
+                             engine_kwargs={"max_batch": 512,
+                                            "max_width": 256})
+    server = serve(registry, host="127.0.0.1", port=0)
+    port = server.server_address[1]
+    answers, errors = [], []
+    answered, swapped = threading.Event(), threading.Event()
+
+    def client(c):
+        for i in range(16):
+            if i == 8:  # the second half of every client's requests waits
+                swapped.wait(timeout=300)  # for v2 to be published
+            s = (c * 16 + i) * 64 % (len(rows) - 64)
+            body = json.dumps({"model": "ctr",
+                               "instances": rows[s:s + 64]}).encode()
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{port}/predict", data=body,
+                headers={"Content-Type": "application/json"})
+            try:
+                with urllib.request.urlopen(req, timeout=120) as r:
+                    answers.append((s, json.loads(r.read())))
+            except Exception as e:  # collected and asserted below
+                errors.append(repr(e))
+            answered.set()
+
+    try:
+        registry.deploy("ctr", paths["float32"], version="1")
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(4)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        # the hot swap, once v1 has answered: v2 loads and warms while the
+        # clients' first halves run against v1
+        assert answered.wait(timeout=120), "no /predict answered"
+        registry.deploy("ctr", paths["int8"], version="2")
+        swapped.set()
+        for t in threads:
+            t.join(timeout=300)
+            assert not t.is_alive(), "an HTTP client hung"
+        secs = time.perf_counter() - t0
+        models = json.loads(urllib.request.urlopen(
+            f"http://127.0.0.1:{port}/models", timeout=60).read())["models"]
+        metrics = urllib.request.urlopen(
+            f"http://127.0.0.1:{port}/metrics", timeout=60).read().decode()
+    finally:
+        server.shutdown()
+        server.server_close()
+        registry.shutdown()
+    assert not errors, f"failed requests: {errors[:3]}"
+    assert len(answers) == 64, f"{len(answers)} of 64 requests answered"
+    by_version = {}
+    for s, out in answers:
+        dtype = {"1": "float32", "2": "int8"}[out["version"]]
+        np.testing.assert_allclose(
+            np.asarray(out["predictions"], np.float32), want[dtype][s:s + 64],
+            rtol=1e-6, atol=1e-7, err_msg=f"/predict v{out['version']}")
+        by_version[out["version"]] = by_version.get(out["version"], 0) + 1
+    assert set(by_version) == {"1", "2"}, f"versions served: {by_version}"
+    assert [(m["name"], m["version"], m["weights_dtype"]) for m in models] \
+        == [("ctr", "2", "int8")], f"/models: {models}"
+    assert "hivemall_tpu_serving_ctr_rows" in metrics, "/metrics: no ctr"
+    return by_version, secs
+
+
+def phase_serve(served, dev, smi):
+    """Freeze main's -pallas model at f32, bf16 and int8, load each, serve
+    each from a bucketed engine on ``dev`` and over HTTP with a hot swap;
+    hold the scores against model.predict, the CPU engine and the numpy
+    dequantized table."""
+    import tempfile
+
+    import torch
+
+    from hivemall_tpu_torch.io.checkpoint import dequantize_int8
+    from hivemall_tpu_torch.runtime.metrics import (REGISTRY,
+                                                    alloc_segment_guard)
+    from hivemall_tpu_torch.runtime.tracing import TRACER
+    from hivemall_tpu_torch.serving import ServingEngine, freeze, load
+
+    model, (h_idx, h_val, h_y), main_holdout = served
+    h_idx = np.ascontiguousarray(h_idx, np.int64)
+    h_val = np.ascontiguousarray(h_val, np.float32)
+    live = model.predict((list(h_idx), list(h_val)))
+    print(f"[serve] card: {smi}")
+    engines, want, paths = {}, {}, {}
+    with tempfile.TemporaryDirectory(prefix="hivemall_serve_") as tmp:
+        for dtype, q in (("float32", None), ("bfloat16", "bf16"),
+                         ("int8", "int8")):
+            paths[dtype] = f"{tmp}/{dtype}"
+            t0 = time.perf_counter()
+            freeze(model, paths[dtype], name="ctr", quantize=q,
+                   quant_block_rows=64 if q == "int8" else None)
+            t1 = time.perf_counter()
+            art = load(paths[dtype])
+            t2 = time.perf_counter()
+            eng = ServingEngine(art, name=f"smoke_{dtype}", max_batch=512,
+                                max_width=256, device=dev)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            t3 = time.perf_counter()
+            segs = eng.warmup()
+            t4 = time.perf_counter()
+            assert eng.weights_dtype == dtype
+            assert len(eng.warmed_buckets) == 42
+            print(f"[serve] {dtype}: freeze {t1 - t0:.3f} s, load "
+                  f"{t2 - t1:.3f} s, to the card {t3 - t2:.3f} s; "
+                  f"table_bytes {eng.table_bytes}; warmup of "
+                  f"{len(eng.warmed_buckets)} buckets (batch "
+                  f"{eng.batch_buckets()} x width {eng.width_buckets()}) "
+                  f"{t4 - t3:.3f} s, {segs} new allocator segments")
+            engines[dtype] = eng
+            if dtype == "bfloat16":
+                cpu = ServingEngine(art, name="smoke_bf16_cpu",
+                                    max_batch=512, max_width=256,
+                                    device="cpu")
+                want[dtype] = cpu.predict(flat_rows(h_idx, h_val, 0, 2048))
+            elif dtype == "int8":
+                w = dequantize_int8(art.arrays["weight"],
+                                    art.arrays["weight__scale"], 64)
+                want[dtype] = np.sum(w[h_idx] * h_val, axis=1,
+                                     dtype=np.float32)
+            else:
+                want[dtype] = live
+        expect = {"float32": 4 * FULL_DIMS, "bfloat16": 2 * FULL_DIMS,
+                  "int8": FULL_DIMS + 4 * (FULL_DIMS // 64)}
+        for dtype, eng in engines.items():
+            assert eng.table_bytes == expect[dtype], \
+                f"{dtype}: table_bytes {eng.table_bytes}"
+
+        # scores at each request size, against each precision's reference
+        tol = {"float32": (1e-6, 1e-7), "bfloat16": (1e-5, 1e-6),
+               "int8": (1e-5, 1e-6)}
+        for dtype, eng in engines.items():
+            errs = []
+            for n in SERVE_SIZES:
+                got = eng.predict(flat_rows(h_idx, h_val, 0, n))
+                assert got.shape == (n,) and np.all(np.isfinite(got))
+                ref = want[dtype][:n]
+                np.testing.assert_allclose(got, ref, rtol=tol[dtype][0],
+                                           atol=tol[dtype][1],
+                                           err_msg=f"{dtype} at {n} rows")
+                errs.append(float(np.max(np.abs(got - ref))))
+            full = eng.predict(flat_rows(h_idx, h_val, 0, len(h_y)))
+            acc, ll = log_loss_acc(full, h_y)
+            print(f"[serve] {dtype}: served == reference at "
+                  f"{list(SERVE_SIZES)} rows (rtol {tol[dtype][0]:g}, atol "
+                  f"{tol[dtype][1]:g}), largest |diff| {max(errs):.3g}; "
+                  f"holdout of {len(h_y)} rows acc {acc:.4f} logloss "
+                  f"{ll:.4f}")
+            if dtype == "float32":
+                assert f"{acc:.4f} {ll:.4f}" == \
+                    f"{main_holdout[0]:.4f} {main_holdout[1]:.4f}", \
+                    "f32 serving moved main's holdout digits"
+
+        # latency: one request at a time, host clock around predict, which
+        # ends in the .cpu() copy of the scores
+        rng = np.random.RandomState(5)
+        for dtype, eng in engines.items():
+            counter = REGISTRY.counter(
+                "allocator", f"new_segments.serving.smoke_{dtype}")
+            before = counter.value
+            line, stages = [], []
+            for n in LATENCY_SIZES:
+                TRACER.clear()
+                secs = []
+                for s in rng.randint(0, len(h_y) - n, size=LATENCY_REQUESTS):
+                    req = flat_rows(h_idx, h_val, int(s), n)
+                    t0 = time.perf_counter()
+                    eng.predict(req)
+                    secs.append(time.perf_counter() - t0)
+                line.append(f"{n} rows p50 {percentile_ms(secs, 50):.4f} / "
+                            f"p99 {percentile_ms(secs, 99):.4f} ms")
+                br = TRACER.stage_breakdown()
+                stages.append(f"{n} rows " + ", ".join(
+                    f"{k[7:]} {br[k]['mean_ms']:.4f}" for k in
+                    ("engine.bucket", "engine.pad", "engine.dispatch",
+                     "engine.block")))
+            assert counter.value == before, \
+                f"{dtype}: {counter.value - before} allocator segments after " \
+                f"warmup"
+            print(f"[serve] {dtype} latency over {LATENCY_REQUESTS} requests "
+                  f"each: " + "; ".join(line) + "; new allocator segments "
+                  f"after warmup: 0")
+            print(f"[serve] {dtype} mean ms by stage (tracer spans): "
+                  + "; ".join(stages))
+        t0 = time.perf_counter()
+        for _ in range(1000):
+            with alloc_segment_guard("smoke_guard_cost", dev):
+                pass
+        print(f"[serve] alloc_segment_guard enter+exit: "
+              f"{1e3 * (time.perf_counter() - t0):.4f} us each (1000 on the "
+              f"host clock)")
+
+        # HTTP: strings of the held-out rows, scored against the engines
+        rows = [[f"{i}:{v:g}" for i, v in zip(r, vr)]
+                for r, vr in zip(h_idx[:4096].tolist(), h_val[:4096].tolist())]
+        ref = {d: engines[d].predict(flat_rows(h_idx, h_val, 0, 4096))
+               for d in ("float32", "int8")}
+        by_version, secs = serve_http(paths, rows, ref, dev)
+        print(f"[serve] HTTP: 4 clients x 16 POST /predict of 64 string rows "
+              f"in {secs:.3f} s with a hot swap f32 v1 -> int8 v2 mid-run: "
+              f"0 failed, answers by version {by_version}; /models names v2 "
+              f"int8; /metrics carries serving.ctr.*")
 
 
 def main(argv=None) -> int:
@@ -577,7 +830,14 @@ def main(argv=None) -> int:
     err = phase_families(args.seed, dev)
     err = max(err, phase_stress(args.seed, dev))
     scan, plan = phase_width(args.seed, dev)
-    launches, _ = phase_main(args.seed, dev)
+    launches, _, served = phase_main(args.seed, dev)
+    from hivemall_tpu_torch.kernels.linear_scan import LAUNCHES
+
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+    phase_serve(served, dev, smi)
+    print(f"[serve] kernel launches during the serve phase: "
+          f"{dict(LAUNCHES)} (serving runs no hand-written kernel)")
     source = "hivemall_tpu_torch/kernels/csrc/linear_scan.cu"
     replaces = "hivemall_tpu/kernels/linear_scan.py:44"
     kernels = [

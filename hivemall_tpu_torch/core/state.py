@@ -63,26 +63,33 @@ def init_linear_state(
     default for absent entries in the reference, ref: AROWClassifierUDTF.java:140).
 
     `initial_weights`/`initial_covars` support warm start, mirroring
-    `-loadmodel` (ref: LearnerBaseUDTF.java:215-333).
+    `-loadmodel` (ref: LearnerBaseUDTF.java:215-333). They are numpy arrays
+    or tensors; a bf16 tensor loaded at `dtype=torch.bfloat16` stays bf16
+    (numpy has no bf16, so it never passes through numpy).
     """
     dev = resolve_device(device)
+
+    def table(x):
+        t = x if torch.is_tensor(x) else torch.as_tensor(np.asarray(x))
+        return t.to(device=dev, dtype=dtype, copy=True)
+
     if initial_weights is not None:
-        weights = torch.as_tensor(np.asarray(initial_weights), device=dev) \
-            .to(dtype).clone()
+        weights = table(initial_weights)
     else:
         weights = torch.zeros((dims,), dtype=dtype, device=dev)
     covars = None
     if use_covariance:
         if initial_covars is not None:
-            covars = torch.as_tensor(np.asarray(initial_covars), device=dev) \
-                .to(dtype).clone()
+            covars = table(initial_covars)
         else:
             covars = torch.ones((dims,), dtype=dtype, device=dev)
     slots = {name: torch.zeros((dims,), dtype=torch.float32, device=dev)
              for name in slot_names}
     if initial_weights is not None:
-        touched = (torch.as_tensor(np.asarray(initial_weights), device=dev)
-                   != 0).to(torch.int8)
+        # from the caller's values, before any narrowing to `dtype`
+        w0 = initial_weights if torch.is_tensor(initial_weights) \
+            else torch.as_tensor(np.asarray(initial_weights))
+        touched = (w0.to(dev) != 0).to(torch.int8)
     else:
         touched = torch.zeros((dims,), dtype=torch.int8, device=dev)
     return LinearState(

@@ -45,7 +45,6 @@ _LATER_SLICE_FLAGS = {
     "native_apply": "the native batched apply (-native_apply)",
     "mxu_scatter": "the sorted-window gather/scatter (-mxu_scatter, "
                    "ops/mxu_scatter.py)",
-    "loadmodel": "model interchange (-loadmodel, io/checkpoint.py)",
 }
 
 
@@ -57,7 +56,7 @@ def base_options() -> Options:
           "The dimension of model [default: 2^24 hashed space]", default=None, type=int)
     o.add("disable_halffloat", None, False, "(accepted for parity; fp32/bf16 storage)")
     o.add("loadmodel", None, True,
-          "Warm-start from a saved model-rows table (a later slice of the port)")
+          "Warm-start from a saved model-rows table (ref: LearnerBaseUDTF.java:215-333)")
     # MIX client options accepted for signature parity
     # (ref: LearnerBaseUDTF.java:92-103)
     o.add("mix", "mix_servers", True, "(parity) MIX server list")
@@ -160,6 +159,12 @@ def fit_linear(
     labels = np.asarray(labels, dtype=np.float32)
     if label_map is not None:
         labels = label_map(labels)
+
+    if cl.has("loadmodel") and initial_weights is None:
+        from ..io.checkpoint import dense_from_rows, load_model_rows
+
+        feats0, w0, c0 = load_model_rows(cl.get("loadmodel"))
+        initial_weights, initial_covars = dense_from_rows(dims, feats0, w0, c0)
 
     idx_rows, val_rows = _stage_rows(features, dims)
     n = len(idx_rows)

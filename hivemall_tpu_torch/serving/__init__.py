@@ -1,0 +1,30 @@
+"""Online inference for the port: frozen artifacts (the JAX package's
+format, both ways), bucketed engines on the card, micro-batching with
+priorities / quotas / deadlines / adaptive windows, and a hot-swap
+registry behind POST /predict.
+
+    from hivemall_tpu_torch.serving import freeze, ModelRegistry, serve
+
+    freeze(model, "artifacts/ctr/1")
+    registry = ModelRegistry()            # the CUDA device; device="cpu" asks
+    registry.deploy("ctr", "artifacts/ctr/1")
+    server = serve(registry, port=8080)
+"""
+
+from .admission import (AIMDController, DeadlineExpired, PRIORITY_NAMES,
+                        QueueFull, ShedLowPriority, priority_class)
+from .artifact import Artifact, family_of, freeze, load
+from .batcher import BatcherClosed, DynamicBatcher
+from .engine import Servable, ServingEngine, make_servable
+from .placement import ModelExceedsDeviceBudget, Placement, SingleDevice
+from .server import ModelEntry, ModelRegistry, serve
+
+__all__ = [
+    "Artifact", "family_of", "freeze", "load",
+    "DynamicBatcher", "QueueFull", "BatcherClosed",
+    "AIMDController", "DeadlineExpired", "ShedLowPriority",
+    "PRIORITY_NAMES", "priority_class",
+    "Servable", "ServingEngine", "make_servable",
+    "Placement", "SingleDevice", "ModelExceedsDeviceBudget",
+    "ModelRegistry", "ModelEntry", "serve",
+]

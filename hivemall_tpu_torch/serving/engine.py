@@ -1,0 +1,593 @@
+"""Shape-bucketed online predictors for the linear family.
+
+The port of the JAX package's `serving/engine.py`. There, XLA compiles one
+program per input shape, so the engine pads every request to a
+power-of-two (batch, width) bucket and warms every bucket at load time.
+Eager torch compiles nothing, but the same buckets bound what the card
+sees: a fixed set of tensor shapes, whose memory the CUDA caching allocator
+holds after ``warmup()`` has run each once. The steady state then asks the
+driver for no new memory — witnessed by ``runtime.metrics.
+alloc_segment_guard`` around every predict (counter
+``allocator.new_segments.serving.<name>`` stays flat).
+
+- row width pads to a power of two >= 8 (``pad_to_bucket``), capped at
+  ``max_width`` (longer rows truncate, counted);
+- batch size pads to a power of two >= ``min_batch_bucket``, capped at
+  ``max_batch`` (bigger requests chunk);
+- staging is host numpy; the scorer runs on the servable's device; the
+  host waits for the scores in ``finalize`` (the ``.cpu()`` copy).
+
+Scorers (plain torch ops on the card, as the JAX scorers are plain jnp):
+- f32 / bf16 tables: the port's ``core/engine.make_predict``, the same
+  function ``TrainedLinearModel.predict`` runs, so a served score equals
+  the live model's; bf16 tables serve AT bf16 (the gathered window widens
+  to f32 inside the product);
+- int8 tables: ``_QuantLinearServable`` gathers the int8 ``[B, K]``
+  window, widens only that window, folds in ``scales[id >> block_shift]``
+  and sums in f32 — the table is never dequantized.
+
+Other families (multiclass, FM, FFM, MF, trees) and sharded placement are
+later slices of the port and raise by name.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..core.batch import FeatureBlock, pack_rows, pad_to_bucket
+from ..core.engine import live_lanes, make_predict
+from ..device import DeviceLike, resolve_device
+from ..runtime.metrics import REGISTRY, alloc_segment_guard
+from ..runtime.tracing import TRACER
+from .artifact import (LATER_SLICE_FAMILIES, Artifact, family_of, load,
+                       manifest_dtype, manifest_quant)
+from .placement import resolve_placement
+
+# serving latency is sub-ms-to-seconds shaped; finer low end than the
+# metrics default
+LATENCY_BUCKETS = (0.0002, 0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025,
+                   0.05, 0.1, 0.25, 0.5, 1.0, 2.5)
+
+
+class _Servable:
+    """THE servable protocol: host staging + padded scoring.
+
+    The engine, batcher, registry and /predict endpoint depend on nothing
+    else. The request path is three separated stages so the tracer can
+    attribute time per stage:
+
+    - ``stage(instances, b_pad, width_cap)`` — host-side parse + pad to
+      ``[b_pad, width_bucket]`` arrays (the "pad" span);
+    - ``dispatch(staged)`` — the host-to-device copy and the scorer's
+      launches, asynchronous on the card (the "dispatch" span);
+    - ``finalize(raw, n)`` — the scores back on the host as numpy: the
+      ``.cpu()`` copy is where the host waits (the "block" span).
+    """
+
+    family: str = ""
+    # the dtype the weight tables SERVE at (the manifest weights_dtype for
+    # artifacts) — surfaced per model on /models and /metrics
+    weights_dtype: str = "float32"
+    device: torch.device = torch.device("cpu")
+
+    def device_tables(self) -> List[torch.Tensor]:
+        """The resident score tables — whatever a request's gathers read.
+        Feeds table_bytes."""
+        return []
+
+    def table_bytes(self) -> int:
+        """Resident bytes of the score tables, ``numel * element_size``
+        summed — the quantity bf16/int8 artifacts shrink 2-4x."""
+        return sum(t.numel() * t.element_size() for t in self.device_tables())
+
+    def stage(self, instances, b_pad: int, width_cap: int):
+        raise NotImplementedError
+
+    def dispatch(self, staged):
+        raise NotImplementedError
+
+    def run_padded(self, instances, b_pad: int, width_cap: int):
+        return self.dispatch(self.stage(instances, b_pad, width_cap))
+
+    def finalize(self, raw, n: int):
+        return raw.detach().cpu().numpy()[:n]
+
+    def dummy_instance(self, width: int):
+        raise NotImplementedError
+
+    def count_overwide(self, instances, width_cap: int) -> int:
+        """How many rows will actually truncate at ``width_cap``."""
+        raise NotImplementedError
+
+    def row_keys(self, instances, width_cap: int):
+        """Per-row canonical keys for a hot-row score cache, or None when
+        the request (or the family) is not cacheable."""
+        return None
+
+
+def _is_preparsed(instances) -> bool:
+    """Pre-parsed requests (a LIST is always rows to parse):
+
+    - 2-TUPLE ``(idx_rows, val_rows)`` of per-row arrays — the
+      models.base._stage_rows convention;
+    - 3-TUPLE ``(flat_idx, flat_val, lens)`` — the same rows pre-packed
+      into flat arrays with per-row lengths, so staging needs no
+      per-request concatenate at all."""
+    return isinstance(instances, tuple) and len(instances) in (2, 3)
+
+
+def _preparsed_len(instances) -> int:
+    """Row count of a pre-parsed request (either tuple form)."""
+    return len(instances[2] if len(instances) == 3 else instances[0])
+
+
+def _preparsed_offsets(instances):
+    """Element offsets for slicing a flat pre-parsed request — computed
+    ONCE per predict call, not per chunk."""
+    if len(instances) == 2:
+        return None
+    lens = instances[2]
+    off = np.zeros(len(lens) + 1, np.int64)
+    np.cumsum(lens, out=off[1:])
+    return off
+
+
+def _preparsed_chunk(instances, s: int, e: int, off=None):
+    """Rows [s:e) of a pre-parsed request, preserving its form (the flat
+    form slices by the precomputed element offsets ``off``)."""
+    if len(instances) == 2:
+        return (instances[0][s:e], instances[1][s:e])
+    flat_i, flat_v, lens = instances
+    return (flat_i[off[s]:off[e]], flat_v[off[s]:off[e]], lens[s:e])
+
+
+class _SparseRowServable(_Servable):
+    """Shared staging for the "feature[:value]" row families: parse ->
+    width-bucket -> one padded FeatureBlock. Subclasses provide the score
+    call."""
+
+    def __init__(self, dims: int, device: torch.device) -> None:
+        self.dims = dims
+        self.device = device
+
+    def count_overwide(self, instances, width_cap: int) -> int:
+        if _is_preparsed(instances):
+            if len(instances) == 3:
+                return int(np.count_nonzero(
+                    np.asarray(instances[2]) > width_cap))
+            instances = instances[0]
+        return sum(1 for r in instances if len(r) > width_cap)
+
+    def stage(self, instances, b_pad: int, width_cap: int):
+        if _is_preparsed(instances):
+            return self._stage_preparsed(instances, b_pad, width_cap)
+        from ..models.base import _stage_rows
+
+        idx_rows, val_rows = _stage_rows(instances, self.dims)
+        n = len(idx_rows)
+        max_nnz = max((len(r) for r in idx_rows), default=1)
+        width = min(pad_to_bucket(max_nnz), width_cap)
+        return pack_rows(idx_rows, val_rows, np.zeros(n, dtype=np.float32),
+                         self.dims, width=width, batch_size=b_pad)
+
+    def _stage_preparsed(self, instances, b_pad: int, width_cap: int):
+        """Vectorised staging for pre-parsed requests: one masked
+        [n, width] gather over the flattened rows replaces the per-row
+        loop of pack_rows, with the same semantics (ids mod dims, rows past
+        width_cap truncate, pad lanes carry index == dims with value 0)."""
+        if len(instances) == 3:
+            flat_i, flat_v, lens = instances
+            n = len(lens)
+            lens = np.asarray(lens, np.int64)
+            flat_i = np.asarray(flat_i)
+            flat_v = np.asarray(flat_v, np.float32)
+        else:
+            idx_rows, val_rows = instances
+            n = len(idx_rows)
+            lens = np.fromiter((len(r) for r in idx_rows), np.int64,
+                               count=n)
+            flat_i = (np.concatenate(
+                [np.asarray(r, np.int64).ravel() for r in idx_rows])
+                if n else np.zeros(0, np.int64))
+            flat_v = (np.concatenate(
+                [np.asarray(r, np.float32).ravel() for r in val_rows])
+                if n else np.zeros(0, np.float32))
+        max_nnz = int(lens.max()) if n else 1
+        width = min(pad_to_bucket(max(1, max_nnz)), width_cap)
+        k = np.minimum(lens, width)
+        indices = np.full((b_pad, width), self.dims, dtype=np.int32)
+        values = np.zeros((b_pad, width), dtype=np.float32)
+        nnz = np.zeros(b_pad, dtype=np.int32)
+        total = int(lens.sum())
+        if total:
+            off = np.zeros(n, np.int64)
+            np.cumsum(lens[:-1], out=off[1:])
+            pos = np.arange(width, dtype=np.int64)
+            mask = pos[None, :] < k[:, None]
+            src = np.minimum(off[:, None] + pos[None, :], total - 1)
+            indices[:n] = np.where(mask, flat_i[src] % self.dims,
+                                   self.dims)
+            values[:n] = np.where(mask, flat_v[src], np.float32(0.0))
+        nnz[:n] = k.astype(np.int32)
+        return FeatureBlock(indices, values,
+                            np.zeros(b_pad, dtype=np.float32), nnz)
+
+    def dummy_instance(self, width):
+        return [(i, 1.0) for i in range(width)]
+
+    def row_keys(self, instances, width_cap: int):
+        """blake2b-128 digests over (ids mod dims as int64, values as f32),
+        in row order — the JAX package's keys, so a string row and its
+        pre-parsed twin share one key. Rows wider than ``width_cap`` make
+        the WHOLE request uncacheable (None): truncation lives in staging.
+        The score cache that reads them is a later slice of the port."""
+        from hashlib import blake2b
+
+        if _is_preparsed(instances):
+            if len(instances) == 3:
+                flat_i, flat_v, lens = instances
+                lens = np.asarray(lens, np.int64)
+                if lens.size and int(lens.max()) > width_cap:
+                    return None
+                flat_i = np.asarray(flat_i, np.int64) % self.dims
+                flat_v = np.asarray(flat_v, np.float32)
+                off = np.zeros(len(lens) + 1, np.int64)
+                np.cumsum(lens, out=off[1:])
+                idx_rows = [flat_i[off[i]:off[i + 1]]
+                            for i in range(len(lens))]
+                val_rows = [flat_v[off[i]:off[i + 1]]
+                            for i in range(len(lens))]
+            else:
+                idx_rows = [np.asarray(r, np.int64) % self.dims
+                            for r in instances[0]]
+                val_rows = [np.asarray(v, np.float32) for v in instances[1]]
+        else:
+            from ..models.base import _stage_rows
+
+            try:
+                idx_rows, val_rows = _stage_rows(instances, self.dims)
+            except (TypeError, ValueError):  # malformed: fails in predict
+                return None
+        keys = []
+        for idx, val in zip(idx_rows, val_rows):
+            if len(idx) > width_cap:
+                return None
+            keys.append(blake2b(
+                np.ascontiguousarray(idx, np.int64).tobytes()
+                + np.ascontiguousarray(val, np.float32).tobytes(),
+                digest_size=16).digest())
+        return keys
+
+
+class _LinearServable(_SparseRowServable):
+    """f32 or bf16 weights scored by core/engine.make_predict — the
+    function the trained model's own predict runs."""
+
+    family = "linear"
+
+    def __init__(self, state, dims: int) -> None:
+        from ..io.checkpoint import dtype_name
+
+        super().__init__(dims, state.device)
+        self.state = state
+        self.weights_dtype = dtype_name(state.weights.dtype)
+        self._predict = make_predict(use_covariance=False)
+
+    def dispatch(self, staged):
+        # the staged numpy arrays are fresh per request and never written
+        # again, and make_predict's copy to the device is a blocking one
+        return self._predict(self.state, staged.indices, staged.values)
+
+    def device_tables(self):
+        # weights only: the serving predict is built use_covariance=False,
+        # so a resident covariance table is reload baggage, not score-path
+        # bytes
+        return [self.state.weights]
+
+
+def q8_linear_scores(qw: torch.Tensor, scales: torch.Tensor,
+                     indices: torch.Tensor, values: torch.Tensor,
+                     block_shift: int) -> torch.Tensor:
+    """Dequant-free int8 scoring: gather the int8 [B, K] window, widen only
+    it, fold in its rows' per-block scales and sum in f32. A pad lane
+    (index outside [0, D)) reads index 0 and is masked to 0 — torch has no
+    fill mode, and an out-of-range index would be a device-side assert."""
+    live, sidx = live_lanes(indices, qw.shape[0])
+    w = qw[sidx].float() * scales[sidx >> block_shift]
+    w = torch.where(live, w, torch.zeros((), dtype=w.dtype, device=w.device))
+    return torch.sum(w * values, dim=-1)
+
+
+class _QuantLinearServable(_SparseRowServable):
+    """int8 linear weights served dequant-free (q8_linear_scores)."""
+
+    family = "linear"
+    weights_dtype = "int8"
+
+    def __init__(self, qw: torch.Tensor, scales: torch.Tensor,
+                 block_rows: int, dims: int) -> None:
+        super().__init__(dims, qw.device)
+        self.qw = qw
+        self.scales = scales
+        self.block_shift = int(block_rows).bit_length() - 1
+
+    def dispatch(self, staged):
+        idx = torch.from_numpy(staged.indices).to(self.device).long()
+        val = torch.from_numpy(staged.values).to(self.device)
+        return q8_linear_scores(self.qw, self.scales, idx, val,
+                                self.block_shift)
+
+    def device_tables(self):
+        return [self.qw, self.scales]
+
+
+def _quant_servable_from_artifact(art: Artifact,
+                                  dev: torch.device) -> _Servable:
+    """Quantized linear artifact -> dequant-free servable. bf16 tables
+    reload AT bf16 (the raw uint16 bits view back losslessly —
+    io.checkpoint.bf16_unpack_raw); int8 tables keep their q array + f32
+    scales and score through q8_linear_scores."""
+    from ..core.state import init_linear_state
+    from ..io.checkpoint import (QUANT_SCHEME_BF16, QUANT_SCHEME_INT8,
+                                 SCALE_SUFFIX, bf16_unpack_raw)
+
+    meta, a = art.meta, art.arrays
+    quant = manifest_quant(meta)
+    dims = int(meta["dims"])
+    if quant["scheme"] == QUANT_SCHEME_BF16:
+        state = init_linear_state(
+            dims, use_covariance=False, dtype=torch.bfloat16,
+            initial_weights=bf16_unpack_raw(a["weight"]), device=dev)
+        return _LinearServable(state, dims)
+    if quant["scheme"] == QUANT_SCHEME_INT8:
+        return _QuantLinearServable(
+            torch.from_numpy(np.array(a["weight"], np.int8)).to(dev),
+            torch.from_numpy(
+                np.array(a["weight" + SCALE_SUFFIX], np.float32)).to(dev),
+            int(quant["block_rows"]), dims)
+    raise ValueError(f"unknown quantized artifact: family {art.family!r}, "
+                     f"scheme {quant['scheme']!r}")
+
+
+def _servable_from_artifact(art: Artifact, dev: torch.device) -> _Servable:
+    if art.family in LATER_SLICE_FAMILIES:
+        raise ValueError(
+            f"make_servable: the {art.family!r} family is a later slice of "
+            f"the torch port (hivemall_tpu_torch); it serves the linear "
+            f"family")
+    if art.family != "linear":
+        raise ValueError(f"unknown artifact family {art.family!r}")
+    if manifest_quant(art.meta) is not None:
+        return _quant_servable_from_artifact(art, dev)
+    from ..core.state import init_linear_state
+    from ..io.checkpoint import dense_from_rows
+
+    meta, a = art.meta, art.arrays
+    # the table reloads at its MANIFEST dtype: the pack stores a bf16 table
+    # widened (value-exact), and reloading it wide would serve it at twice
+    # the bytes
+    w, c = dense_from_rows(int(meta["dims"]), a["feature"], a["weight"],
+                           a.get("covar"))
+    state = init_linear_state(
+        int(meta["dims"]), use_covariance=bool(meta["use_covariance"]),
+        dtype=manifest_dtype(meta), initial_weights=w, initial_covars=c,
+        device=dev)
+    return _LinearServable(state, int(meta["dims"]))
+
+
+def _servable_from_model(model, device: DeviceLike) -> _Servable:
+    family = family_of(model)
+    if family != "linear":
+        raise ValueError(
+            f"make_servable: the {family!r} family is a later slice of the "
+            f"torch port (hivemall_tpu_torch)")
+    state = model.state
+    if device is not None and torch.device(device) != state.device:
+        state = state.replace(
+            weights=state.weights.to(device),
+            covars=None if state.covars is None else state.covars.to(device))
+    return _LinearServable(state, model.dims)
+
+
+def _dtype_bits(name: str) -> int:
+    """Bits per element of a weights_dtype name."""
+    dt = getattr(torch, name, None)
+    if isinstance(dt, torch.dtype):
+        return dt.itemsize * 8
+    return 32
+
+
+Servable = _Servable
+
+
+def make_servable(obj, placement=None, device: DeviceLike = None) -> _Servable:
+    """Artifact | artifact dir path | trained model -> linear servable.
+
+    An artifact serves on ``device`` (None: the CUDA device, or a
+    RuntimeError when there is none). A trained model serves where its
+    state lives unless ``device`` names another device. ``placement`` is
+    None, "single_device" or a serving.placement.Placement; its
+    ``device_byte_budget`` is enforced here — a model whose resident
+    score-table bytes exceed it refuses to load
+    (ModelExceedsDeviceBudget)."""
+    placement = resolve_placement(placement)
+    if isinstance(obj, str):
+        obj = load(obj)
+    if isinstance(obj, Artifact):
+        servable = _servable_from_artifact(obj, resolve_device(device))
+    else:
+        servable = _servable_from_model(obj, device)
+    if placement.device_byte_budget is not None:
+        placement.check_budget(servable.table_bytes(),
+                               f"{servable.family} model "
+                               f"({servable.weights_dtype})")
+    return servable
+
+
+class ServingEngine:
+    """Bucketed, warmed, metered predictor for one model version.
+
+    `predict(instances)` is thread-safe: the tables are read-only and each
+    call stages fresh host arrays. The batcher's express and general lanes,
+    HTTP handler threads and a concurrent deploy's warmup may all call
+    torch on one device; the rows/sec estimate is the only shared
+    read-modify-write, under its lock.
+    """
+
+    def __init__(self, source, *, name: str = "default",
+                 max_batch: int = 512, max_width: int = 256,
+                 min_batch_bucket: int = 8, placement=None,
+                 device: DeviceLike = None) -> None:
+        if max_batch < min_batch_bucket:
+            raise ValueError("max_batch must be >= min_batch_bucket")
+        self.servable = source if isinstance(source, _Servable) \
+            else make_servable(source, placement=placement, device=device)
+        self.device = self.servable.device
+        self.placement = resolve_placement(placement).describe()
+        self.family = self.servable.family
+        self.name = name
+        self.max_batch = int(max_batch)
+        self.max_width = int(max_width)
+        self.min_batch_bucket = int(min_batch_bucket)
+        self._latency = REGISTRY.histogram(
+            f"serving.{name}.predict_seconds", LATENCY_BUCKETS)
+        self._rows = REGISTRY.counter("serving", f"{name}.rows")
+        self._truncated = REGISTRY.counter("serving", f"{name}.truncated_rows")
+        self.warmed_buckets: List[Tuple[int, int]] = []
+        # dispatch-level service-rate estimate (rows/sec EWMA over recent
+        # predicts); the express and general batcher lanes both call
+        # predict, so the read-modify-write is guarded
+        self.rows_per_sec = 0.0
+        self._rate_lock = threading.Lock()
+        # per-model precision surface (/models + /metrics)
+        self.weights_dtype = self.servable.weights_dtype
+        self.table_bytes = int(self.servable.table_bytes())
+        REGISTRY.set_gauge(f"serving.{name}.table_bytes",
+                           float(self.table_bytes))
+        REGISTRY.set_gauge(f"serving.{name}.weights_bits",
+                           float(_dtype_bits(self.weights_dtype)))
+
+    # -- buckets -------------------------------------------------------------
+
+    def batch_buckets(self) -> List[int]:
+        out, b = [], self.min_batch_bucket
+        while b < self.max_batch:
+            out.append(b)
+            b <<= 1
+        out.append(self.max_batch)
+        return out
+
+    def width_buckets(self) -> List[int]:
+        out, w = [], 8
+        while w < self.max_width:
+            out.append(w)
+            w <<= 1
+        out.append(self.max_width)
+        return out
+
+    def bucket_batch(self, n: int) -> int:
+        b = self.min_batch_bucket
+        while b < n:
+            b <<= 1
+        return min(b, self.max_batch)
+
+    # -- serving -------------------------------------------------------------
+
+    def warmup(self) -> int:
+        """Run one dummy batch through every (batch, width) bucket; returns
+        the caching-allocator segments the sweep added on the device (all
+        of them paid here, none in the steady state; 0 on the CPU). A
+        second warmup adds none."""
+        t0 = time.perf_counter()
+        self.warmed_buckets = []
+        with TRACER.span("engine.warmup", args={"engine": self.name,
+                                                "family": self.family}), \
+                alloc_segment_guard(f"serving.{self.name}.warmup",
+                                    self.device) as g:
+            for width in self.width_buckets():
+                inst = self.servable.dummy_instance(width)
+                for b in self.batch_buckets():
+                    raw = self.servable.run_padded([inst], b, self.max_width)
+                    self.servable.finalize(raw, 1)
+                    self.warmed_buckets.append((b, width))
+        REGISTRY.set_gauge(f"serving.{self.name}.warmup_seconds",
+                           time.perf_counter() - t0)
+        REGISTRY.set_gauge(f"serving.{self.name}.warmup_segments",
+                           float(g.segments))
+        return g.segments
+
+    def row_keys(self, instances):
+        """Per-row canonical cache keys for this request, or None when it
+        is not cacheable (over-wide rows, malformed input — which then
+        fails through the normal predict path)."""
+        return self.servable.row_keys(instances, self.max_width)
+
+    def predict(self, instances: Sequence):
+        """Score a request of any size (chunks above max_batch). Each
+        chunk's path is traced stage by stage — bucket selection, host
+        pad, device dispatch, host block — as child spans of whatever
+        request span is active.
+
+        ``instances`` is a list of rows, or a pre-parsed tuple:
+        ``(idx_rows, val_rows)`` per-row arrays (the
+        ``models.base._stage_rows`` convention) or the flat
+        ``(flat_idx, flat_val, lens)`` packed form (see _is_preparsed).
+        Returns numpy f32 scores."""
+        pre = (isinstance(self.servable, _SparseRowServable)
+               and _is_preparsed(instances))
+        off = _preparsed_offsets(instances) if pre else None
+        n = _preparsed_len(instances) if pre else len(instances)
+        if n == 0:
+            return []
+        t0 = time.perf_counter()
+        outs = []
+        with TRACER.span("engine.predict",
+                         args={"engine": self.name, "family": self.family,
+                               "rows": n}) as pspan:
+            for s in range(0, n, self.max_batch):
+                if pre:
+                    chunk = _preparsed_chunk(instances, s,
+                                             min(s + self.max_batch, n),
+                                             off)
+                    chunk_n = _preparsed_len(chunk)
+                else:
+                    chunk = instances[s:s + self.max_batch]
+                    chunk_n = len(chunk)
+                with TRACER.span("engine.bucket") as bspan:
+                    overwide = self.servable.count_overwide(chunk,
+                                                            self.max_width)
+                    if overwide:
+                        self._truncated.increment(overwide)
+                    b_pad = self.bucket_batch(chunk_n)
+                    bspan.set(rows=chunk_n, b_pad=b_pad)
+                with TRACER.span("engine.pad", args={"b_pad": b_pad}):
+                    staged = self.servable.stage(chunk, b_pad,
+                                                 self.max_width)
+                with alloc_segment_guard(f"serving.{self.name}",
+                                         self.device):
+                    with TRACER.span("engine.dispatch"):
+                        raw = self.servable.dispatch(staged)
+                    # finalize copies the scores to the host: the wait for
+                    # the device's launches happens here
+                    with TRACER.span("engine.block"):
+                        out = self.servable.finalize(raw, chunk_n)
+                outs.append(out)
+            self._rows.increment(n)
+            dt = time.perf_counter() - t0
+            self._latency.observe(dt, trace_id=TRACER.exemplar_id(pspan))
+            if dt > 0:
+                inst = n / dt
+                with self._rate_lock:
+                    self.rows_per_sec = inst if self.rows_per_sec <= 0.0 \
+                        else 0.8 * self.rows_per_sec + 0.2 * inst
+                    rate = self.rows_per_sec
+                REGISTRY.set_gauge(f"serving.{self.name}.engine_rows_per_sec",
+                                   rate)
+        if len(outs) == 1:
+            return outs[0]
+        return np.concatenate(outs)

@@ -1,0 +1,190 @@
+"""Binary codecs for model compression (numpy only).
+
+Mirrors the reference codec substrate (ref: utils/codec/{ZigZagLEB128Codec,
+DeflateCodec}.java and utils/lang/HalfFloat.java:34-80), byte for byte the
+sparse-model blobs of the JAX package's `utils/codec.py`: a blob written by either
+package decodes in the other. `io/checkpoint.save_model_rows(compressed=
+True)` writes model rows through `encode_sparse_model`.
+
+Half-float is IEEE 754 binary16 (numpy float16). The LEB128 array paths are
+vectorised numpy over int64 values; a value outside int64 takes the
+per-value Python path.
+"""
+
+from __future__ import annotations
+
+import struct
+import zlib
+from typing import Iterable, List, Optional, Tuple
+
+import numpy as np
+
+# ---------------------------------------------------------------- half float
+
+
+def float_to_half(x) -> np.ndarray:
+    return np.asarray(x, dtype=np.float32).astype(np.float16)
+
+
+def half_to_float(h) -> np.ndarray:
+    return np.asarray(h, dtype=np.float16).astype(np.float32)
+
+
+# ---------------------------------------------------------------- zigzag
+
+def zigzag_encode(v: int) -> int:
+    """Signed -> unsigned zigzag (ref: ZigZagLEB128Codec.java), in the
+    closed form that holds for unbounded Python ints."""
+    return (-v << 1) - 1 if v < 0 else v << 1
+
+
+def zigzag_decode(v: int) -> int:
+    return (v >> 1) ^ -(v & 1)
+
+
+# ---------------------------------------------------------------- LEB128
+
+def leb128_encode(value: int, out: bytearray) -> None:
+    """Unsigned LEB128 append."""
+    if value < 0:
+        raise ValueError("leb128 encodes unsigned values; zigzag first")
+    while True:
+        b = value & 0x7F
+        value >>= 7
+        if value:
+            out.append(b | 0x80)
+        else:
+            out.append(b)
+            return
+
+
+def leb128_decode(buf: bytes, pos: int = 0) -> Tuple[int, int]:
+    result = 0
+    shift = 0
+    while True:
+        b = buf[pos]
+        pos += 1
+        result |= (b & 0x7F) << shift
+        if not (b & 0x80):
+            return result, pos
+        shift += 7
+
+
+def _encode_int64(arr: np.ndarray) -> bytes:
+    """Zigzag + LEB128 of an int64 array: each value's 7-bit groups are
+    written at its byte offset, low group first."""
+    v = arr.astype(np.int64, copy=False)
+    u = ((v << 1) ^ (v >> 63)).view(np.uint64)
+    n = np.ones(u.shape, np.int64)  # bytes per value
+    rest = u >> np.uint64(7)
+    while rest.any():
+        n += rest != 0
+        rest = rest >> np.uint64(7)
+    start = np.cumsum(n) - n
+    out = np.empty(int(n.sum()), np.uint8)
+    for k in range(int(n.max())):
+        sel = n > k
+        group = (u[sel] >> np.uint64(7 * k)) & np.uint64(0x7F)
+        more = np.where(n[sel] > k + 1, 0x80, 0).astype(np.uint64)
+        out[start[sel] + k] = (group | more).astype(np.uint8)
+    return out.tobytes()
+
+
+def _decode_int64(buf: bytes, n: int) -> Optional[np.ndarray]:
+    """The inverse of `_encode_int64`; None when a value does not fit in
+    64 bits (the Python path takes it)."""
+    b = np.frombuffer(buf, np.uint8)
+    ends = np.flatnonzero(b < 0x80)[:n]
+    if ends.size < n:
+        raise IndexError("leb128 buffer ends inside a value")
+    start = np.zeros(n, np.int64)
+    start[1:] = ends[:-1] + 1
+    length = ends - start + 1
+    if int(length.max()) > 10 or np.any(
+            (length == 10) & (b[np.minimum(start + 9, b.size - 1)] > 1)):
+        return None
+    u = np.zeros(n, np.uint64)
+    for k in range(int(length.max())):
+        sel = length > k
+        u[sel] |= (b[start[sel] + k] & 0x7F).astype(np.uint64) \
+            << np.uint64(7 * k)
+    return (u >> np.uint64(1)).view(np.int64) \
+        ^ -(u & np.uint64(1)).view(np.int64)
+
+
+def zigzag_leb128_encode_array(values: Iterable[int]) -> bytes:
+    vals = values if isinstance(values, np.ndarray) else list(values)
+    arr = None
+    if not (isinstance(vals, np.ndarray)
+            and not np.can_cast(vals.dtype, np.int64, "safe")):
+        try:
+            arr = np.asarray(vals, np.int64)
+        except (OverflowError, ValueError):  # >64-bit: Python path only
+            arr = None
+    if arr is not None and arr.size:
+        return _encode_int64(arr.ravel())
+    out = bytearray()
+    for v in vals:
+        leb128_encode(zigzag_encode(int(v)), out)
+    return bytes(out)
+
+
+def zigzag_leb128_decode_array(buf: bytes, n: int) -> List[int]:
+    if n:
+        decoded = _decode_int64(buf, n)
+        if decoded is not None:
+            return decoded.tolist()
+    out = []
+    pos = 0
+    for _ in range(n):
+        v, pos = leb128_decode(buf, pos)
+        out.append(zigzag_decode(v))
+    return out
+
+
+# ------------------------------------------------------- model blob helpers
+
+def compress_model_blob(payload: bytes, level: int = 6) -> bytes:
+    """deflate a serialized model blob (DeflateCodec analog)."""
+    return zlib.compress(payload, level)
+
+
+def decompress_model_blob(blob: bytes) -> bytes:
+    return zlib.decompress(blob)
+
+
+def encode_sparse_model(feats: np.ndarray, weights: np.ndarray,
+                        half_float: bool = True) -> bytes:
+    """Compress (feature, weight) model rows: delta+zigzag-LEB128 indices +
+    fp16 weights + deflate — the FFMPredictionModel.writeExternal recipe
+    (ref: FFMPredictionModel.java:149-200)."""
+    feats = np.asarray(feats, np.int64)
+    order = np.argsort(feats)
+    feats = feats[order]
+    weights = np.asarray(weights, np.float32)[order]
+    deltas = np.diff(feats, prepend=0)
+    idx_bytes = zigzag_leb128_encode_array(deltas)
+    if half_float:
+        w_bytes = float_to_half(weights).tobytes()
+    else:
+        w_bytes = weights.tobytes()
+    header = struct.pack("<qB", len(feats), 1 if half_float else 0)
+    return compress_model_blob(header + struct.pack("<q", len(idx_bytes))
+                               + idx_bytes + w_bytes)
+
+
+def decode_sparse_model(blob: bytes) -> Tuple[np.ndarray, np.ndarray]:
+    payload = decompress_model_blob(blob)
+    n, hf = struct.unpack_from("<qB", payload, 0)
+    off = 9
+    (idx_len,) = struct.unpack_from("<q", payload, off)
+    off += 8
+    deltas = zigzag_leb128_decode_array(payload[off: off + idx_len], n)
+    off += idx_len
+    feats = np.cumsum(np.asarray(deltas, np.int64))
+    if hf:
+        weights = half_to_float(np.frombuffer(payload, np.float16, count=n,
+                                              offset=off))
+    else:
+        weights = np.frombuffer(payload, np.float32, count=n, offset=off).copy()
+    return feats, np.asarray(weights, np.float32)

@@ -108,7 +108,7 @@ def test_bf16_storage_above_2_24_dims():
 
 
 @pytest.mark.parametrize("flag", ["-native_scan", "-batch 8", "-native_apply",
-                                  "-mxu_scatter", "-loadmodel m.tsv"])
+                                  "-mxu_scatter"])
 def test_later_slice_flags_are_refused(flag):
     feats, y = rows(True, n=10)
     with pytest.raises(ValueError, match="later slice"):

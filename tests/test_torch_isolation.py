@@ -1,6 +1,6 @@
 """The port stands alone: hivemall_tpu_torch and chip_smoke.py import neither
-jax (nor flax) nor anything of the JAX package, and the port's entry points
-do not carry on on the CPU by themselves."""
+jax (nor flax, nor ml_dtypes) nor anything of the JAX package, and the
+port's entry points do not carry on on the CPU by themselves."""
 
 import ast
 import os
@@ -14,7 +14,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "hivemall_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "hivemall_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "ml_dtypes", "hivemall_tpu")
 
 
 def _port_sources():

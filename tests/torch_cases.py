@@ -78,3 +78,59 @@ def assert_states_match(got, want, got_loss, want_loss):
     assert int(a["step"]) == int(b["step"])
     np.testing.assert_allclose(np.asarray(got_loss), np.asarray(want_loss),
                                rtol=RTOL, atol=ATOL)
+
+
+# --- serving-slice helpers (tests/test_torch_{checkpoint,artifact,serving}.py)
+
+def bf16_values(x):
+    """f32 values that bf16 represents exactly (x rounded to bf16), so one
+    numpy array seeds a bf16 table in both packages without a rounding."""
+    import torch
+
+    return torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16) \
+        .float().numpy()
+
+
+def carried_models(rule_name="arow", dims=512, seed=0, bf16=False):
+    """(jax_model, port_model): one warm random linear state carried into
+    both packages' TrainedLinearModel (the port's on the CPU). With
+    ``bf16`` both hold their tables at bf16 — the dtype fit_linear picks
+    above 2^24 dims — from values bf16 represents exactly."""
+    import jax.numpy as jnp
+    import torch
+
+    from hivemall_tpu.models import classifier as JC
+    from hivemall_tpu.models import regression as JR
+    from hivemall_tpu.models.base import TrainedLinearModel as JModel
+    from hivemall_tpu_torch.core.state import linear_state_from_numpy
+    from hivemall_tpu_torch.models.base import TrainedLinearModel as TModel
+
+    port_rule = PORT_RULES[rule_name]
+    jax_rule = {r.name: r for mod in (JC, JR) for r in vars(mod).values()
+                if isinstance(r, type(JC.AROW))}[rule_name]
+    d = warm_numpy(port_rule, dims, seed)
+    if bf16:
+        d["weights"] = bf16_values(d["weights"])
+        if d["covars"] is not None:
+            d["covars"] = bf16_values(d["covars"])
+    js = jax_state_from_numpy(d)
+    ts = linear_state_from_numpy(d, device="cpu")
+    if bf16:
+        js = js.replace(weights=js.weights.astype(jnp.bfloat16),
+                        covars=None if js.covars is None
+                        else js.covars.astype(jnp.bfloat16))
+        ts = ts.replace(weights=ts.weights.to(torch.bfloat16),
+                        covars=None if ts.covars is None
+                        else ts.covars.to(torch.bfloat16))
+    return (JModel(state=js, rule=jax_rule, dims=dims, block_width=8),
+            TModel(state=ts, rule=port_rule, dims=dims, block_width=8))
+
+
+def request_rows(dims, n=40, k=12, seed=1):
+    """Scoring rows as "id:value" strings, ragged (1..k features), with ids
+    past ``dims`` so hashing (mod dims) applies."""
+    rng = np.random.RandomState(seed)
+    return [[f"{int(i)}:{float(v):.4f}"
+             for i, v in zip(rng.randint(0, 2 * dims, size=m),
+                             rng.randn(m))]
+            for m in rng.randint(1, k + 1, size=n)]
