@@ -47,6 +47,19 @@ Phases (any failure exits non-zero; nothing is caught):
              deployed as ctr v1 behind serve(), 4 clients x 16 POST
              /predict of 64 string rows, a hot swap to int8 v2 mid-run,
              zero failed requests.
+8. fm      — train_fm(..., "-c -dims 4194304 -factor 5 -mini_batch 4096")
+             on main's 262,144 rows: seconds and rows/s, host staging timed
+             apart, holdout accuracy/logloss (> 0.55), model_rows; the card
+             against the CPU from one CPU-made state (a 4096-row minibatch
+             block at 2^22 with and without averaging, a 2,048-row scan at
+             2^22, a 3,000-row -adareg train_fm at 2^12; rtol 1e-4 / atol
+             1e-5, touched exact), with the block step's time and the
+             scan's rows/s on the card; the model frozen at f32, bf16 and
+             int8 and served as in phase 7 (against model.predict, the CPU
+             engine and numpy scoring of the dequantized tables); HTTP: the
+             f32 artifact deployed as fm beside main's linear model as ctr,
+             4 clients x 4 POST /predict of 64 string rows, zero failed.
+             FM runs no hand-written kernel (the JAX FM step is plain XLA).
 Prints a kernels JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 """
@@ -184,6 +197,24 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps):
+    """Mean ms of one replay of fn()'s launches captured as a CUDA graph,
+    by CUDA events: the device's time for them without the host's cost of
+    issuing each (warmed on a side stream first, as capture requires)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay, reps)
 
 
 def chain_floor_ms(ti, tv, dims, reps):
@@ -495,17 +526,23 @@ def holdout(model, idx, val, y):
     return log_loss_acc(score, y)
 
 
-def phase_main(seed, dev):
+def main_data(seed):
+    """The main path's data: the hidden model, ROWS training rows and
+    32,768 held-out rows of synthetic CTR (phases main and fm)."""
+    rng = np.random.RandomState(seed + 11)
+    w_true = (rng.randn(FULL_DIMS) * 0.5).astype(np.float32)
+    train = ctr_rows(rng, ROWS, FULL_DIMS, w_true)
+    return w_true, train, ctr_rows(rng, 32768, FULL_DIMS, w_true)
+
+
+def phase_main(seed, dev, data):
     import torch
 
     from hivemall_tpu_torch.kernels.linear_scan import LAUNCHES
     from hivemall_tpu_torch.models.classifier import train_arow
     from hivemall_tpu_torch.models.regression import train_logistic_regr
 
-    rng = np.random.RandomState(seed + 11)
-    w_true = (rng.randn(FULL_DIMS) * 0.5).astype(np.float32)
-    idx, val, y = ctr_rows(rng, ROWS, FULL_DIMS, w_true)
-    h_idx, h_val, h_y = ctr_rows(rng, 32768, FULL_DIMS, w_true)
+    w_true, (idx, val, y), (h_idx, h_val, h_y) = data
     feats = (list(idx), list(val))
     out = {}
     staging = stage_rows_secs(feats, y, FULL_DIMS, 4096)
@@ -663,6 +700,117 @@ def serve_http(paths, rows, want, dev):
     return by_version, secs
 
 
+PRECISIONS = (("float32", None), ("bfloat16", "bf16"), ("int8", "int8"))
+SERVE_TOL = {"float32": (1e-6, 1e-7), "bfloat16": (1e-5, 1e-6),
+             "int8": (1e-5, 1e-6)}
+
+
+def frozen_engines(model, tmp, name, label, tag, dev):
+    """Freeze ``model`` at f32, bf16 and int8 (block 64) under ``tmp``,
+    load each and warm one engine ``<tag>_<dtype>`` on ``dev`` (max_batch
+    512, max_width 256: 42 buckets); print the seconds, table bytes and
+    new allocator segments of each. Returns (paths, artifacts, engines) by
+    dtype."""
+    import torch
+
+    from hivemall_tpu_torch.serving import ServingEngine, freeze, load
+
+    paths, arts, engines = {}, {}, {}
+    for dtype, q in PRECISIONS:
+        paths[dtype] = f"{tmp}/{name}_{dtype}"
+        t0 = time.perf_counter()
+        freeze(model, paths[dtype], name=name, quantize=q,
+               quant_block_rows=64 if q == "int8" else None)
+        t1 = time.perf_counter()
+        arts[dtype] = load(paths[dtype])
+        t2 = time.perf_counter()
+        eng = ServingEngine(arts[dtype], name=f"{tag}_{dtype}", max_batch=512,
+                            max_width=256, device=dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t3 = time.perf_counter()
+        segs = eng.warmup()
+        t4 = time.perf_counter()
+        assert eng.weights_dtype == dtype
+        assert len(eng.warmed_buckets) == 42
+        print(f"[{label}] {dtype}: freeze {t1 - t0:.3f} s, load "
+              f"{t2 - t1:.3f} s, to the card {t3 - t2:.3f} s; "
+              f"table_bytes {eng.table_bytes}; warmup of "
+              f"{len(eng.warmed_buckets)} buckets (batch "
+              f"{eng.batch_buckets()} x width {eng.width_buckets()}) "
+              f"{t4 - t3:.3f} s, {segs} new allocator segments")
+        engines[dtype] = eng
+    return paths, arts, engines
+
+
+def check_served(label, engines, want, h_idx, h_val, h_y):
+    """Scores of every engine at SERVE_SIZES rows against its precision's
+    reference (SERVE_TOL); prints the largest |diff| and the holdout.
+    Returns {dtype: (acc, logloss)}."""
+    out = {}
+    for dtype, eng in engines.items():
+        rtol, atol = SERVE_TOL[dtype]
+        errs = []
+        for n in SERVE_SIZES:
+            got = eng.predict(flat_rows(h_idx, h_val, 0, n))
+            assert got.shape == (n,) and np.all(np.isfinite(got))
+            ref = want[dtype][:n]
+            np.testing.assert_allclose(got, ref, rtol=rtol, atol=atol,
+                                       err_msg=f"{label} {dtype} at {n} rows")
+            errs.append(float(np.max(np.abs(got - ref))))
+        full = eng.predict(flat_rows(h_idx, h_val, 0, len(h_y)))
+        out[dtype] = log_loss_acc(full, h_y)
+        print(f"[{label}] {dtype}: served == reference at "
+              f"{list(SERVE_SIZES)} rows (rtol {rtol:g}, atol {atol:g}), "
+              f"largest |diff| {max(errs):.3g}; holdout of {len(h_y)} rows "
+              f"acc {out[dtype][0]:.4f} logloss {out[dtype][1]:.4f}")
+    return out
+
+
+def latency_report(label, tag, engines, h_idx, h_val):
+    """p50/p99 host-clock latency of LATENCY_REQUESTS one-at-a-time
+    requests per size and precision, the tracer's stage means, and no new
+    allocator segment after warmup."""
+    from hivemall_tpu_torch.runtime.metrics import REGISTRY
+    from hivemall_tpu_torch.runtime.tracing import TRACER
+
+    rng = np.random.RandomState(5)
+    for dtype, eng in engines.items():
+        counter = REGISTRY.counter(
+            "allocator", f"new_segments.serving.{tag}_{dtype}")
+        before = counter.value
+        line, stages = [], []
+        for n in LATENCY_SIZES:
+            TRACER.clear()
+            secs = []
+            for s in rng.randint(0, len(h_idx) - n, size=LATENCY_REQUESTS):
+                req = flat_rows(h_idx, h_val, int(s), n)
+                t0 = time.perf_counter()
+                eng.predict(req)
+                secs.append(time.perf_counter() - t0)
+            line.append(f"{n} rows p50 {percentile_ms(secs, 50):.4f} / "
+                        f"p99 {percentile_ms(secs, 99):.4f} ms")
+            br = TRACER.stage_breakdown()
+            stages.append(f"{n} rows " + ", ".join(
+                f"{k[7:]} {br[k]['mean_ms']:.4f}" for k in
+                ("engine.bucket", "engine.pad", "engine.dispatch",
+                 "engine.block")))
+        assert counter.value == before, \
+            f"{label} {dtype}: {counter.value - before} allocator segments " \
+            f"after warmup"
+        print(f"[{label}] {dtype} latency over {LATENCY_REQUESTS} requests "
+              f"each: " + "; ".join(line) + "; new allocator segments "
+              f"after warmup: 0")
+        print(f"[{label}] {dtype} mean ms by stage (tracer spans): "
+              + "; ".join(stages))
+
+
+def string_rows(h_idx, h_val, n):
+    """The first n held-out rows as "id:value" strings (the HTTP form)."""
+    return [[f"{i}:{v:g}" for i, v in zip(r, vr)]
+            for r, vr in zip(h_idx[:n].tolist(), h_val[:n].tolist())]
+
+
 def phase_serve(served, dev, smi):
     """Freeze main's -pallas model at f32, bf16 and int8, load each, serve
     each from a bucketed engine on ``dev`` and over HTTP with a hot swap;
@@ -670,58 +818,25 @@ def phase_serve(served, dev, smi):
     dequantized table."""
     import tempfile
 
-    import torch
-
     from hivemall_tpu_torch.io.checkpoint import dequantize_int8
-    from hivemall_tpu_torch.runtime.metrics import (REGISTRY,
-                                                    alloc_segment_guard)
-    from hivemall_tpu_torch.runtime.tracing import TRACER
-    from hivemall_tpu_torch.serving import ServingEngine, freeze, load
+    from hivemall_tpu_torch.runtime.metrics import alloc_segment_guard
+    from hivemall_tpu_torch.serving import ServingEngine
 
     model, (h_idx, h_val, h_y), main_holdout = served
     h_idx = np.ascontiguousarray(h_idx, np.int64)
     h_val = np.ascontiguousarray(h_val, np.float32)
     live = model.predict((list(h_idx), list(h_val)))
     print(f"[serve] card: {smi}")
-    engines, want, paths = {}, {}, {}
     with tempfile.TemporaryDirectory(prefix="hivemall_serve_") as tmp:
-        for dtype, q in (("float32", None), ("bfloat16", "bf16"),
-                         ("int8", "int8")):
-            paths[dtype] = f"{tmp}/{dtype}"
-            t0 = time.perf_counter()
-            freeze(model, paths[dtype], name="ctr", quantize=q,
-                   quant_block_rows=64 if q == "int8" else None)
-            t1 = time.perf_counter()
-            art = load(paths[dtype])
-            t2 = time.perf_counter()
-            eng = ServingEngine(art, name=f"smoke_{dtype}", max_batch=512,
-                                max_width=256, device=dev)
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            t3 = time.perf_counter()
-            segs = eng.warmup()
-            t4 = time.perf_counter()
-            assert eng.weights_dtype == dtype
-            assert len(eng.warmed_buckets) == 42
-            print(f"[serve] {dtype}: freeze {t1 - t0:.3f} s, load "
-                  f"{t2 - t1:.3f} s, to the card {t3 - t2:.3f} s; "
-                  f"table_bytes {eng.table_bytes}; warmup of "
-                  f"{len(eng.warmed_buckets)} buckets (batch "
-                  f"{eng.batch_buckets()} x width {eng.width_buckets()}) "
-                  f"{t4 - t3:.3f} s, {segs} new allocator segments")
-            engines[dtype] = eng
-            if dtype == "bfloat16":
-                cpu = ServingEngine(art, name="smoke_bf16_cpu",
-                                    max_batch=512, max_width=256,
-                                    device="cpu")
-                want[dtype] = cpu.predict(flat_rows(h_idx, h_val, 0, 2048))
-            elif dtype == "int8":
-                w = dequantize_int8(art.arrays["weight"],
-                                    art.arrays["weight__scale"], 64)
-                want[dtype] = np.sum(w[h_idx] * h_val, axis=1,
-                                     dtype=np.float32)
-            else:
-                want[dtype] = live
+        paths, arts, engines = frozen_engines(model, tmp, "ctr", "serve",
+                                              "smoke", dev)
+        cpu = ServingEngine(arts["bfloat16"], name="smoke_bf16_cpu",
+                            max_batch=512, max_width=256, device="cpu")
+        w = dequantize_int8(arts["int8"].arrays["weight"],
+                            arts["int8"].arrays["weight__scale"], 64)
+        want = {"float32": live,
+                "bfloat16": cpu.predict(flat_rows(h_idx, h_val, 0, 2048)),
+                "int8": np.sum(w[h_idx] * h_val, axis=1, dtype=np.float32)}
         expect = {"float32": 4 * FULL_DIMS, "bfloat16": 2 * FULL_DIMS,
                   "int8": FULL_DIMS + 4 * (FULL_DIMS // 64)}
         for dtype, eng in engines.items():
@@ -729,61 +844,15 @@ def phase_serve(served, dev, smi):
                 f"{dtype}: table_bytes {eng.table_bytes}"
 
         # scores at each request size, against each precision's reference
-        tol = {"float32": (1e-6, 1e-7), "bfloat16": (1e-5, 1e-6),
-               "int8": (1e-5, 1e-6)}
-        for dtype, eng in engines.items():
-            errs = []
-            for n in SERVE_SIZES:
-                got = eng.predict(flat_rows(h_idx, h_val, 0, n))
-                assert got.shape == (n,) and np.all(np.isfinite(got))
-                ref = want[dtype][:n]
-                np.testing.assert_allclose(got, ref, rtol=tol[dtype][0],
-                                           atol=tol[dtype][1],
-                                           err_msg=f"{dtype} at {n} rows")
-                errs.append(float(np.max(np.abs(got - ref))))
-            full = eng.predict(flat_rows(h_idx, h_val, 0, len(h_y)))
-            acc, ll = log_loss_acc(full, h_y)
-            print(f"[serve] {dtype}: served == reference at "
-                  f"{list(SERVE_SIZES)} rows (rtol {tol[dtype][0]:g}, atol "
-                  f"{tol[dtype][1]:g}), largest |diff| {max(errs):.3g}; "
-                  f"holdout of {len(h_y)} rows acc {acc:.4f} logloss "
-                  f"{ll:.4f}")
-            if dtype == "float32":
-                assert f"{acc:.4f} {ll:.4f}" == \
-                    f"{main_holdout[0]:.4f} {main_holdout[1]:.4f}", \
-                    "f32 serving moved main's holdout digits"
+        acc, ll = check_served("serve", engines, want, h_idx, h_val,
+                               h_y)["float32"]
+        assert f"{acc:.4f} {ll:.4f}" == \
+            f"{main_holdout[0]:.4f} {main_holdout[1]:.4f}", \
+            "f32 serving moved main's holdout digits"
 
         # latency: one request at a time, host clock around predict, which
         # ends in the .cpu() copy of the scores
-        rng = np.random.RandomState(5)
-        for dtype, eng in engines.items():
-            counter = REGISTRY.counter(
-                "allocator", f"new_segments.serving.smoke_{dtype}")
-            before = counter.value
-            line, stages = [], []
-            for n in LATENCY_SIZES:
-                TRACER.clear()
-                secs = []
-                for s in rng.randint(0, len(h_y) - n, size=LATENCY_REQUESTS):
-                    req = flat_rows(h_idx, h_val, int(s), n)
-                    t0 = time.perf_counter()
-                    eng.predict(req)
-                    secs.append(time.perf_counter() - t0)
-                line.append(f"{n} rows p50 {percentile_ms(secs, 50):.4f} / "
-                            f"p99 {percentile_ms(secs, 99):.4f} ms")
-                br = TRACER.stage_breakdown()
-                stages.append(f"{n} rows " + ", ".join(
-                    f"{k[7:]} {br[k]['mean_ms']:.4f}" for k in
-                    ("engine.bucket", "engine.pad", "engine.dispatch",
-                     "engine.block")))
-            assert counter.value == before, \
-                f"{dtype}: {counter.value - before} allocator segments after " \
-                f"warmup"
-            print(f"[serve] {dtype} latency over {LATENCY_REQUESTS} requests "
-                  f"each: " + "; ".join(line) + "; new allocator segments "
-                  f"after warmup: 0")
-            print(f"[serve] {dtype} mean ms by stage (tracer spans): "
-                  + "; ".join(stages))
+        latency_report("serve", "smoke", engines, h_idx, h_val)
         t0 = time.perf_counter()
         for _ in range(1000):
             with alloc_segment_guard("smoke_guard_cost", dev):
@@ -793,8 +862,7 @@ def phase_serve(served, dev, smi):
               f"host clock)")
 
         # HTTP: strings of the held-out rows, scored against the engines
-        rows = [[f"{i}:{v:g}" for i, v in zip(r, vr)]
-                for r, vr in zip(h_idx[:4096].tolist(), h_val[:4096].tolist())]
+        rows = string_rows(h_idx, h_val, 4096)
         ref = {d: engines[d].predict(flat_rows(h_idx, h_val, 0, 4096))
                for d in ("float32", "int8")}
         by_version, secs = serve_http(paths, rows, ref, dev)
@@ -802,6 +870,271 @@ def phase_serve(served, dev, smi):
               f"in {secs:.3f} s with a hot swap f32 v1 -> int8 v2 mid-run: "
               f"0 failed, answers by version {by_version}; /models names v2 "
               f"int8; /metrics carries serving.ctr.*")
+
+
+FM_FACTORS = 5
+FM_SCAN_ROWS = 2048
+
+
+def fm_compare(tag, got, ref):
+    """FM state on the card == the same run on the CPU (RTOL/ATOL on the
+    float fields, touched and step exact); returns max |err|."""
+    from hivemall_tpu_torch.models.fm import fm_state_to_numpy
+
+    a, b = fm_state_to_numpy(got), fm_state_to_numpy(ref)
+    err = 0.0
+    for k in ("w0", "w", "v", "lambda_w0", "lambda_w", "lambda_v"):
+        np.testing.assert_allclose(a[k], b[k], rtol=RTOL, atol=ATOL,
+                                   err_msg=f"{tag}: {k}")
+        err = max(err, float(np.max(np.abs(a[k] - b[k]))))
+    assert np.array_equal(a["touched"], b["touched"]), f"{tag}: touched"
+    assert a["step"] == b["step"], f"{tag}: step"
+    return err
+
+
+def sync(dev):
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def fm_card_vs_cpu(seed, dev, data):
+    """From one state made on the CPU: a minibatch block of 4096 rows at
+    D = FULL_DIMS (averaged and not), a scan of FM_SCAN_ROWS rows at
+    D = FULL_DIMS, and a small -adareg train_fm scan at D = 2^12, each on
+    ``dev`` and on the CPU. Returns the card's ms per minibatch block,
+    eager and replayed as a CUDA graph (None off the card)."""
+    from hivemall_tpu_torch.models import fm as F
+
+    w_true, (idx, val, y), _ = data
+    hyper = F.FMHyper(factors=FM_FACTORS, classification=True)
+    host = F.fm_state_to_numpy(
+        F.init_fm_state(FULL_DIMS, hyper, device="cpu"))
+    yy = np.where(y > 0, 1.0, -1.0).astype(np.float32)
+    block_ms = None
+    b = 4096
+    for avg in (True, False):
+        args = (idx[:b], val[:b], yy[:b], np.zeros(b, np.float32))
+        out = []
+        for d in (dev, "cpu"):
+            step = F.make_fm_step(hyper, "minibatch", mini_batch_average=avg,
+                                  device=d)
+            out.append(step(F.fm_state_from_numpy(host, d), *args)[0])
+        e = fm_compare(f"fm block avg={avg}", *out)
+        if avg and dev.type == "cuda":  # the train path's step, timed
+            step = F.make_fm_step(hyper, "minibatch", device=dev)
+            st = F.fm_state_from_numpy(host, dev)
+            ti, tv, ty, tva = (torch_on(a, dev) for a in args)
+
+            def run():
+                step(st, ti, tv, ty, tva)
+
+            block_ms = (cuda_ms(run, 20), graph_ms(run, 20))
+        print(f"[fm] minibatch block B={b} D={FULL_DIMS} "
+              f"mini_batch_average={avg}: card == CPU, max|err| {e:.3g}")
+
+    n = FM_SCAN_ROWS
+    args = (idx[:n], val[:n], yy[:n], np.zeros(n, np.float32))
+    out, secs = [], None
+    for d in (dev, "cpu"):
+        step = F.make_fm_step(hyper, "scan", device=d)
+        st = F.fm_state_from_numpy(host, d)
+        sync(dev)
+        t0 = time.perf_counter()
+        out.append(step(st, *args)[0])
+        sync(dev)
+        secs = secs or time.perf_counter() - t0
+    e = fm_compare("fm scan", *out)
+    print(f"[fm] scan of {n} rows D={FULL_DIMS}: card == CPU, max|err| "
+          f"{e:.3g}; on the card {secs:.3f} s = {n / secs:.0f} rows/s "
+          f"(plain torch ops, some 40 launches a row)")
+
+    rng = np.random.RandomState(seed + 13)
+    s_idx, _, s_y = ctr_rows(rng, 3000, 1 << 12, w_true[:1 << 12])
+    small = (list(s_idx), list(rng.randn(3000, WIDTH).astype(np.float32)))
+    opts = f"-c -dims 4096 -factor {FM_FACTORS} -adareg"
+    m = [F.train_fm(small, s_y, opts, device=d) for d in (dev, "cpu")]
+    e = fm_compare("fm adareg", m[0].state, m[1].state)
+    moved = np.abs(F.fm_state_to_numpy(m[1].state)["lambda_v"][:FM_FACTORS]
+                   - hyper.lambda0).max()
+    assert moved > 0, "-adareg left the lambdas where they started"
+    print(f"[fm] train_fm {opts} on 3000 rows: card == CPU, max|err| "
+          f"{e:.3g}; lambda_v moved up to {moved:.3g}")
+    return block_ms
+
+
+def fm_scorer_ms(state, h_idx, h_val, dev):
+    """The f32 scorer's launches for a 1-row request (batch bucket 8) and
+    a 512-row one at width 32, eager and replayed as a CUDA graph."""
+    from hivemall_tpu_torch.models.fm import _fm_scores
+
+    out = []
+    for b in (8, 512):
+        ti, tv = torch_on(h_idx[:b], dev), torch_on(h_val[:b], dev)
+
+        def run():
+            _fm_scores(state, ti, tv)
+
+        out.append(f"batch {b}: {cuda_ms(run, 50):.4f} eager, "
+                   f"{graph_ms(run, 50):.4f} as one CUDA graph")
+    print("[fm] f32 scorer on the card, ms per call (CUDA events): "
+          + "; ".join(out))
+
+
+def torch_on(a, dev):
+    import torch
+
+    return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+
+def fm_http(linear_model, fm_path, rows, want, dev):
+    """The FM f32 artifact deployed as "fm" beside main's linear model as
+    "ctr" in one registry behind serve(); 4 clients x 4 POST /predict of
+    64 string rows for fm (and one for ctr), each answer held against the
+    FM engine's scores. Returns seconds."""
+    import threading
+    import urllib.request
+
+    from hivemall_tpu_torch.serving import ModelRegistry, serve
+
+    registry = ModelRegistry(max_batch=512, max_delay_ms=2.0, device=dev,
+                             engine_kwargs={"max_batch": 512,
+                                            "max_width": 256})
+    server = serve(registry, host="127.0.0.1", port=0)
+    port = server.server_address[1]
+    answers, errors = [], []
+
+    def post(model, s):
+        body = json.dumps({"model": model,
+                           "instances": rows[s:s + 64]}).encode()
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/predict", data=body,
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return json.loads(r.read())
+
+    def client(c):
+        for i in range(4):
+            s = (c * 4 + i) * 64
+            try:
+                answers.append((s, post("fm", s)))
+            except Exception as e:  # collected and asserted below
+                errors.append(repr(e))
+
+    try:
+        registry.deploy("ctr", linear_model, version="1")
+        registry.deploy("fm", fm_path, version="1")
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+            assert not t.is_alive(), "an HTTP client hung"
+        secs = time.perf_counter() - t0
+        ctr = post("ctr", 0)
+        models = json.loads(urllib.request.urlopen(
+            f"http://127.0.0.1:{port}/models", timeout=60).read())["models"]
+    finally:
+        server.shutdown()
+        server.server_close()
+        registry.shutdown()
+    assert not errors, f"failed requests: {errors[:3]}"
+    assert len(answers) == 16, f"{len(answers)} of 16 requests answered"
+    for s, out in answers:
+        assert out["model"] == "fm"
+        np.testing.assert_allclose(
+            np.asarray(out["predictions"], np.float32), want[s:s + 64],
+            rtol=1e-6, atol=1e-7, err_msg="/predict fm")
+    assert len(ctr["predictions"]) == 64 and ctr["model"] == "ctr"
+    assert sorted((m["name"], m["family"]) for m in models) == \
+        [("ctr", "linear"), ("fm", "fm")], f"/models: {models}"
+    return secs
+
+
+def phase_fm(seed, dev, smi, data, linear_model):
+    """FM on the main path's rows: train_fm at D = FULL_DIMS, k = 5,
+    -mini_batch 4096; the card against the CPU from one state; the model
+    frozen and served at f32, bf16 and int8; /predict over HTTP beside
+    main's linear model."""
+    import tempfile
+
+    from hivemall_tpu_torch.io.checkpoint import dequantize_int8
+    from hivemall_tpu_torch.models.fm import train_fm
+    from hivemall_tpu_torch.serving import ServingEngine
+
+    _, (idx, val, y), (h_idx, h_val, h_y) = data
+    h_idx = np.ascontiguousarray(h_idx, np.int64)
+    h_val = np.ascontiguousarray(h_val, np.float32)
+    print(f"[fm] card: {smi}")
+    feats = (list(idx), list(val))
+    opts = f"-c -dims {FULL_DIMS} -factor {FM_FACTORS} -mini_batch 4096"
+    staging = stage_rows_secs(feats, y, FULL_DIMS, 4096)
+    sync(dev)
+    t0 = time.perf_counter()
+    model = train_fm(feats, y, opts, device=dev)
+    sync(dev)
+    secs = time.perf_counter() - t0
+    acc, ll = holdout(model, h_idx, h_val, h_y)
+    w0, f_out, w_out, v_out = model.model_rows()
+    assert f_out.shape[0] == w_out.shape[0] == v_out.shape[0], "model_rows"
+    assert v_out.shape[1] == FM_FACTORS, "model_rows: V lanes"
+    assert np.isfinite(w0) and np.all(np.isfinite(w_out)) \
+        and np.all(np.isfinite(v_out)), "model_rows: not finite"
+    assert not model.state.v[:, FM_FACTORS:].any(), "V pad lanes moved"
+    print(f"[fm] train_fm {opts}: {len(y)} rows in {secs:.3f} s = "
+          f"{len(y) / secs:.0f} rows/s; host staging of the same rows "
+          f"(timed apart) {staging:.3f} s; holdout acc {acc:.4f} logloss "
+          f"{ll:.4f}; model_rows {f_out.shape[0]} (finite, V pad lanes 0)")
+    assert acc > 0.55, f"fm: holdout accuracy {acc} is near chance"
+
+    block_ms = fm_card_vs_cpu(seed, dev, data)
+    if block_ms is not None:
+        print(f"[fm] minibatch step (the train path's, B=4096, K={WIDTH}, "
+              f"D={FULL_DIMS}) on the card: {block_ms[0]:.4f} ms/block = "
+              f"{4096 / block_ms[0] * 1e3:.0f} rows/s eager; the same "
+              f"launches replayed as one CUDA graph (their host cost "
+              f"removed): {block_ms[1]:.4f} ms/block")
+
+    live = model.predict((list(h_idx), list(h_val)))
+    with tempfile.TemporaryDirectory(prefix="hivemall_fm_") as tmp:
+        paths, arts, engines = frozen_engines(model, tmp, "fm", "fm",
+                                              "smoke_fm", dev)
+        cpu = ServingEngine(arts["bfloat16"], name="smoke_fm_bf16_cpu",
+                            max_batch=512, max_width=256, device="cpu")
+        a = arts["int8"].arrays
+        w = dequantize_int8(a["w"], a["w__scale"], 64).astype(np.float64)
+        v = dequantize_int8(a["v"], a["v__scale"], 64).astype(np.float64)
+        ri, rv = h_idx[:2048], h_val[:2048].astype(np.float64)
+        vx = v[ri] * rv[..., None]
+        q8 = float(a["w0"]) + np.sum(w[ri] * rv, axis=1) + 0.5 * np.sum(
+            vx.sum(1) ** 2 - (vx * vx).sum(1), axis=1)
+        want = {"float32": live,
+                "bfloat16": cpu.predict(flat_rows(h_idx, h_val, 0, 2048)),
+                "int8": q8}
+        kp = model.hyper.padded_factors
+        nb = FULL_DIMS // 64
+        expect = {"float32": 4 * FULL_DIMS * (1 + kp),
+                  "bfloat16": 2 * FULL_DIMS * (1 + kp),
+                  "int8": FULL_DIMS * (1 + kp) + 4 * nb * (1 + kp)}
+        for dtype, eng in engines.items():
+            assert eng.table_bytes == expect[dtype], \
+                f"fm {dtype}: table_bytes {eng.table_bytes}"
+        served = check_served("fm", engines, want, h_idx, h_val, h_y)
+        assert f"{served['float32'][0]:.4f} {served['float32'][1]:.4f}" \
+            == f"{acc:.4f} {ll:.4f}", "f32 serving moved train_fm's holdout"
+        latency_report("fm", "smoke_fm", engines, h_idx, h_val)
+        if dev.type == "cuda":
+            fm_scorer_ms(engines["float32"].servable.state, h_idx, h_val, dev)
+        http_secs = fm_http(linear_model, paths["float32"],
+                            string_rows(h_idx, h_val, 1024),
+                            engines["float32"].predict(
+                                flat_rows(h_idx, h_val, 0, 1024)), dev)
+    print(f"[fm] HTTP: 4 clients x 4 POST /predict of 64 string rows for fm "
+          f"in {http_secs:.3f} s beside the linear model ctr: 0 failed, "
+          f"answers == the fm f32 engine")
 
 
 def main(argv=None) -> int:
@@ -830,7 +1163,8 @@ def main(argv=None) -> int:
     err = phase_families(args.seed, dev)
     err = max(err, phase_stress(args.seed, dev))
     scan, plan = phase_width(args.seed, dev)
-    launches, _, served = phase_main(args.seed, dev)
+    data = main_data(args.seed)
+    launches, _, served = phase_main(args.seed, dev, data)
     from hivemall_tpu_torch.kernels.linear_scan import LAUNCHES
 
     for key in LAUNCHES:
@@ -838,6 +1172,13 @@ def main(argv=None) -> int:
     phase_serve(served, dev, smi)
     print(f"[serve] kernel launches during the serve phase: "
           f"{dict(LAUNCHES)} (serving runs no hand-written kernel)")
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+    t_fm = time.perf_counter()
+    phase_fm(args.seed, dev, smi, data, served[0])
+    print(f"[fm] phase took {time.perf_counter() - t_fm:.1f} s; kernel "
+          f"launches during it: {dict(LAUNCHES)} (the FM path reaches no "
+          f"pallas_call in the JAX package and runs plain torch ops here)")
     source = "hivemall_tpu_torch/kernels/csrc/linear_scan.cu"
     replaces = "hivemall_tpu/kernels/linear_scan.py:44"
     kernels = [

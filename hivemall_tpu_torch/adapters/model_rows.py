@@ -15,17 +15,30 @@ from typing import Iterable, List, Tuple
 def iter_model_rows(model) -> Tuple[List[str], Iterable[tuple]]:
     """(column_names, iterable of typed row tuples) for a trained model.
 
+    - FM: feature(int), Wi(float), Vif(list[float]|None) — w0 rides the
+      feature == -1 row (the TSV/SQL convention; the reference parks it on
+      feature 0's bias slot)
     - linear: feature(int), weight(float)[, covar(float)]
 
-    Other families (multiclass, FM, FFM, trees) are later slices of the
-    port and raise ValueError.
+    Other families (multiclass, FFM, trees) are later slices of the port
+    and raise ValueError.
     """
+    from ..models.fm import TrainedFMModel
+
+    if isinstance(model, TrainedFMModel):
+        def fm_rows():
+            w0, feats, w, v = model.model_rows()
+            yield (-1, float(w0), None)
+            for f, wi, vi in zip(feats, w, v):
+                yield (int(f), float(wi), [float(x) for x in vi])
+
+        return ["feature", "Wi", "Vif"], fm_rows()
     if hasattr(model, "label_vocab") or not (
             hasattr(model, "state") and hasattr(model.state, "weights")):
         raise ValueError(
             f"{type(model).__name__}: model has no row emission in the torch "
-            f"port (hivemall_tpu_torch) — only the linear family is ported; "
-            f"the other families are later slices")
+            f"port (hivemall_tpu_torch) — the linear and FM families are "
+            f"ported; the other families are later slices")
     from ..core.state import model_rows as linear_rows
 
     rows = linear_rows(model.state)

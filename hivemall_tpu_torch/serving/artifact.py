@@ -12,11 +12,18 @@ with the same array names, dtypes and manifest keys, so an artifact frozen
 by either package loads and serves in the other. Rule names and dtype names
 (``"float32"``, ``"bfloat16"``, ``"int8"``) are the JAX package's strings.
 
-The port freezes the linear family: the (feature, weight[, covar])
-interchange rows of io/checkpoint.save_model_rows at full precision, or the
-dense weight table reduced to bf16 (raw uint16 bits) or int8 (per-block
-absmax with f32 scales). Other families, and the retrieval index, are later
-slices of the port and raise by name.
+The port freezes two families:
+
+- linear: the (feature, weight[, covar]) interchange rows of
+  io/checkpoint.save_model_rows at full precision, or the dense weight
+  table reduced to bf16 (raw uint16 bits) or int8 (per-block absmax with
+  f32 scales);
+- fm: every FMState table (w0, w, the lane-padded V, the lambdas,
+  touched) at full precision, or w and V reduced the same way with w0
+  kept f32.
+
+Other families, and the retrieval index, are later slices of the port and
+raise by name.
 """
 
 from __future__ import annotations
@@ -38,13 +45,13 @@ MANIFEST_FILE = "manifest.json"
 ARRAYS_FILE = "arrays.npz"
 
 # families the JAX package freezes whose port is a later slice
-LATER_SLICE_FAMILIES = ("multiclass", "fm", "ffm", "mf", "forest", "gbt")
+LATER_SLICE_FAMILIES = ("multiclass", "ffm", "mf", "forest", "gbt")
 
 
 def _later_slice(family: str, what: str) -> ValueError:
     return ValueError(
         f"{what}: the {family!r} family is a later slice of the torch port "
-        f"(hivemall_tpu_torch); it serves the linear family")
+        f"(hivemall_tpu_torch); it serves the linear and fm families")
 
 
 def _host(x) -> np.ndarray:
@@ -80,7 +87,11 @@ def manifest_quant(meta: dict) -> Optional[dict]:
 
 def family_of(model) -> str:
     """Family tag for a trained model (the adapters/model_rows.py dispatch
-    order, as a name). The port trains the linear family."""
+    order, as a name). The port trains the linear and fm families."""
+    from ..models.fm import TrainedFMModel
+
+    if isinstance(model, TrainedFMModel):
+        return "fm"
     if hasattr(model, "label_vocab"):
         return "multiclass"
     if hasattr(model, "state") and hasattr(model.state, "weights"):
@@ -121,10 +132,21 @@ def _build_payload(model):
     from ..io.checkpoint import dtype_name
 
     family = family_of(model)
-    if family != "linear":
+    if family not in ("linear", "fm"):
         raise _later_slice(family, "freeze")
     arrays: Dict[str, np.ndarray] = {}
     meta: dict = {"columns": _columns(model)}
+    if family == "fm":
+        st, hy = model.state, model.hyper
+        for k in ("w0", "w", "v", "lambda_w0", "lambda_w", "lambda_v",
+                  "touched"):
+            arrays[k] = _host(getattr(st, k))
+        meta.update(dims=int(model.dims), factors=int(hy.factors),
+                    classification=bool(hy.classification),
+                    sigma=float(hy.sigma), seed=int(hy.seed),
+                    lambda0=float(hy.lambda0),
+                    weights_dtype=dtype_name(st.w.dtype))
+        return family, arrays, meta
     # the io/checkpoint.save_model_rows interchange layout: untouched
     # entries are 0 (weights) / 1 (covars) by construction, so
     # dense_from_rows reproduces the live tables exactly
@@ -140,19 +162,21 @@ def _build_payload(model):
 
 
 # Families with a float weight table the JAX package's quantized serving
-# path understands; the port has the linear one.
+# path understands; the port has linear and fm.
 QUANTIZABLE_FAMILIES = ("linear", "multiclass", "fm", "mf")
 
 
 def _build_quantized_payload(model, quantize: str, block_rows: int):
-    """(family, arrays, meta) holding ONLY the score-path table, reduced.
+    """(family, arrays, meta) holding ONLY the score-path tables, reduced.
 
     Quantized artifacts are serving-only by construction: the linear
-    covariance is training state the scorer never reads, so it is dropped,
-    and the manifest's ``quant`` block records the layout. The dense weight
-    table stores as raw bf16 bits (``bf16``) or as per-block absmax int8
-    with its f32 scales alongside (``weight__scale``), blocked along the
-    feature axis the scorer gathers by.
+    covariance and FM's lambdas and touched mask are training state the
+    scorers never read, so they are dropped, and the manifest's ``quant``
+    block records the layout. Weight tables (linear ``weight``; FM ``w``
+    and the lane-padded ``v``, with ``w0`` kept f32) store as raw bf16 bits
+    (``bf16``) or as per-block absmax int8 with their f32 scales alongside
+    (``<name>__scale``), blocked along the feature axis the scorers gather
+    by — so FM's ``v`` scales are ``[ceil(D / block_rows), kp]``.
     """
     from ..io.checkpoint import (QUANT_SCHEME_BF16, QUANT_SCHEME_INT8,
                                  SCALE_SUFFIX, bf16_pack_raw, quantize_int8)
@@ -163,13 +187,22 @@ def _build_quantized_payload(model, quantize: str, block_rows: int):
             f"freeze(quantize={quantize!r}): family {family!r} has no "
             f"quantized serving path (supported: "
             f"{', '.join(QUANTIZABLE_FAMILIES)})")
-    if family != "linear":
+    if family not in ("linear", "fm"):
         raise _later_slice(family, f"freeze(quantize={quantize!r})")
     arrays: Dict[str, np.ndarray] = {}
     meta: dict = {"columns": _columns(model)}
-    tables = [("weight", _host(model.state.weights), 0)]
-    meta.update(dims=int(model.dims), rule=model.rule.name,
-                use_covariance=False)  # covariance dropped: never scored
+    # (pack name, host f32 table, quantized axis): the axis the serving
+    # gather indexes by, so scale blocks align with gathered ids
+    if family == "linear":
+        tables = [("weight", _host(model.state.weights), 0)]
+        meta.update(dims=int(model.dims), rule=model.rule.name,
+                    use_covariance=False)  # covariance dropped: never scored
+    else:
+        st, hy = model.state, model.hyper
+        tables = [("w", _host(st.w), 0), ("v", _host(st.v), 0)]
+        arrays["w0"] = np.asarray(_host(st.w0), np.float32)
+        meta.update(dims=int(model.dims), factors=int(hy.factors),
+                    classification=bool(hy.classification))
 
     if quantize == "bf16":
         for name, tab, _axis in tables:

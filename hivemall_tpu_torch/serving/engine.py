@@ -1,4 +1,4 @@
-"""Shape-bucketed online predictors for the linear family.
+"""Shape-bucketed online predictors for the linear and FM families.
 
 The port of the JAX package's `serving/engine.py`. There, XLA compiles one
 program per input shape, so the engine pads every request to a
@@ -18,15 +18,16 @@ alloc_segment_guard`` around every predict (counter
   host waits for the scores in ``finalize`` (the ``.cpu()`` copy).
 
 Scorers (plain torch ops on the card, as the JAX scorers are plain jnp):
-- f32 / bf16 tables: the port's ``core/engine.make_predict``, the same
-  function ``TrainedLinearModel.predict`` runs, so a served score equals
-  the live model's; bf16 tables serve AT bf16 (the gathered window widens
-  to f32 inside the product);
-- int8 tables: ``_QuantLinearServable`` gathers the int8 ``[B, K]``
-  window, widens only that window, folds in ``scales[id >> block_shift]``
-  and sums in f32 — the table is never dequantized.
+- f32 / bf16 tables: the function the trained model's own predict runs —
+  ``core/engine.make_predict`` (linear), ``models/fm._fm_scores`` (FM) —
+  so a served score equals the live model's; bf16 tables serve AT bf16
+  (the gathered window widens to f32 inside the product);
+- int8 tables: ``_QuantLinearServable`` / ``_QuantFMServable`` gather the
+  int8 ``[B, K]`` (and FM's ``[B, K, kp]``) windows, widen only those
+  windows, fold in ``scales[id >> block_shift]`` and sum in f32 — the
+  tables are never dequantized.
 
-Other families (multiclass, FM, FFM, MF, trees) and sharded placement are
+Other families (multiclass, FFM, MF, trees) and sharded placement are
 later slices of the port and raise by name.
 """
 
@@ -326,32 +327,130 @@ class _QuantLinearServable(_SparseRowServable):
         return [self.qw, self.scales]
 
 
+class _FMServable(_SparseRowServable):
+    """f32 or bf16 FM tables scored by models/fm._fm_scores — the function
+    TrainedFMModel.predict runs."""
+
+    family = "fm"
+
+    def __init__(self, state, dims: int) -> None:
+        from ..io.checkpoint import dtype_name
+
+        super().__init__(dims, state.device)
+        self.state = state
+        self.weights_dtype = dtype_name(state.w.dtype)
+
+    def dispatch(self, staged):
+        from ..models.fm import _fm_scores
+
+        return _fm_scores(self.state, staged.indices, staged.values)
+
+    def device_tables(self):
+        return [self.state.w, self.state.v]
+
+
+def q8_fm_scores(w0: torch.Tensor, qw: torch.Tensor, w_scales: torch.Tensor,
+                 qv: torch.Tensor, v_scales: torch.Tensor,
+                 indices: torch.Tensor, values: torch.Tensor,
+                 block_shift: int) -> torch.Tensor:
+    """Dequant-free int8 FM scoring: gather the int8 w [B, K] and v
+    [B, K, kp] windows, widen only them, fold in their rows' per-block
+    scales (``v_scales`` is [D / block_rows, kp]) and combine them with
+    the live scorer's row math (models/fm._row_predict), f32 throughout.
+    Pad lanes read index 0 and are masked to 0, as in q8_linear_scores."""
+    from ..models.fm import _row_predict
+
+    live, sidx = live_lanes(indices, qw.shape[0])
+    blk = sidx >> block_shift
+    zero = torch.zeros((), dtype=torch.float32, device=qw.device)
+    wg = torch.where(live, qw[sidx].float() * w_scales[blk], zero)
+    vg = torch.where(live[..., None], qv[sidx].float() * v_scales[blk], zero)
+    p, _ = _row_predict(w0, wg, vg, values)
+    return p
+
+
+class _QuantFMServable(_SparseRowServable):
+    """int8 FM w and v served dequant-free (q8_fm_scores); w0 stays f32."""
+
+    family = "fm"
+    weights_dtype = "int8"
+
+    def __init__(self, w0: torch.Tensor, qw: torch.Tensor,
+                 w_scales: torch.Tensor, qv: torch.Tensor,
+                 v_scales: torch.Tensor, block_rows: int, dims: int) -> None:
+        super().__init__(dims, qw.device)
+        self.w0 = w0
+        self.qw = qw
+        self.w_scales = w_scales
+        self.qv = qv
+        self.v_scales = v_scales
+        self.block_shift = int(block_rows).bit_length() - 1
+
+    def dispatch(self, staged):
+        idx = torch.from_numpy(staged.indices).to(self.device).long()
+        val = torch.from_numpy(staged.values).to(self.device)
+        return q8_fm_scores(self.w0, self.qw, self.w_scales, self.qv,
+                            self.v_scales, idx, val, self.block_shift)
+
+    def device_tables(self):
+        return [self.qw, self.w_scales, self.qv, self.v_scales]
+
+
+def _fm_serving_state(w0, w, v, dev: torch.device):
+    """An FMState holding the score-path tables on ``dev``, w0 f32; the
+    training-only fields are placeholders (_fm_scores reads w0, w and v
+    only, and quantized artifacts drop the rest)."""
+    from ..models.fm import FMState
+
+    def f32(x):
+        return torch.tensor(np.asarray(x, np.float32), device=dev)
+
+    return FMState(w0=f32(w0), w=w.to(dev), v=v.to(dev), lambda_w0=f32(0.0),
+                   lambda_w=f32(0.0), lambda_v=f32(np.zeros(v.shape[1])),
+                   touched=torch.ones(w.shape[0], dtype=torch.int8,
+                                      device=dev), step=0)
+
+
 def _quant_servable_from_artifact(art: Artifact,
                                   dev: torch.device) -> _Servable:
-    """Quantized linear artifact -> dequant-free servable. bf16 tables
-    reload AT bf16 (the raw uint16 bits view back losslessly —
-    io.checkpoint.bf16_unpack_raw); int8 tables keep their q array + f32
-    scales and score through q8_linear_scores."""
+    """Quantized linear or FM artifact -> dequant-free servable. bf16
+    tables reload AT bf16 (the raw uint16 bits view back losslessly —
+    io.checkpoint.bf16_unpack_raw); int8 tables keep their q arrays + f32
+    scales and score through q8_linear_scores / q8_fm_scores."""
     from ..core.state import init_linear_state
     from ..io.checkpoint import (QUANT_SCHEME_BF16, QUANT_SCHEME_INT8,
                                  SCALE_SUFFIX, bf16_unpack_raw)
 
     meta, a = art.meta, art.arrays
     quant = manifest_quant(meta)
+    scheme, fam = quant["scheme"], art.family
     dims = int(meta["dims"])
-    if quant["scheme"] == QUANT_SCHEME_BF16:
+
+    def tab(name, dt):
+        return torch.from_numpy(np.array(a[name], dt)).to(dev)
+
+    if scheme == QUANT_SCHEME_BF16 and fam == "linear":
         state = init_linear_state(
             dims, use_covariance=False, dtype=torch.bfloat16,
             initial_weights=bf16_unpack_raw(a["weight"]), device=dev)
         return _LinearServable(state, dims)
-    if quant["scheme"] == QUANT_SCHEME_INT8:
-        return _QuantLinearServable(
-            torch.from_numpy(np.array(a["weight"], np.int8)).to(dev),
-            torch.from_numpy(
-                np.array(a["weight" + SCALE_SUFFIX], np.float32)).to(dev),
-            int(quant["block_rows"]), dims)
-    raise ValueError(f"unknown quantized artifact: family {art.family!r}, "
-                     f"scheme {quant['scheme']!r}")
+    if scheme == QUANT_SCHEME_BF16 and fam == "fm":
+        return _FMServable(_fm_serving_state(
+            a["w0"], bf16_unpack_raw(a["w"]), bf16_unpack_raw(a["v"]), dev),
+            dims)
+    if scheme == QUANT_SCHEME_INT8:
+        block_rows = int(quant["block_rows"])
+        if fam == "linear":
+            return _QuantLinearServable(
+                tab("weight", np.int8), tab("weight" + SCALE_SUFFIX,
+                                            np.float32), block_rows, dims)
+        if fam == "fm":
+            return _QuantFMServable(
+                tab("w0", np.float32), tab("w", np.int8),
+                tab("w" + SCALE_SUFFIX, np.float32), tab("v", np.int8),
+                tab("v" + SCALE_SUFFIX, np.float32), block_rows, dims)
+    raise ValueError(f"unknown quantized artifact: family {fam!r}, "
+                     f"scheme {scheme!r}")
 
 
 def _servable_from_artifact(art: Artifact, dev: torch.device) -> _Servable:
@@ -359,11 +458,18 @@ def _servable_from_artifact(art: Artifact, dev: torch.device) -> _Servable:
         raise ValueError(
             f"make_servable: the {art.family!r} family is a later slice of "
             f"the torch port (hivemall_tpu_torch); it serves the linear "
-            f"family")
-    if art.family != "linear":
+            f"and fm families")
+    if art.family not in ("linear", "fm"):
         raise ValueError(f"unknown artifact family {art.family!r}")
     if manifest_quant(art.meta) is not None:
         return _quant_servable_from_artifact(art, dev)
+    if art.family == "fm":
+        # w and V reload at the manifest dtype; the scorer reads no
+        # training-only table
+        a, dt = art.arrays, manifest_dtype(art.meta)
+        w, v = (torch.from_numpy(np.asarray(a[k])).to(dt) for k in "wv")
+        return _FMServable(_fm_serving_state(a["w0"], w, v, dev),
+                           int(art.meta["dims"]))
     from ..core.state import init_linear_state
     from ..io.checkpoint import dense_from_rows
 
@@ -382,11 +488,16 @@ def _servable_from_artifact(art: Artifact, dev: torch.device) -> _Servable:
 
 def _servable_from_model(model, device: DeviceLike) -> _Servable:
     family = family_of(model)
-    if family != "linear":
+    if family not in ("linear", "fm"):
         raise ValueError(
             f"make_servable: the {family!r} family is a later slice of the "
             f"torch port (hivemall_tpu_torch)")
     state = model.state
+    if family == "fm":
+        if device is not None and torch.device(device) != state.device:
+            state = _fm_serving_state(float(state.w0), state.w, state.v,
+                                      torch.device(device))
+        return _FMServable(state, model.dims)
     if device is not None and torch.device(device) != state.device:
         state = state.replace(
             weights=state.weights.to(device),
@@ -406,7 +517,7 @@ Servable = _Servable
 
 
 def make_servable(obj, placement=None, device: DeviceLike = None) -> _Servable:
-    """Artifact | artifact dir path | trained model -> linear servable.
+    """Artifact | artifact dir path | trained model -> servable.
 
     An artifact serves on ``device`` (None: the CUDA device, or a
     RuntimeError when there is none). A trained model serves where its

@@ -2,12 +2,18 @@
 the port's rules by name, numpy carriers of a state between the JAX package
 and the port, and the state comparison at the reference's tolerances."""
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 
 from hivemall_tpu.core.state import init_linear_state as jax_init_state
+from hivemall_tpu.models import fm as JFM
+from hivemall_tpu.ops import eta as JEta
 from hivemall_tpu_torch.core.state import linear_state_to_numpy
 from hivemall_tpu_torch.models import classifier as TC
+from hivemall_tpu_torch.models import fm as TFM
 from hivemall_tpu_torch.models import regression as TR
+from hivemall_tpu_torch.ops import eta as TEta
 
 RTOL, ATOL = 1e-5, 1e-6
 PORT_RULES = {r.name: r for mod in (TC, TR) for r in vars(mod).values()
@@ -46,8 +52,6 @@ def warm_numpy(rule, dims, seed):
 
 
 def jax_state_from_numpy(d):
-    import jax.numpy as jnp
-
     st = jax_init_state(d["weights"].shape[0],
                         use_covariance=d["covars"] is not None,
                         slot_names=tuple(d["slots"]),
@@ -96,7 +100,6 @@ def carried_models(rule_name="arow", dims=512, seed=0, bf16=False):
     both packages' TrainedLinearModel (the port's on the CPU). With
     ``bf16`` both hold their tables at bf16 — the dtype fit_linear picks
     above 2^24 dims — from values bf16 represents exactly."""
-    import jax.numpy as jnp
     import torch
 
     from hivemall_tpu.models import classifier as JC
@@ -134,3 +137,72 @@ def request_rows(dims, n=40, k=12, seed=1):
              for i, v in zip(rng.randint(0, 2 * dims, size=m),
                              rng.randn(m))]
             for m in rng.randint(1, k + 1, size=n)]
+
+
+# --- FM helpers (tests/test_torch_fm.py, tests/test_torch_fm_serving.py) ----
+
+def fm_hypers(factors=5, classification=True,
+              eta=("invscaling", 0.05, 0.1), **kw):
+    """(JAX FMHyper, port FMHyper) with the same fields."""
+    kind, eta0, extra = eta
+    ek = {"total_steps": float(extra)} if kind == "simple" else (
+        {"power_t": extra} if kind == "invscaling" else {})
+    common = dict(factors=factors, classification=classification, **kw)
+    return (JFM.FMHyper(eta=JEta.EtaEstimator(kind, eta0, **ek), **common),
+            TFM.FMHyper(eta=TEta.EtaEstimator(kind, eta0, **ek), **common))
+
+
+def warm_fm_numpy(dims, hyper, seed=0):
+    """A warm FM state as numpy fields (pad lanes of V and lambda_v 0)."""
+    rng = np.random.RandomState(seed)
+    k, kp = hyper.factors, hyper.padded_factors
+    v = np.zeros((dims, kp), np.float32)
+    v[:, :k] = 0.2 * rng.randn(dims, k)
+    return {
+        "w0": np.float32(0.3),
+        "w": (0.2 * rng.randn(dims)).astype(np.float32),
+        "v": v,
+        "lambda_w0": np.float32(0.01),
+        "lambda_w": np.float32(0.02),
+        "lambda_v": np.array([0.01 + 0.002 * f for f in range(k)]
+                             + [0.0] * (kp - k), np.float32),
+        "touched": (rng.rand(dims) < 0.3).astype(np.int8),
+        "step": np.int32(500),
+    }
+
+
+def jax_fm_state(d):
+    return JFM.FMState(
+        w0=jnp.asarray(d["w0"], jnp.float32), w=jnp.asarray(d["w"]),
+        v=jnp.asarray(d["v"]), lambda_w0=jnp.asarray(d["lambda_w0"]),
+        lambda_w=jnp.asarray(d["lambda_w"]),
+        lambda_v=jnp.asarray(d["lambda_v"]),
+        touched=jnp.asarray(d["touched"]),
+        step=jnp.asarray(d["step"], jnp.int32))
+
+
+def jax_fm_numpy(st):
+    h = jax.device_get(st)
+    return {k: np.array(getattr(h, k)) for k in
+            ("w0", "w", "v", "lambda_w0", "lambda_w", "lambda_v", "touched",
+             "step")}
+
+
+def assert_fm_match(got, want, rtol=RTOL, atol=ATOL):
+    """Port state (FMState) against JAX's fields (numpy dict)."""
+    a = TFM.fm_state_to_numpy(got)
+    for k in ("w0", "w", "v", "lambda_w0", "lambda_w", "lambda_v"):
+        np.testing.assert_allclose(a[k], want[k], rtol=rtol, atol=atol,
+                                   err_msg=k)
+    np.testing.assert_array_equal(a["touched"], want["touched"])
+    assert int(a["step"]) == int(want["step"])
+
+
+def carried_fm_models(dims=384, factors=5, seed=4, classification=True):
+    """(jax_model, port_model): one warm FM state carried into both
+    packages' TrainedFMModel (the port's on the CPU)."""
+    jh, th = fm_hypers(factors, classification)
+    d = warm_fm_numpy(dims, th, seed=seed)
+    return (JFM.TrainedFMModel(state=jax_fm_state(d), hyper=jh, dims=dims),
+            TFM.TrainedFMModel(state=TFM.fm_state_from_numpy(d, "cpu"),
+                               hyper=th, dims=dims))
