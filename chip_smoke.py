@@ -60,6 +60,19 @@ Phases (any failure exits non-zero; nothing is caught):
              f32 artifact deployed as fm beside main's linear model as ctr,
              4 clients x 4 POST /predict of 64 string rows, zero failed.
              FM runs no hand-written kernel (the JAX FM step is plain XLA).
+9. batch   — train_arow(..., "-dims 4194304 -batch 2048") on main's 262,144
+             rows: seconds, rows/s and holdout accuracy/logloss (> 0.55)
+             beside main's -mini_batch 4096 run, 0 hand-kernel launches; the
+             host seconds of row staging, of plan staging
+             (stage_block_plans) and of the plans' upload, each timed apart;
+             the card against the CPU from one warm state drawn in numpy on
+             one 4096-row block at 2^22 (2 chunks) for AROW, AdaGradRDA
+             (derive_w), AROWe2 (Welford target stats) and AROW on bf16
+             tables (rtol 1e-4 / atol 1e-5, touched exact); one chunk's step
+             eager and as one CUDA graph beside its byte bound, with its
+             device operations counted by torch.profiler; a two-chunk block
+             under torch.cuda.set_sync_debug_mode("error"). The -batch path
+             runs no hand-written kernel (the JAX backend is plain XLA).
 Prints a kernels JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 """
@@ -67,6 +80,8 @@ Prints a kernels JSON line, the nvidia-smi line, and last
 from __future__ import annotations
 
 import argparse
+import contextlib
+import gc
 import json
 import re
 import subprocess
@@ -564,7 +579,7 @@ def phase_main(seed, dev, data):
               f"{ROWS / secs:.0f} rows/s; holdout acc {acc:.4f} logloss "
               f"{ll:.4f}; kernel launches {launches}; model_rows "
               f"{feats_out.shape[0]}")
-        out[name] = (launches, acc)
+        out[name] = (launches, acc, ll, secs)
         if name == "pallas":
             served = (model, (h_idx, h_val, h_y), (acc, ll))
     print(f"[main] host staging of the same {ROWS} rows (_stage_rows + "
@@ -572,7 +587,7 @@ def phase_main(seed, dev, data):
     assert all(n > 0 for n in out["pallas"][0].values()), \
         "the -pallas run skipped a kernel"
     assert not any(out["mini_batch"][0].values())
-    for name, (_, acc) in out.items():
+    for name, (_, acc, _, _) in out.items():
         assert acc > 0.55, f"{name}: holdout accuracy {acc} is near chance"
 
     # a small -pallas fit on the card against the same fit on the CPU
@@ -605,7 +620,7 @@ def phase_main(seed, dev, data):
                                atol=ATOL, err_msg="logress fit: weights")
     print(f"[main] small train_logistic_regr -pallas fit: {launched} scan "
           f"launches; card == CPU")
-    return out["pallas"][0], staging, served
+    return out["pallas"][0], out["mini_batch"][1:], served
 
 
 SERVE_SIZES = (1, 8, 64, 512, 2048)  # request rows; 2048 chunks at 512
@@ -1137,6 +1152,239 @@ def phase_fm(seed, dev, smi, data, linear_model):
           f"answers == the fm f32 engine")
 
 
+BATCH = 2048  # -batch B of phase batch (2 chunks per 4096-row block)
+
+
+@contextlib.contextmanager
+def gc_clock():
+    """Yields [seconds, collections] that Python's garbage collector spends
+    inside the block (gc.callbacks), filled in as the block runs."""
+    total = [0.0, 0]
+    start = [0.0]
+
+    def hook(phase, info):
+        if phase == "start":
+            start[0] = time.perf_counter()
+        else:
+            total[0] += time.perf_counter() - start[0]
+            total[1] += 1
+
+    gc.callbacks.append(hook)
+    try:
+        yield total
+    finally:
+        gc.callbacks.remove(hook)
+
+
+def stage_plans_secs(feats, y, dims, block_size, batch, dev):
+    """Host seconds to build the -batch plans of these rows (the fit's
+    `stage_block_plans`, once per block) and seconds to upload them to
+    ``dev`` (`upload_block_plans`, ending in a synchronize), each timed
+    apart from the row staging that precedes them."""
+    from hivemall_tpu_torch.core.batch import iter_blocks, pad_to_bucket
+    from hivemall_tpu_torch.core.batch_update import (stage_block_plans,
+                                                      upload_block_plans)
+    from hivemall_tpu_torch.models.base import _stage_rows
+
+    idx_rows, val_rows = _stage_rows(feats, dims)
+    width = pad_to_bucket(max(len(r) for r in idx_rows))
+    blocks = [b.indices for b in iter_blocks(idx_rows, val_rows, y, dims,
+                                             block_size, width)]
+    t0 = time.perf_counter()
+    plans = [stage_block_plans(ix, batch, dims) for ix in blocks]
+    t1 = time.perf_counter()
+    for p in plans:
+        upload_block_plans(p, dims, dev)
+    sync(dev)
+    t2 = time.perf_counter()
+    nbytes = sum(a.nbytes for p in plans for part in p if part is not None
+                 for a in part)
+    return t1 - t0, t2 - t1, nbytes, plans[0]
+
+
+def batch_chunk_bytes(plan, dims, width, table_bytes):
+    """Least bytes one chunk of the batch step moves on the card: the lanes'
+    values and the rows' labels read, the plan read as the card holds it
+    (int64: order and lane_seg per lane, rep/starts/ends per slot), each
+    live unique slot's table entries read once and written once
+    (``table_bytes`` a slot over all tables), the loss written."""
+    n = plan.order.shape[-1]
+    u = plan.rep.shape[-1]
+    live = int(np.sum(plan.rep < dims))
+    return (n * 4 + (n // width) * 4 + (2 * n + 3 * u) * 8
+            + live * table_bytes * 2 + 4), live
+
+
+def on_grid(t):
+    """``t`` rounded to multiples of 2^-6 below 2 in magnitude: 7
+    significant bits, exact in bf16, so on rows of value 1.0 every score
+    and variance is an exact f32 sum in any order of addition."""
+    return (t.clamp(-1.9, 1.9) * 64.0).round() / 64.0
+
+
+def batch_card_vs_cpu(seed, dev):
+    """One 4096-row block at D = FULL_DIMS (2 chunks of BATCH rows, pad and
+    duplicate lanes) through the batch step on ``dev`` and on the CPU from
+    one CPU-made warm state, for AROW, AdaGradRDA (derive_w), AROWe2 (the
+    Welford target stats) and AROW on bf16 tables. Returns max |err|."""
+    import torch
+
+    from hivemall_tpu_torch.core.batch_update import (make_batch_train_step,
+                                                      stage_block_plans)
+    from hivemall_tpu_torch.models import classifier as C
+    from hivemall_tpu_torch.models import regression as R
+
+    rng = np.random.RandomState(seed + 21)
+    idx, val, y = block(rng, 4096, WIDTH, FULL_DIMS)
+    plans = stage_block_plans(idx, BATCH, FULL_DIMS)
+    assert plans.main.order.shape[0] == 2 and plans.tail is None
+    ones = np.where(idx < FULL_DIMS, 1.0, 0.0).astype(np.float32)
+    cases = [
+        ("arow", C.AROW, {"r": 0.1}, val, y, None),
+        ("adagrad_rda", C.ADAGRAD_RDA,
+         {"eta": 0.1, "lambda": 1e-6, "scale": 100.0}, val, y, None),
+        ("arowe2_regr", R.AROWE2_REGR, {"r": 0.1, "epsilon": 0.01}, val,
+         (0.3 * rng.randn(4096)).astype(np.float32), None),
+        ("arow bf16", C.AROW, {"r": 0.1}, ones, y, torch.bfloat16),
+    ]
+    err = 0.0
+    for i, (tag, rule, hyper, v, yy, dtype) in enumerate(cases):
+        out = []
+        for d in (dev, torch.device("cpu")):
+            # the same numpy draw on both devices
+            st = warm_state(np.random.RandomState(seed + 30 + i), rule,
+                            FULL_DIMS, d)
+            if dtype is not None:
+                st = st.replace(weights=on_grid(st.weights).to(dtype),
+                                covars=on_grid(st.covars).to(dtype))
+            step = make_batch_train_step(rule, hyper, BATCH, device=d)
+            out.append(step(st, idx, v, yy, plans))
+            sync(dev)
+        (got, got_loss), (ref, ref_loss) = out
+        if dtype is not None:
+            assert got.weights.dtype == ref.weights.dtype == dtype
+        e = compare(f"batch {tag}", got, ref, got_loss, ref_loss)
+        err = max(err, e)
+        print(f"[batch] {tag}: one 4096-row block, D={FULL_DIMS}, B={BATCH} "
+              f"(2 chunks): card == CPU, max|err| {e:.3g}, touched exact")
+    return err
+
+
+def batch_chunk_timing(seed, dev):
+    """One chunk's step (AROW, BATCH rows, D = FULL_DIMS) from its uploaded
+    plan: ms eager and replayed as one CUDA graph, device operations per
+    chunk (torch.profiler), the chunk's byte bound; then a two-chunk block
+    under torch.cuda.set_sync_debug_mode("error")."""
+    import torch
+
+    from hivemall_tpu_torch.core.batch_update import (make_batch_train_step,
+                                                      stage_block_plans,
+                                                      upload_block_plans)
+    from hivemall_tpu_torch.models import classifier as C
+
+    rng = np.random.RandomState(seed + 22)
+    idx, val, y = block(rng, 4096, WIDTH, FULL_DIMS)
+    hyper = {"r": 0.1}
+    step = make_batch_train_step(C.AROW, hyper, BATCH, device=dev)
+    ti, tv, ty = (torch_on(a, dev) for a in (idx, val, y))
+    plans = stage_block_plans(idx[:BATCH], BATCH, FULL_DIMS)
+    dplans = upload_block_plans(plans, FULL_DIMS, dev)
+    st = warm_state(np.random.RandomState(seed + 23), C.AROW, FULL_DIMS, dev)
+    rows = (ti[:BATCH], tv[:BATCH], ty[:BATCH])
+
+    def run():
+        step(st, *rows, dplans)
+
+    eager = cuda_ms(run, 50)
+    graph = graph_ms(run, 50)
+    nbytes, live = batch_chunk_bytes(plans.main, FULL_DIMS, WIDTH,
+                                     table_bytes=4 + 4 + 1)
+    bound = 1e3 * nbytes / HBM_BYTES_PER_S
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    ops = sum(1 for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA)
+    print(f"[batch] one chunk's step (AROW, B={BATCH}, K={WIDTH}, "
+          f"D={FULL_DIMS}, {plans.main.rep.shape[-1]} slots, {live} live): "
+          f"{eager:.4f} ms eager, {graph:.4f} ms as one CUDA graph; "
+          f"{ops if ops else 'not measured'} device operations (kernels, "
+          f"copies, fills; torch.profiler); bound {bound:.6f} ms by bytes "
+          f"({nbytes} B at {HBM_BYTES_PER_S:.3g} B/s)")
+
+    # the chunk loop never waits on the device: a two-chunk block from an
+    # uploaded plan runs with every synchronizing call an error
+    both = upload_block_plans(stage_block_plans(idx, BATCH, FULL_DIMS),
+                              FULL_DIMS, dev)
+    st2 = warm_state(np.random.RandomState(seed + 24), C.AROW, FULL_DIMS,
+                     dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st2, loss = step(st2, ti, tv, ty, both)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(loss).item() and torch.isfinite(st2.weights).all()
+    print("[batch] a two-chunk block ran under "
+          "torch.cuda.set_sync_debug_mode('error'): no host sync in the "
+          "chunk loop")
+    return {"eager_ms": eager, "graph_ms": graph, "ops": ops,
+            "bound_ms": bound, "bytes": nbytes}
+
+
+def phase_batch(seed, dev, data, main_mini):
+    """The -batch B backend on the main path's rows: train_arow -batch 2048
+    at D = FULL_DIMS beside main's -mini_batch 4096 run, plan staging
+    timed apart; the card against the CPU on one block for four rule
+    forms; one chunk timed eager and as a CUDA graph beside its bound, and
+    the chunk loop under sync-debug "error". Returns max |err|."""
+    from hivemall_tpu_torch.kernels.linear_scan import LAUNCHES
+    from hivemall_tpu_torch.models.classifier import train_arow
+
+    _, (idx, val, y), (h_idx, h_val, h_y) = data
+    feats = (list(idx), list(val))
+    opts = f"-dims {FULL_DIMS} -batch {BATCH}"
+    rows_secs = stage_rows_secs(feats, y, FULL_DIMS, 4096)
+    plan_secs, upload_secs, plan_bytes, plans0 = stage_plans_secs(
+        feats, y, FULL_DIMS, 4096, BATCH, dev)
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+    sync(dev)
+    with gc_clock() as gc_secs:
+        t0 = time.perf_counter()
+        model = train_arow(feats, y, opts, device=dev)
+        sync(dev)
+        secs = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    acc, ll = holdout(model, h_idx, h_val, h_y)
+    f_out, w_out, c_out = model.model_rows()
+    assert f_out.shape == w_out.shape == c_out.shape, "model_rows"
+    assert np.all(np.isfinite(w_out)) and np.all(c_out > 0), "model_rows"
+    m_acc, m_ll, m_secs = main_mini
+    print(f"[batch] train_arow {opts}: {ROWS} rows in {secs:.3f} s = "
+          f"{ROWS / secs:.0f} rows/s; holdout acc {acc:.4f} logloss "
+          f"{ll:.4f}; model_rows {f_out.shape[0]}; kernel launches "
+          f"{launches} | main's -mini_batch 4096: {m_secs:.3f} s = "
+          f"{ROWS / m_secs:.0f} rows/s, acc {m_acc:.4f} logloss {m_ll:.4f}")
+    print(f"[batch] of which Python's garbage collector: {gc_secs[1]} "
+          f"collections, {gc_secs[0]:.3f} s ({len(gc.get_objects())} objects "
+          f"tracked after the run)")
+    print(f"[batch] staging of the same rows, timed apart: rows "
+          f"(_stage_rows + iter_blocks) {rows_secs:.3f} s; plans "
+          f"(stage_block_plans, {ROWS // 4096} blocks of "
+          f"{plans0.main.order.shape[0]} chunks, U bucket "
+          f"{plans0.slot_bucket} in block 0) {plan_secs:.3f} s on the host, "
+          f"{plan_bytes} B; upload {upload_secs:.3f} s")
+    assert not any(launches.values()), \
+        f"-batch launched a hand kernel: {launches}"
+    assert acc > 0.55, f"batch: holdout accuracy {acc} is near chance"
+    err = batch_card_vs_cpu(seed, dev)
+    if dev.type == "cuda":
+        batch_chunk_timing(seed, dev)
+    return err
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1164,7 +1412,7 @@ def main(argv=None) -> int:
     err = max(err, phase_stress(args.seed, dev))
     scan, plan = phase_width(args.seed, dev)
     data = main_data(args.seed)
-    launches, _, served = phase_main(args.seed, dev, data)
+    launches, main_mini, served = phase_main(args.seed, dev, data)
     from hivemall_tpu_torch.kernels.linear_scan import LAUNCHES
 
     for key in LAUNCHES:
@@ -1178,6 +1426,13 @@ def main(argv=None) -> int:
     phase_fm(args.seed, dev, smi, data, served[0])
     print(f"[fm] phase took {time.perf_counter() - t_fm:.1f} s; kernel "
           f"launches during it: {dict(LAUNCHES)} (the FM path reaches no "
+          f"pallas_call in the JAX package and runs plain torch ops here)")
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+    t_batch = time.perf_counter()
+    phase_batch(args.seed, dev, data, main_mini)
+    print(f"[batch] phase took {time.perf_counter() - t_batch:.1f} s; kernel "
+          f"launches during it: {dict(LAUNCHES)} (the -batch path reaches no "
           f"pallas_call in the JAX package and runs plain torch ops here)")
     source = "hivemall_tpu_torch/kernels/csrc/linear_scan.cu"
     replaces = "hivemall_tpu/kernels/linear_scan.py:44"

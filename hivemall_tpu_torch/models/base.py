@@ -15,6 +15,9 @@ Execution modes:
   plain torch version on the CPU. The flag keeps the JAX package's name.
 - `-mini_batch B` > 1: minibatch mode — the reference's accumulate-then-
   apply-average semantics.
+- `-batch B`: the same minibatch semantics through host-staged dedup plans
+  (core/batch_update.py): one compact write per unique feature of each
+  B-row chunk.
 - `-iters N` + `-cv_rate`: multi-epoch with convergence checking.
 
 Training runs on the CUDA device unless the caller passes `device="cpu"`.
@@ -30,22 +33,32 @@ import torch
 
 from ..constants import DEFAULT_NUM_FEATURES
 from ..core.batch import iter_blocks, pad_to_bucket, shuffle_rows
+from ..core.batch_update import (make_batch_train_step, stage_block_plans,
+                                 upload_block_plans)
 from ..core.engine import Rule, make_predict, make_train_fn
 from ..core.state import LinearState, init_linear_state, model_rows
 from ..device import DeviceLike, resolve_device
 from ..ops.convergence import ConversionState
+from ..runtime.metrics import REGISTRY
 from ..utils.feature import parse_features_batch
 from ..utils.options import CommandLine, Options
 
-# execution flags of the JAX package whose backends are later slices of the
-# port: refused by name rather than quietly run as something else
-_LATER_SLICE_FLAGS = {
+# execution backends of the JAX package that are later slices of the port:
+# refused by name where the JAX package would run them, rather than quietly
+# run as something else
+_LATER_SLICE = {
     "native_scan": "the native C row loop (-native_scan)",
-    "batch": "the staged-plan batched backend (-batch, core/batch_update.py)",
-    "native_apply": "the native batched apply (-native_apply)",
-    "mxu_scatter": "the sorted-window gather/scatter (-mxu_scatter, "
-                   "ops/mxu_scatter.py)",
+    "native_apply": "the native batched apply (-batch B -native_apply, "
+                    "core/native_batch.py)",
+    "mxu_scatter": "the sorted-window gather/scatter (-mini_batch B "
+                   "-mxu_scatter, ops/mxu_scatter.py)",
 }
+
+
+def later_slice(flag: str, what: str) -> ValueError:
+    """The refusal of a JAX backend whose port is a later slice."""
+    return ValueError(f"-{flag}: {what} is a later slice of the torch port "
+                      f"(hivemall_tpu_torch); drop the flag")
 
 
 def base_options() -> Options:
@@ -78,9 +91,19 @@ def base_options() -> Options:
           "Run exact scan mode as one kernel launch per block "
           "(kernels/linear_scan.py: the CUDA kernel on the card)")
     o.add("native_scan", None, False, "(later slice of the port)")
-    o.add("mxu_scatter", None, False, "(later slice of the port)")
-    o.add("batch", "batch_backend", True, "(later slice of the port)", type=int)
-    o.add("native_apply", None, False, "(later slice of the port)")
+    o.add("mxu_scatter", None, False,
+          "Route -mini_batch table updates through the sorted-window "
+          "gather/scatter (ops/mxu_scatter.py; a later slice of the port, "
+          "refused with -mini_batch); ignored in exact scan mode, as in "
+          "the JAX package")
+    o.add("batch", "batch_backend", True,
+          "Segment-sum batched backend: apply minibatches of B rows "
+          "through one host-staged dedup plan (core/batch_update.py) — "
+          "same mini-batch semantics as -mini_batch B, one compact write "
+          "per unique feature of each chunk", type=int)
+    o.add("native_apply", None, False,
+          "With -batch B: apply the staged plans through the native C++ "
+          "pass (a later slice of the port; refused)")
     return o
 
 
@@ -148,10 +171,6 @@ def fit_linear(
 ) -> TrainedLinearModel:
     """The generic fit loop used by every classifier/regressor `train_*`."""
     dev = resolve_device(device)
-    for flag, what in _LATER_SLICE_FLAGS.items():
-        if cl.has(flag):
-            raise ValueError(f"-{flag}: {what} is a later slice of the torch "
-                             f"port (hivemall_tpu_torch); drop the flag")
     dims = cl.get_int("dims") or default_dims
     mini_batch = cl.get_int("mini_batch", 1)
     iters = cl.get_int("iters", 1)
@@ -172,10 +191,42 @@ def fit_linear(
         raise ValueError("no training rows")
     width = pad_to_bucket(max((len(r) for r in idx_rows), default=1))
 
+    batch_b = cl.get_int("batch", 0) if cl.has("batch") else 0
     mode = "minibatch" if mini_batch > 1 else "scan"
+    if cl.has("batch"):
+        if batch_b < 1:
+            raise ValueError(f"-batch must be >= 1: {batch_b}")
+        if mini_batch > 1:
+            raise ValueError("-batch IS the mini-batch backend; drop "
+                             "-mini_batch (its size becomes -batch's B)")
+        if cl.has("native_scan") or cl.has("pallas") \
+                or cl.has("mxu_scatter"):
+            raise ValueError("-batch does not compose with -native_scan/"
+                             "-pallas/-mxu_scatter; pick one execution "
+                             "backend (docs/execution_backends.md)")
+        mode = "batch"
+    if cl.has("native_apply") and mode != "batch":
+        raise ValueError("-native_apply rides the -batch backend; add "
+                         "-batch B (docs/execution_backends.md) — though "
+                         f"{_LATER_SLICE['native_apply']} is a later slice "
+                         "of the torch port")
+    if cl.has("native_scan"):
+        raise later_slice("native_scan", _LATER_SLICE["native_scan"])
+    if cl.has("native_apply"):
+        raise later_slice("native_apply", _LATER_SLICE["native_apply"])
+    if cl.has("mxu_scatter") and mode == "minibatch":
+        # the JAX package runs its mxu backend only here; in scan mode it
+        # ignores the flag, and so does the port
+        raise later_slice("mxu_scatter", _LATER_SLICE["mxu_scatter"])
     if mode == "minibatch":
         block_size = mini_batch
-    if cl.has("pallas") and mode == "scan":
+    if mode == "batch":
+        # a staged block holds whole minibatches: round the block up to a
+        # multiple of B (only the dataset's last block stages a tail chunk)
+        block_size = -(-max(block_size, batch_b) // batch_b) * batch_b
+        step = make_batch_train_step(rule, hyper, batch_size=batch_b,
+                                     device=dev)
+    elif cl.has("pallas") and mode == "scan":
         from ..kernels.linear_scan import make_pallas_scan_step
 
         step = make_pallas_scan_step(rule, hyper, device=dev)
@@ -199,21 +250,37 @@ def fit_linear(
     )
 
     conv = ConversionState(not cl.has("disable_cv"), cl.get_float("cv_rate", 0.005))
+    # progress counters, the Hadoop Reporter/Counter analog
+    # (ref: UDTFWithOptions.java:59-88, FM iteration counter :529-543)
+    iter_counter = REGISTRY.counter("hivemall", f"{rule.name}.iterations")
+    row_counter = REGISTRY.counter("hivemall", f"{rule.name}.examples")
+    # -batch: plans are a pure function of each block's indices, so they
+    # are staged on the host and uploaded once, then replayed every epoch
+    # (cleared when -shuffle re-deals the rows)
+    plan_cache: list = []
     for it in range(max(1, iters)):
         if cl.has("shuffle") and it > 0:
             idx_rows, val_rows, labels = shuffle_rows(
                 idx_rows, val_rows, labels, cl.get_int("seed", 31) + it)
+            plan_cache = []
         # losses stay on the device through the epoch; ONE transfer at the
         # epoch boundary feeds the convergence check
         epoch_losses = []
-        for block in iter_blocks(idx_rows, val_rows, labels, dims, block_size,
-                                 width):
-            state, loss = step(
-                state,
-                torch.from_numpy(block.indices).to(dev, non_blocking=True),
-                torch.from_numpy(block.values).to(dev, non_blocking=True),
-                torch.from_numpy(block.labels).to(dev, non_blocking=True))
+        for bi, block in enumerate(iter_blocks(idx_rows, val_rows, labels,
+                                               dims, block_size, width)):
+            args = [state] + [
+                torch.from_numpy(a).to(dev, non_blocking=True)
+                for a in (block.indices, block.values, block.labels)]
+            if mode == "batch":
+                if bi >= len(plan_cache):
+                    plan_cache.append(upload_block_plans(
+                        stage_block_plans(block.indices, batch_b, dims),
+                        dims, dev))
+                args.append(plan_cache[bi])
+            state, loss = step(*args)
             epoch_losses.append(loss)
+            row_counter.increment(block.batch_size)
+        iter_counter.increment()
         conv.incr_loss(float(torch.stack(epoch_losses).sum()))
         if iters > 1 and conv.is_converged(n):
             break

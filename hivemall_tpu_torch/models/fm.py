@@ -53,14 +53,15 @@ from ..ops.convergence import ConversionState
 from ..ops.eta import EtaEstimator, get_eta
 from ..ops.scatter import scatter_rows_flat
 from ..utils.options import Options
-from .base import FeatureRows, _stage_rows, base_options
+from .base import FeatureRows, _stage_rows, base_options, later_slice
 
-# JAX flags of train_fm whose backends are later slices of the port
-_LATER_SLICE_FLAGS = {
+# JAX backends of train_fm that are later slices of the port: refused by
+# name where the JAX package would run them
+_LATER_SLICE = {
     "native_scan": "the native C row loop (-native_scan, "
                    "native/hivemall_native.cpp::hm_fm_reference_rowloop)",
-    "mxu_scatter": "the sorted-window gather/scatter (-mxu_scatter, "
-                   "ops/mxu_scatter.py; ROADMAP Queue 2 #3)",
+    "mxu_scatter": "the sorted-window gather/scatter (-mini_batch B "
+                   "-mxu_scatter, ops/mxu_scatter.py)",
 }
 
 
@@ -453,13 +454,14 @@ def train_fm(features: FeatureRows, targets, options: Optional[str] = None,
              device: DeviceLike = None) -> TrainedFMModel:
     """Train an FM on the CUDA device (``device="cpu"`` asks for the CPU).
     Default ``-mini_batch 1`` is the exact per-row scan; ``-mini_batch B``
-    the averaged minibatch. ``-native_scan`` and ``-mxu_scatter`` are later
-    slices of the port and raise."""
+    the averaged minibatch. ``-native_scan``, and ``-mxu_scatter`` with
+    ``-mini_batch``, are later slices of the port and raise; in scan mode
+    ``-mxu_scatter`` is ignored, as in the JAX package."""
     cl = _fm_options().parse(options, "train_fm")
-    for flag, what in _LATER_SLICE_FLAGS.items():
-        if cl.has(flag):
-            raise ValueError(f"-{flag}: {what} is a later slice of the torch "
-                             f"port (hivemall_tpu_torch); drop the flag")
+    if cl.has("native_scan"):
+        raise later_slice("native_scan", _LATER_SLICE["native_scan"])
+    if cl.has("mxu_scatter") and cl.get_int("mini_batch", 1) > 1:
+        raise later_slice("mxu_scatter", _LATER_SLICE["mxu_scatter"])
     dev = resolve_device(device)
     dims = cl.get_int("dims") or cl.get_int("p") or DEFAULT_NUM_FEATURES
     hyper = FMHyper(

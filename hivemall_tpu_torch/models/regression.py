@@ -167,7 +167,9 @@ def _welford_pre_row(gl, y):
 
 def _welford_pre_batch(gl, labels):
     # Chan et al. parallel merge of the block's stats into the running stats
-    b = torch.tensor(float(labels.shape[0]), device=labels.device)
+    # the row count as a Python float: a launch argument, not a copy to the
+    # device (the -batch chunk loop must not wait on one)
+    b = float(labels.shape[0])
     bmean = torch.mean(labels)
     bm2 = torch.sum((labels - bmean) ** 2)
     n = gl["n"]

@@ -107,8 +107,8 @@ def test_bf16_storage_above_2_24_dims():
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
 
 
-@pytest.mark.parametrize("flag", ["-native_scan", "-batch 8", "-native_apply",
-                                  "-mxu_scatter"])
+@pytest.mark.parametrize("flag", ["-native_scan", "-batch 8 -native_apply",
+                                  "-native_apply", "-mini_batch 16 -mxu_scatter"])
 def test_later_slice_flags_are_refused(flag):
     feats, y = rows(True, n=10)
     with pytest.raises(ValueError, match="later slice"):
