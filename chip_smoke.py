@@ -6,8 +6,10 @@
 Phases (any failure exits non-zero; nothing is caught):
 1. device  — require CUDA; print the card's name and power limit.
 2. build   — build the kernels of kernels/csrc/linear_scan.cu (nvcc, at
-             first use) and print the build seconds, the ptxas report and
-             the scan's look-ahead depth by row width.
+             first use) and, alongside in a thread, the native host library
+             from native/hivemall_native.cpp (g++); print the build seconds,
+             the compiler line, the ptxas report and the scan's look-ahead
+             depth by row width.
 3. families — the scan (plan kernel + scan kernel) against its plain torch
              version on the card, for every rule form the kernel has (logress
              under each of its four eta schedules), at D=2^14, B=1000, K=32
@@ -73,6 +75,23 @@ Phases (any failure exits non-zero; nothing is caught):
              device operations counted by torch.profiler; a two-chunk block
              under torch.cuda.set_sync_debug_mode("error"). The -batch path
              runs no hand-written kernel (the JAX backend is plain XLA).
+10. native — the native host library (hivemall_tpu_torch/native/) on main's
+             rows at D = 2^22, K = 32: ROWS/32 rows of "id:1" tokens and of
+             hashed "f<id>" names parsed by the C parser == the numpy path,
+             both timed; train_arow -pallas from ROWS/4 "id:1" string rows
+             == the same fit from arrays, bit for bit; train_arow
+             -native_scan (seconds, rows/s, holdout beside main's -pallas,
+             max |dw| / |dcov| against it, state on the card); train_arow
+             -batch 2048 -native_apply beside phase batch's run (plan
+             staging timed apart) and one 2-chunk block against the torch
+             -batch step on the card (rtol 5e-5 / atol 5e-6, touched exact);
+             train_fm -c -factor 5 -eta 0.01 -native_scan beside phase fm's
+             run, and on a 1,024-row prefix without repeated ids == the
+             exact FM scan on the card (rtol 1e-4 / atol 1e-5); the codec on
+             the -native_scan model's ids, native == Python byte for byte;
+             pack_rows against hm_pack_block; the library's calls per
+             binding (> 0 for the parser, both row loops and the batch
+             apply) and 0 kernel launches during the native fits.
 Prints a kernels JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 """
@@ -257,12 +276,31 @@ def chain_floor_ms(ti, tv, dims, reps):
 
 
 def phase_build():
-    from hivemall_tpu_torch.kernels import build, linear_scan
+    """Build the CUDA kernels (nvcc) and, alongside them in a thread, the
+    native host library (g++). Returns the native build's (compiler line,
+    library path, seconds)."""
+    from concurrent.futures import ThreadPoolExecutor
 
-    t0 = time.perf_counter()
-    lib = linear_scan._library()
-    secs = time.perf_counter() - t0
-    print(f"[build] linear_scan.cu built and loaded in {secs:.2f} s")
+    from hivemall_tpu_torch import native
+    from hivemall_tpu_torch.kernels import build, linear_scan
+    from hivemall_tpu_torch.native import build as native_build
+
+    def build_native():
+        t = time.perf_counter()
+        path = native.library_path()
+        return path, time.perf_counter() - t
+
+    with ThreadPoolExecutor(1) as pool:
+        native_job = pool.submit(build_native)
+        t0 = time.perf_counter()
+        lib = linear_scan._library()
+        secs = time.perf_counter() - t0
+        native_path, native_secs = native_job.result()
+    cxx = native_build.compiler_identity(native_build.compiler())
+    print(f"[build] linear_scan.cu built and loaded in {secs:.2f} s; the "
+          f"native host library ({native_build.SOURCE.name}, "
+          f"{' '.join(native_build.CXX_FLAGS)}) in {native_secs:.2f} s "
+          f"alongside: {cxx}")
     log = build.build_logs.get("linear_scan", "")
     regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
     spills = sum(int(n) for n in re.findall(r"(\d+) bytes spill", log))
@@ -272,6 +310,7 @@ def phase_build():
     print("[build] scan look-ahead (AROW) by row width: " + ", ".join(
         f"K={k}: {lib.hm_linear_scan_depth(arow, k)}"
         for k in (8, 32, 256, 1024, 2048, lib.hm_linear_scan_max_k())))
+    return cxx, native_path, native_secs
 
 
 def check_plan(tag, ti, dims, depth):
@@ -620,7 +659,8 @@ def phase_main(seed, dev, data):
                                atol=ATOL, err_msg="logress fit: weights")
     print(f"[main] small train_logistic_regr -pallas fit: {launched} scan "
           f"launches; card == CPU")
-    return out["pallas"][0], out["mini_batch"][1:], served
+    return out["pallas"][0], out["mini_batch"][1:], served, \
+        out["pallas"][1:]
 
 
 SERVE_SIZES = (1, 8, 64, 512, 2048)  # request rows; 2048 chunks at 512
@@ -1073,7 +1113,7 @@ def phase_fm(seed, dev, smi, data, linear_model):
     """FM on the main path's rows: train_fm at D = FULL_DIMS, k = 5,
     -mini_batch 4096; the card against the CPU from one state; the model
     frozen and served at f32, bf16 and int8; /predict over HTTP beside
-    main's linear model."""
+    main's linear model. Returns the train's (acc, logloss, seconds)."""
     import tempfile
 
     from hivemall_tpu_torch.io.checkpoint import dequantize_int8
@@ -1150,6 +1190,7 @@ def phase_fm(seed, dev, smi, data, linear_model):
     print(f"[fm] HTTP: 4 clients x 4 POST /predict of 64 string rows for fm "
           f"in {http_secs:.3f} s beside the linear model ctr: 0 failed, "
           f"answers == the fm f32 engine")
+    return acc, ll, secs
 
 
 BATCH = 2048  # -batch B of phase batch (2 chunks per 4096-row block)
@@ -1338,7 +1379,8 @@ def phase_batch(seed, dev, data, main_mini):
     at D = FULL_DIMS beside main's -mini_batch 4096 run, plan staging
     timed apart; the card against the CPU on one block for four rule
     forms; one chunk timed eager and as a CUDA graph beside its bound, and
-    the chunk loop under sync-debug "error". Returns max |err|."""
+    the chunk loop under sync-debug "error". Returns the -batch 2048 run's
+    (acc, logloss, seconds)."""
     from hivemall_tpu_torch.kernels.linear_scan import LAUNCHES
     from hivemall_tpu_torch.models.classifier import train_arow
 
@@ -1379,10 +1421,380 @@ def phase_batch(seed, dev, data, main_mini):
     assert not any(launches.values()), \
         f"-batch launched a hand kernel: {launches}"
     assert acc > 0.55, f"batch: holdout accuracy {acc} is near chance"
-    err = batch_card_vs_cpu(seed, dev)
+    batch_card_vs_cpu(seed, dev)
     if dev.type == "cuda":
         batch_chunk_timing(seed, dev)
+    return acc, ll, secs
+
+
+NATIVE_TOL = (5e-5, 5e-6)  # native apply vs the -batch step (the reference's)
+AROW_PREFIX_ROWS = 8192
+# the JAX package's own -native_scan vs engine-scan parity tolerance
+AROW_PREFIX_TOL = (RTOL, ATOL)
+FM_PREFIX_ROWS = 1024
+# train_fm -native_scan needs a fixed -eta; the reference's default eta0 of
+# 0.05, held fixed, overshoots on these rows of 32 ones (the exact FM scan
+# and the C loop alike, tried at 2^14 dims), so the phase runs 0.01
+FM_NATIVE_ETA = 0.01
+FM_PREFIX_TOL = (RTOL, ATOL)
+
+
+def timed(fn, dev):
+    """(fn(), host seconds of the call ending in a synchronize)."""
+    sync(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(dev)
+    return out, time.perf_counter() - t0
+
+
+def native_parse_check(idx, dims):
+    """String rows from main's ids: ROWS // 4 rows of "id:1" tokens (65,536
+    at full size) and ROWS // 32 (8,192) rows of hashed "f<id>" names.
+    ROWS // 32 rows of each form parse through the C parser and through the
+    numpy path, exactly equal, both timed. Returns the "id:1" rows."""
+    from hivemall_tpu_torch import native
+    from hivemall_tpu_torch.utils.feature import (parse_features_batch,
+                                                  parse_features_numpy)
+
+    n_int, n_hash = ROWS // 4, ROWS // 32
+    int_rows = [[f"{i}:1" for i in r] for r in idx[:n_int].tolist()]
+    hashed = [[f"f{i}" for i in r]
+              for r in idx[n_int:n_int + n_hash].tolist()]
+    for tag, rows in (('"id:1"', int_rows[:n_hash]), ('"f<id>"', hashed)):
+        calls = native.CALLS["parse_features_bulk"]
+        t0 = time.perf_counter()
+        ni, nv = parse_features_batch(rows, dims)
+        t1 = time.perf_counter()
+        pi, pv = parse_features_numpy(rows, dims)
+        t2 = time.perf_counter()
+        assert native.CALLS["parse_features_bulk"] == calls + 1, \
+            f"{tag}: the C parser declined the rows"
+        assert all(np.array_equal(a, b) for a, b in zip(ni, pi)) and \
+            all(np.array_equal(a, b) for a, b in zip(nv, pv)), \
+            f"{tag}: C parser != numpy path"
+        print(f"[native] parse {len(rows)} rows x {WIDTH} {tag} tokens: C "
+              f"parser {t1 - t0:.3f} s, numpy path {t2 - t1:.3f} s "
+              f"({(t2 - t1) / (t1 - t0):.2f}x); equal array for array")
+    return int_rows
+
+
+def rows_without_a_repeat(idx):
+    """Row numbers of idx [N, K] whose K ids are all distinct."""
+    srt = np.sort(idx, axis=1)
+    return np.flatnonzero((np.diff(srt, axis=1) != 0).all(axis=1))
+
+
+def native_arow_prefix(idx, val, y, dev):
+    """train_arow -native_scan against -pallas (the CUDA scan kernel) on
+    the first AROW_PREFIX_ROWS rows of main's data with no id repeated
+    within a row: w / cov at AROW_PREFIX_TOL. A repeated id is a pinned
+    deviation (the C loop updates a row's lanes in place one after
+    another; the kernel computes every lane's update from the row's one
+    gather and adds them). `touched` is held exactly against the features
+    whose covariance the scan moved: the C loop marks the features of rows
+    that updated, as engine scan mode does, while -pallas, as in the JAX
+    package, marks every feature it read. Returns max |err|."""
+    import torch
+
+    from hivemall_tpu_torch.models.classifier import train_arow
+
+    ok = rows_without_a_repeat(idx)
+    rows = ok[:AROW_PREFIX_ROWS]
+    feats = (list(idx[rows]), list(val[rows]))
+    opts = f"-dims {FULL_DIMS}"
+    nat, nat_secs = timed(
+        lambda: train_arow(feats, y[rows], opts + " -native_scan",
+                           device=dev), dev)
+    scan, scan_secs = timed(
+        lambda: train_arow(feats, y[rows], opts + " -pallas -block_size "
+                           "4096", device=dev), dev)
+    rtol, atol = AROW_PREFIX_TOL
+    err = 0.0
+    for f in ("weights", "covars"):
+        a = getattr(nat.state, f).cpu().numpy()
+        b = getattr(scan.state, f).cpu().numpy()
+        np.testing.assert_allclose(a, b, rtol=rtol, atol=atol,
+                                   err_msg=f"arow prefix: {f}")
+        err = max(err, float(np.max(np.abs(a - b))))
+    updated = scan.state.covars != 1
+    assert torch.equal(nat.state.touched.bool(), updated), \
+        "arow prefix: touched != the features the scan updated"
+    seen_only = int((scan.state.touched.bool() & ~updated).sum())
+    print(f"[native] train_arow {opts} on a {len(rows)}-row prefix (rows "
+          f"without a repeated id; {len(ok)} of {len(idx)} qualify): "
+          f"-native_scan {nat_secs:.3f} s == -pallas on {dev.type} "
+          f"{scan_secs:.3f} s, max|err| {err:.3g} over w and cov (rtol "
+          f"{rtol} / atol {atol}: lane sums in another order); touched "
+          f"exact against the features the scan updated ({seen_only} more "
+          f"were read and never updated, which -pallas marks touched)")
     return err
+
+
+def native_fm_prefix(idx, val, y, dev):
+    """train_fm -native_scan against the port's exact FM scan on the card
+    from the same state (the same -seed), on the first FM_PREFIX_ROWS rows
+    of main's data with no id repeated within a row (a repeated id is the
+    reference's pinned deviation). Returns max |err| over w0, w and V."""
+    from hivemall_tpu_torch.models.fm import fm_state_to_numpy, train_fm
+
+    ok = rows_without_a_repeat(idx)
+    rows = ok[:FM_PREFIX_ROWS]
+    feats = (list(idx[rows]), list(val[rows]))
+    opts = f"-c -dims {FULL_DIMS} -factor {FM_FACTORS} -eta {FM_NATIVE_ETA}"
+    nat, nat_secs = timed(
+        lambda: train_fm(feats, y[rows], opts + " -native_scan", device=dev),
+        dev)
+    scan, scan_secs = timed(
+        lambda: train_fm(feats, y[rows], opts, device=dev), dev)
+    a, b = fm_state_to_numpy(nat.state), fm_state_to_numpy(scan.state)
+    rtol, atol = FM_PREFIX_TOL
+    err = 0.0
+    for k in ("w0", "w", "v"):
+        np.testing.assert_allclose(a[k], b[k], rtol=rtol, atol=atol,
+                                   err_msg=f"fm prefix: {k}")
+        err = max(err, float(np.max(np.abs(a[k] - b[k]))))
+    assert np.array_equal(a["touched"], b["touched"]), "fm prefix: touched"
+    print(f"[native] train_fm {opts} on a {len(rows)}-row prefix (rows "
+          f"without a repeated id; {len(ok)} of {len(idx)} qualify): "
+          f"-native_scan {nat_secs:.3f} s == the exact FM scan on "
+          f"{dev.type} {scan_secs:.3f} s, max|err| {err:.3g} (rtol {rtol} "
+          f"/ atol {atol}: the C loop sums a row's score in float64, the "
+          f"scan in float32), touched exact")
+    return err
+
+
+def native_block_check(seed, dev):
+    """One 4096-row block at D = FULL_DIMS (2 chunks of BATCH rows, pad and
+    duplicate lanes) through the native apply on host tables and through
+    the torch -batch step on ``dev``, from one warm state: AROW at
+    NATIVE_TOL, touched exact. Returns max |err| and both seconds."""
+    from hivemall_tpu_torch.core.batch_update import (make_batch_train_step,
+                                                      stage_block_plans)
+    from hivemall_tpu_torch.core.native_batch import (init_native_tables,
+                                                      make_native_batch_step)
+    from hivemall_tpu_torch.core.state import init_linear_state
+    from hivemall_tpu_torch.models import classifier as C
+
+    rng = np.random.RandomState(seed + 41)
+    idx, val, y = block(rng, 4096, WIDTH, FULL_DIMS)
+    plans = stage_block_plans(idx, BATCH, FULL_DIMS)
+    assert plans.main.order.shape[0] == 2 and plans.tail is None
+    w0 = (0.1 * rng.randn(FULL_DIMS) * (rng.rand(FULL_DIMS) < 0.5)) \
+        .astype(np.float32)
+    c0 = rng.uniform(0.5, 1.5, FULL_DIMS).astype(np.float32)
+    hyper = {"r": 0.1}
+    tables = init_native_tables(FULL_DIMS, True, w0, c0)
+    nstep = make_native_batch_step(C.AROW, hyper)
+    t0 = time.perf_counter()
+    loss = nstep(tables, val, y, plans)
+    native_secs = time.perf_counter() - t0
+    st = init_linear_state(FULL_DIMS, use_covariance=True,
+                           initial_weights=w0, initial_covars=c0, device=dev)
+    tstep = make_batch_train_step(C.AROW, hyper, BATCH, device=dev)
+    (st, tloss), torch_secs = timed(lambda: tstep(st, idx, val, y, plans),
+                                    dev)
+    rtol, atol = NATIVE_TOL
+    err = 0.0
+    for name, got, want in (("weights", tables["w"], st.weights),
+                            ("covars", tables["cov"], st.covars)):
+        want = want.cpu().numpy()
+        np.testing.assert_allclose(got, want, rtol=rtol, atol=atol,
+                                   err_msg=f"native block: {name}")
+        err = max(err, float(np.max(np.abs(got - want))))
+    assert np.array_equal(tables["touched"], st.touched.cpu().numpy()), \
+        "native block: touched"
+    assert abs(loss - float(tloss)) <= 1e-4 * max(1.0, abs(loss)), \
+        f"native block: loss {loss} vs {float(tloss)}"
+    return err, native_secs, torch_secs
+
+
+def native_codec_check(feats):
+    """The codec on a model's ids (the delta stream encode_sparse_model
+    writes): the native zigzag-LEB128 encode and decode against the
+    per-value Python path, byte for byte. Returns the stream's bytes."""
+    from hivemall_tpu_torch.utils.codec import (leb128_decode, leb128_encode,
+                                                zigzag_decode, zigzag_encode,
+                                                zigzag_leb128_decode_array,
+                                                zigzag_leb128_encode_array)
+
+    deltas = np.diff(np.sort(feats), prepend=0)
+    t0 = time.perf_counter()
+    blob = zigzag_leb128_encode_array(deltas)
+    back = zigzag_leb128_decode_array(blob, len(deltas))
+    t1 = time.perf_counter()
+    py = bytearray()
+    for v in deltas.tolist():
+        leb128_encode(zigzag_encode(v), py)
+    pos, py_back = 0, []
+    for _ in range(len(deltas)):
+        u, pos = leb128_decode(py, pos)
+        py_back.append(zigzag_decode(u))
+    t2 = time.perf_counter()
+    assert blob == bytes(py), "codec: native bytes != Python bytes"
+    assert back == py_back == deltas.tolist(), "codec: decode"
+    print(f"[native] codec on the -native_scan model's {len(deltas)} ids: "
+          f"native encode + decode {t1 - t0:.3f} s, Python {t2 - t1:.3f} s; "
+          f"{len(blob)} bytes, byte-equal")
+    return len(blob)
+
+
+def native_pack_timing(idx, val, y):
+    """core/batch.pack_rows (numpy) against the library's hm_pack_block
+    with offsets from one cumsum, on main's rows as one block at WIDTH:
+    equal outputs; both timed (the marshalling timed with the C call and
+    apart). hm_pack_block is bound here only for this measurement: the
+    port packs with pack_rows."""
+    import ctypes
+
+    from hivemall_tpu_torch import native
+    from hivemall_tpu_torch.core.batch import pack_rows
+
+    idx_rows, val_rows = list(idx), list(val)
+    t0 = time.perf_counter()
+    blk = pack_rows(idx_rows, val_rows, y, FULL_DIMS, width=WIDTH)
+    t1 = time.perf_counter()
+    fn = native._load().hm_pack_block
+    fn.restype = None
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 3 \
+        + [ctypes.c_void_p] * 3
+    n = len(idx_rows)
+    offsets = np.zeros(n + 1, np.int64)
+    np.cumsum(np.fromiter(map(len, idx_rows), np.int64, n), out=offsets[1:])
+    flat_i = np.concatenate(idx_rows).astype(np.int64)
+    flat_v = np.concatenate(val_rows).astype(np.float32)
+    out_i = np.empty((n, WIDTH), np.int32)
+    out_v = np.empty((n, WIDTH), np.float32)
+    out_n = np.empty(n, np.int32)
+    t2 = time.perf_counter()
+    fn(*(a.ctypes.data_as(ctypes.c_void_p) for a in (flat_i, flat_v,
+                                                    offsets)),
+       n, WIDTH, FULL_DIMS,
+       *(a.ctypes.data_as(ctypes.c_void_p) for a in (out_i, out_v, out_n)))
+    t3 = time.perf_counter()
+    assert np.array_equal(out_i, blk.indices) and \
+        np.array_equal(out_v, blk.values) and np.array_equal(out_n, blk.nnz), \
+        "hm_pack_block != pack_rows"
+    print(f"[native] pack {n} rows at K={WIDTH}: pack_rows (numpy) "
+          f"{t1 - t0:.3f} s; hm_pack_block with cumsum offsets "
+          f"{t3 - t1:.3f} s, of which the C call {t3 - t2:.3f} s; equal "
+          f"outputs")
+
+
+def phase_native(seed, dev, data, built, pallas_run, fm_run, batch_run):
+    """The native host library on the main path's rows: string parsing
+    (C parser vs numpy, then a -pallas fit from string rows == the same fit
+    from arrays), train_arow -native_scan beside main's -pallas with a
+    prefix without repeated ids held against -pallas, train_arow
+    -batch 2048 -native_apply beside phase batch's -batch 2048 with one
+    block held against the torch step, train_fm -native_scan beside phase
+    fm's run with a prefix held against the exact FM scan, the codec, and
+    pack_rows against hm_pack_block. The native fits run on the host and
+    launch no CUDA kernel; their models land on ``dev``."""
+    import torch
+
+    from hivemall_tpu_torch import native
+    from hivemall_tpu_torch.kernels.linear_scan import LAUNCHES
+    from hivemall_tpu_torch.models.classifier import train_arow
+    from hivemall_tpu_torch.models.fm import train_fm
+
+    cxx, path, build_secs = built
+    print(f"[native] library {path}: {cxx}; built at first use in "
+          f"{build_secs:.2f} s")
+    _, (idx, val, y), (h_idx, h_val, h_y) = data
+    feats = (list(idx), list(val))
+    for key in native.CALLS:
+        native.CALLS[key] = 0
+
+    int_rows = native_parse_check(idx, FULL_DIMS)
+    n_str = len(int_rows)
+    opts = f"-dims {FULL_DIMS} -pallas -block_size 4096"
+    m_str, str_secs = timed(
+        lambda: train_arow(int_rows, y[:n_str], opts, device=dev), dev)
+    m_arr, arr_secs = timed(
+        lambda: train_arow((feats[0][:n_str], feats[1][:n_str]), y[:n_str],
+                           opts, device=dev), dev)
+    for f in ("weights", "covars", "touched"):
+        assert torch.equal(getattr(m_str.state, f), getattr(m_arr.state, f)), \
+            f"string rows: {f} differs from the array fit"
+    print(f"[native] train_arow {opts} on {n_str} string rows "
+          f"{str_secs:.3f} s == the same fit from arrays {arr_secs:.3f} s, "
+          f"bit for bit")
+
+    pallas, p_acc, p_ll, p_secs = pallas_run
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+    opts = f"-dims {FULL_DIMS} -native_scan"
+    model, secs = timed(lambda: train_arow(feats, y, opts, device=dev), dev)
+    launched = dict(LAUNCHES)
+    assert model.state.weights.device.type == dev.type, "state not on dev"
+    acc, ll = holdout(model, h_idx, h_val, h_y)
+    dw = float((model.state.weights - pallas.state.weights).abs().max())
+    dc = float((model.state.covars - pallas.state.covars).abs().max())
+    print(f"[native] train_arow {opts}: {ROWS} rows in {secs:.3f} s = "
+          f"{ROWS / secs:.0f} rows/s; holdout acc {acc:.4f} logloss "
+          f"{ll:.4f}; state on {model.state.weights.device}; against main's "
+          f"-pallas ({p_secs:.3f} s = {ROWS / p_secs:.0f} rows/s, acc "
+          f"{p_acc:.4f} logloss {p_ll:.4f}): max|dw| {dw:.3g}, max|dcov| "
+          f"{dc:.3g} (rows repeating an id within the row: "
+          f"{ROWS - len(rows_without_a_repeat(idx))} of {ROWS}); kernel "
+          f"launches {launched}")
+    assert not any(launched.values()), f"-native_scan launched {launched}"
+    assert abs(acc - p_acc) <= 0.01, "-native_scan holdout moved from -pallas"
+    native_codec_check(model.model_rows()[0])
+    del model
+    native_arow_prefix(idx, val, y, dev)
+
+    b_acc, b_ll, b_secs = batch_run
+    plan_secs, _, _, _ = stage_plans_secs(feats, y, FULL_DIMS, 4096, BATCH,
+                                          dev)
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+    opts = f"-dims {FULL_DIMS} -batch {BATCH} -native_apply"
+    model, secs = timed(lambda: train_arow(feats, y, opts, device=dev), dev)
+    launched = dict(LAUNCHES)
+    assert model.state.weights.device.type == dev.type, "state not on dev"
+    acc, ll = holdout(model, h_idx, h_val, h_y)
+    print(f"[native] train_arow {opts}: {ROWS} rows in {secs:.3f} s = "
+          f"{ROWS / secs:.0f} rows/s (plan staging of the same rows, timed "
+          f"apart: {plan_secs:.3f} s); holdout acc {acc:.4f} logloss "
+          f"{ll:.4f} | phase batch's -batch {BATCH}: {b_secs:.3f} s, acc "
+          f"{b_acc:.4f} logloss {b_ll:.4f}; kernel launches {launched}")
+    assert not any(launched.values()), f"-native_apply launched {launched}"
+    assert abs(acc - b_acc) <= 0.01, "-native_apply holdout moved from -batch"
+    del model
+    err, n_secs, t_secs = native_block_check(seed, dev)
+    print(f"[native] one 4096-row block, D={FULL_DIMS}, B={BATCH} (2 "
+          f"chunks), AROW from a warm state: native apply {n_secs:.4f} s on "
+          f"the host == the torch -batch step on {dev.type} {t_secs:.4f} s, "
+          f"max|err| {err:.3g} (rtol {NATIVE_TOL[0]} / atol "
+          f"{NATIVE_TOL[1]}), touched exact")
+
+    f_acc, f_ll, f_secs = fm_run
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+    opts = (f"-c -dims {FULL_DIMS} -factor {FM_FACTORS} -eta {FM_NATIVE_ETA} "
+            "-native_scan")
+    model, secs = timed(lambda: train_fm(feats, y, opts, device=dev), dev)
+    launched = dict(LAUNCHES)
+    assert model.state.w.device.type == dev.type, "FM state not on dev"
+    assert not model.state.v[:, FM_FACTORS:].any(), "V pad lanes moved"
+    acc, ll = holdout(model, h_idx, h_val, h_y)
+    print(f"[native] train_fm {opts}: {ROWS} rows in {secs:.3f} s = "
+          f"{ROWS / secs:.0f} rows/s; holdout acc {acc:.4f} logloss "
+          f"{ll:.4f} | phase fm's -mini_batch 4096: {f_secs:.3f} s, acc "
+          f"{f_acc:.4f} logloss {f_ll:.4f}; kernel launches {launched}")
+    assert not any(launched.values()), f"-native_scan launched {launched}"
+    assert acc > 0.55, f"fm -native_scan: holdout accuracy {acc}"
+    del model
+    native_fm_prefix(idx, val, y, dev)
+
+    native_pack_timing(idx, val, y)
+    calls = dict(native.CALLS)
+    print(f"[native] calls into the library during the phase: {calls}")
+    for key in ("parse_features_bulk", "arow_reference_rowloop",
+                "fm_reference_rowloop", "batch_apply_block"):
+        assert calls[key] > 0, f"{key} was never called"
 
 
 def main(argv=None) -> int:
@@ -1407,12 +1819,13 @@ def main(argv=None) -> int:
     print(f"[device] {torch.cuda.get_device_name(0)}; torch "
           f"{torch.__version__} cuda {torch.version.cuda}; {smi}")
     t_start = time.perf_counter()
-    phase_build()
+    built = phase_build()
     err = phase_families(args.seed, dev)
     err = max(err, phase_stress(args.seed, dev))
     scan, plan = phase_width(args.seed, dev)
     data = main_data(args.seed)
-    launches, main_mini, served = phase_main(args.seed, dev, data)
+    launches, main_mini, served, pallas_run = phase_main(args.seed, dev,
+                                                         data)
     from hivemall_tpu_torch.kernels.linear_scan import LAUNCHES
 
     for key in LAUNCHES:
@@ -1423,17 +1836,23 @@ def main(argv=None) -> int:
     for key in LAUNCHES:
         LAUNCHES[key] = 0
     t_fm = time.perf_counter()
-    phase_fm(args.seed, dev, smi, data, served[0])
+    fm_run = phase_fm(args.seed, dev, smi, data, served[0])
     print(f"[fm] phase took {time.perf_counter() - t_fm:.1f} s; kernel "
           f"launches during it: {dict(LAUNCHES)} (the FM path reaches no "
           f"pallas_call in the JAX package and runs plain torch ops here)")
     for key in LAUNCHES:
         LAUNCHES[key] = 0
     t_batch = time.perf_counter()
-    phase_batch(args.seed, dev, data, main_mini)
+    batch_run = phase_batch(args.seed, dev, data, main_mini)
     print(f"[batch] phase took {time.perf_counter() - t_batch:.1f} s; kernel "
           f"launches during it: {dict(LAUNCHES)} (the -batch path reaches no "
           f"pallas_call in the JAX package and runs plain torch ops here)")
+    t_native = time.perf_counter()
+    phase_native(args.seed, dev, data, built, (served[0],) + pallas_run,
+                 fm_run, batch_run)
+    print(f"[native] phase took {time.perf_counter() - t_native:.1f} s (the "
+          f"native host library reaches no pallas_call in the JAX package "
+          f"and adds no CUDA kernel)")
     source = "hivemall_tpu_torch/kernels/csrc/linear_scan.cu"
     replaces = "hivemall_tpu/kernels/linear_scan.py:44"
     kernels = [

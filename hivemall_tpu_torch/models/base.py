@@ -18,6 +18,10 @@ Execution modes:
 - `-batch B`: the same minibatch semantics through host-staged dedup plans
   (core/batch_update.py): one compact write per unique feature of each
   B-row chunk.
+- `-native_scan` (AROW) and `-batch B -native_apply`: host loops of the
+  native C++ library over numpy tables (native/, core/native_batch.py), the
+  JAX package's path for workers without an accelerator; the trained state
+  is then placed on the device like every other backend's.
 - `-iters N` + `-cv_rate`: multi-epoch with convergence checking.
 
 Training runs on the CUDA device unless the caller passes `device="cpu"`.
@@ -43,13 +47,10 @@ from ..runtime.metrics import REGISTRY
 from ..utils.feature import parse_features_batch
 from ..utils.options import CommandLine, Options
 
-# execution backends of the JAX package that are later slices of the port:
-# refused by name where the JAX package would run them, rather than quietly
-# run as something else
+# the execution backend of the JAX package that is a later slice of the
+# port: refused by name where the JAX package would run it, rather than
+# quietly run as something else
 _LATER_SLICE = {
-    "native_scan": "the native C row loop (-native_scan)",
-    "native_apply": "the native batched apply (-batch B -native_apply, "
-                    "core/native_batch.py)",
     "mxu_scatter": "the sorted-window gather/scatter (-mini_batch B "
                    "-mxu_scatter, ops/mxu_scatter.py)",
 }
@@ -90,7 +91,10 @@ def base_options() -> Options:
     o.add("pallas", None, False,
           "Run exact scan mode as one kernel launch per block "
           "(kernels/linear_scan.py: the CUDA kernel on the card)")
-    o.add("native_scan", None, False, "(later slice of the port)")
+    o.add("native_scan", None, False,
+          "Run exact scan epochs through the native C row loop — the "
+          "host path for workers without an accelerator (train_arow: any "
+          "options; train_fm: -classification with a fixed -eta)")
     o.add("mxu_scatter", None, False,
           "Route -mini_batch table updates through the sorted-window "
           "gather/scatter (ops/mxu_scatter.py; a later slice of the port, "
@@ -102,8 +106,11 @@ def base_options() -> Options:
           "same mini-batch semantics as -mini_batch B, one compact write "
           "per unique feature of each chunk", type=int)
     o.add("native_apply", None, False,
-          "With -batch B: apply the staged plans through the native C++ "
-          "pass (a later slice of the port; refused)")
+          "With -batch B: apply the staged dedup plans through one "
+          "vectorized C++ pass per block (core/native_batch.py) over host "
+          "f32 tables — same mini-batch semantics; falls back LOUDLY to "
+          "the -batch path when the rule or the table dtype has no native "
+          "form")
     return o
 
 
@@ -157,6 +164,138 @@ class TrainedLinearModel:
         return model_rows(self.state, filter_zero)
 
 
+def _host_f32(x) -> Optional[np.ndarray]:
+    """A warm-start table (numpy or tensor, bf16 included) as host f32."""
+    if x is None:
+        return None
+    if torch.is_tensor(x):
+        return x.detach().cpu().float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def _fit_native_scan(rule, hyper, cl, dims, idx_rows, val_rows, labels,
+                     width, block_size, initial_weights, initial_covars,
+                     dev) -> TrainedLinearModel:
+    """`-native_scan`: exact sequential AROW epochs through the C row loop
+    (native/hivemall_native.cpp::hm_arow_reference_rowloop) on host numpy
+    tables, the JAX package's host path for workers without an
+    accelerator. Semantics = engine scan mode (per-row sequential,
+    AROWClassifierUDTF.java:99-150); the epoch 'loss' for -iters
+    convergence is the margin-violation count. The trained state is
+    placed on `dev`."""
+    from .. import native
+
+    if rule.name != "arow":
+        raise ValueError(
+            "-native_scan supports train_arow only (the C row loop "
+            f"implements AROW's closed form); {rule.name} has no native "
+            "path — drop the flag")
+    initial_weights = _host_f32(initial_weights)
+    # one extra sentinel slot: block padding uses index == dims with value
+    # 0, so pad lanes read/write the sentinel and touch no real feature
+    st = {
+        "w": np.zeros(dims + 1, np.float32),
+        "cov": np.ones(dims + 1, np.float32),
+        "clocks": np.zeros(dims + 1, np.int16),
+        "deltas": np.zeros(dims + 1, np.int8),
+    }
+    if initial_weights is not None:
+        st["w"][:dims] = initial_weights
+    if initial_covars is not None:
+        st["cov"][:dims] = _host_f32(initial_covars)
+    r = hyper.get("r", 0.1)
+    # zero-row probe: builds and loads the library (raising if it cannot)
+    # and allocates the touch flags without touching the state
+    native.arow_reference_rowloop(
+        np.zeros((0, 1), np.int32), np.zeros((0, 1), np.float32),
+        np.zeros(0, np.float32), dims + 1, r=r, state=st,
+        track_touched=True)
+
+    iters = cl.get_int("iters", 1)
+    n = len(idx_rows)
+    conv = ConversionState(not cl.has("disable_cv"),
+                           cl.get_float("cv_rate", 0.005))
+    row_counter = REGISTRY.counter("hivemall", f"{rule.name}.examples")
+    iter_counter = REGISTRY.counter("hivemall", f"{rule.name}.iterations")
+    for it in range(max(1, iters)):
+        if cl.has("shuffle") and it > 0:
+            idx_rows, val_rows, labels = shuffle_rows(
+                idx_rows, val_rows, labels, cl.get_int("seed", 31) + it)
+        epoch_violations = 0
+        for block in iter_blocks(idx_rows, val_rows, labels, dims,
+                                 block_size, width):
+            epoch_violations += native.arow_reference_rowloop(
+                block.indices, block.values, block.labels, dims + 1,
+                r=r, state=st, track_touched=True)
+            row_counter.increment(block.batch_size)
+        iter_counter.increment()
+        conv.incr_loss(float(epoch_violations))
+        if iters > 1 and conv.is_converged(n):
+            break
+
+    state = init_linear_state(dims, use_covariance=True,
+                              initial_weights=st["w"][:dims],
+                              initial_covars=st["cov"][:dims], device=dev)
+    # the C loop's monotone touch flags OR the warm-start mask — the
+    # engine's semantics (init seeds touched from initial_weights != 0 and
+    # updates only raise it); the wrap-prone clocks/deltas never feed
+    # model emission
+    touched = st["touch"][:dims] != 0
+    if initial_weights is not None:
+        touched |= initial_weights != 0
+    state = state.replace(
+        touched=torch.from_numpy(touched.astype(np.int8)).to(dev),
+        step=n * (it + 1))
+    return TrainedLinearModel(state=state, rule=rule, dims=dims,
+                              block_width=width)
+
+
+def _fit_native_batch(rule, hyper, cl, dims, idx_rows, val_rows, labels,
+                      width, block_size, batch_b, initial_weights,
+                      initial_covars, dev) -> TrainedLinearModel:
+    """`-batch B -native_apply`: the staged-plan batch backend executed by
+    one native C++ pass per block (core/native_batch.py). Plans are built
+    on the host exactly as for `-batch` and reused across epochs (cleared
+    when -shuffle re-deals the rows); the tables stay host f32 and become a
+    LinearState on `dev` at the end."""
+    from ..core.native_batch import (init_native_tables,
+                                     make_native_batch_step,
+                                     native_tables_to_state)
+
+    step = make_native_batch_step(rule, hyper)
+    tables = init_native_tables(dims, rule.use_covariance,
+                                _host_f32(initial_weights),
+                                _host_f32(initial_covars))
+    iters = cl.get_int("iters", 1)
+    n = len(idx_rows)
+    conv = ConversionState(not cl.has("disable_cv"),
+                           cl.get_float("cv_rate", 0.005))
+    row_counter = REGISTRY.counter("hivemall", f"{rule.name}.examples")
+    iter_counter = REGISTRY.counter("hivemall", f"{rule.name}.iterations")
+    plan_cache: list = []
+    for it in range(max(1, iters)):
+        if cl.has("shuffle") and it > 0:
+            idx_rows, val_rows, labels = shuffle_rows(
+                idx_rows, val_rows, labels, cl.get_int("seed", 31) + it)
+            plan_cache = []
+        epoch_loss = 0.0
+        for bi, block in enumerate(iter_blocks(idx_rows, val_rows, labels,
+                                               dims, block_size, width)):
+            if bi >= len(plan_cache):
+                plan_cache.append(
+                    stage_block_plans(block.indices, batch_b, dims))
+            epoch_loss += step(tables, block.values, block.labels,
+                               plan_cache[bi])
+            row_counter.increment(block.batch_size)
+        iter_counter.increment()
+        conv.incr_loss(epoch_loss)
+        if iters > 1 and conv.is_converged(n):
+            break
+    state = native_tables_to_state(tables, rule, n * (it + 1), device=dev)
+    return TrainedLinearModel(state=state, rule=rule, dims=dims,
+                              block_width=width)
+
+
 def fit_linear(
     rule: Rule,
     hyper: dict,
@@ -206,24 +345,51 @@ def fit_linear(
                              "backend (docs/execution_backends.md)")
         mode = "batch"
     if cl.has("native_apply") and mode != "batch":
+        # -native_apply is a modifier of the batch backend, not a backend
+        # of its own
         raise ValueError("-native_apply rides the -batch backend; add "
-                         "-batch B (docs/execution_backends.md) — though "
-                         f"{_LATER_SLICE['native_apply']} is a later slice "
-                         "of the torch port")
-    if cl.has("native_scan"):
-        raise later_slice("native_scan", _LATER_SLICE["native_scan"])
-    if cl.has("native_apply"):
-        raise later_slice("native_apply", _LATER_SLICE["native_apply"])
-    if cl.has("mxu_scatter") and mode == "minibatch":
-        # the JAX package runs its mxu backend only here; in scan mode it
-        # ignores the flag, and so does the port
-        raise later_slice("mxu_scatter", _LATER_SLICE["mxu_scatter"])
+                         "-batch B (docs/execution_backends.md)")
     if mode == "minibatch":
         block_size = mini_batch
     if mode == "batch":
         # a staged block holds whole minibatches: round the block up to a
         # multiple of B (only the dataset's last block stages a tail chunk)
         block_size = -(-max(block_size, batch_b) // batch_b) * batch_b
+    if cl.has("native_scan"):
+        if mode != "scan":
+            raise ValueError("-native_scan is the exact per-row path; "
+                             "drop -mini_batch or drop -native_scan")
+        return _fit_native_scan(rule, hyper, cl, dims, idx_rows, val_rows,
+                                labels, width, block_size, initial_weights,
+                                initial_covars, dev)
+    # SpaceEfficientDenseModel analog: above 2^24 dims the reference switches
+    # to half-float storage unless -disable_halffloat
+    # (ref: LearnerBaseUDTF.java:172-175); here that is bf16.
+    dtype = torch.float32
+    if dims > (1 << 24) and not cl.has("disable_halffloat"):
+        dtype = torch.bfloat16
+    if mode == "batch" and cl.has("native_apply"):
+        from ..core.native_batch import native_batch_unsupported_reason
+
+        reason = native_batch_unsupported_reason(
+            rule, table_dtype_is_f32=dtype == torch.float32)
+        if reason is None:
+            return _fit_native_batch(rule, hyper, cl, dims, idx_rows,
+                                     val_rows, labels, width, block_size,
+                                     batch_b, initial_weights,
+                                     initial_covars, dev)
+        # loud fallback, never silent: the -batch path has the same
+        # semantics, so training proceeds — but the caller asked for the
+        # native pass and learns why they did not get it
+        import warnings
+
+        warnings.warn(f"-native_apply unavailable ({reason}); falling "
+                      "back to the -batch backend", stacklevel=2)
+    if cl.has("mxu_scatter") and mode == "minibatch":
+        # the JAX package runs its mxu backend only here; in scan mode it
+        # ignores the flag, and so does the port
+        raise later_slice("mxu_scatter", _LATER_SLICE["mxu_scatter"])
+    if mode == "batch":
         step = make_batch_train_step(rule, hyper, batch_size=batch_b,
                                      device=dev)
     elif cl.has("pallas") and mode == "scan":
@@ -232,12 +398,6 @@ def fit_linear(
         step = make_pallas_scan_step(rule, hyper, device=dev)
     else:
         step = make_train_fn(rule, hyper, mode=mode, device=dev)
-    # SpaceEfficientDenseModel analog: above 2^24 dims the reference switches
-    # to half-float storage unless -disable_halffloat
-    # (ref: LearnerBaseUDTF.java:172-175); here that is bf16.
-    dtype = torch.float32
-    if dims > (1 << 24) and not cl.has("disable_halffloat"):
-        dtype = torch.bfloat16
     state = init_linear_state(
         dims,
         use_covariance=rule.use_covariance,

@@ -55,11 +55,9 @@ from ..ops.scatter import scatter_rows_flat
 from ..utils.options import Options
 from .base import FeatureRows, _stage_rows, base_options, later_slice
 
-# JAX backends of train_fm that are later slices of the port: refused by
-# name where the JAX package would run them
+# the JAX backend of train_fm that is a later slice of the port: refused by
+# name where the JAX package would run it
 _LATER_SLICE = {
-    "native_scan": "the native C row loop (-native_scan, "
-                   "native/hivemall_native.cpp::hm_fm_reference_rowloop)",
     "mxu_scatter": "the sorted-window gather/scatter (-mini_batch B "
                    "-mxu_scatter, ops/mxu_scatter.py)",
 }
@@ -454,14 +452,11 @@ def train_fm(features: FeatureRows, targets, options: Optional[str] = None,
              device: DeviceLike = None) -> TrainedFMModel:
     """Train an FM on the CUDA device (``device="cpu"`` asks for the CPU).
     Default ``-mini_batch 1`` is the exact per-row scan; ``-mini_batch B``
-    the averaged minibatch. ``-native_scan``, and ``-mxu_scatter`` with
-    ``-mini_batch``, are later slices of the port and raise; in scan mode
-    ``-mxu_scatter`` is ignored, as in the JAX package."""
+    the averaged minibatch; ``-native_scan`` the exact scan through the
+    native C row loop on the host, its model then placed on the device.
+    ``-mxu_scatter`` with ``-mini_batch`` is a later slice of the port and
+    raises; in scan mode it is ignored, as in the JAX package."""
     cl = _fm_options().parse(options, "train_fm")
-    if cl.has("native_scan"):
-        raise later_slice("native_scan", _LATER_SLICE["native_scan"])
-    if cl.has("mxu_scatter") and cl.get_int("mini_batch", 1) > 1:
-        raise later_slice("mxu_scatter", _LATER_SLICE["mxu_scatter"])
     dev = resolve_device(device)
     dims = cl.get_int("dims") or cl.get_int("p") or DEFAULT_NUM_FEATURES
     hyper = FMHyper(
@@ -486,6 +481,11 @@ def train_fm(features: FeatureRows, targets, options: Optional[str] = None,
     mode = "minibatch" if mini_batch > 1 else "scan"
     block = mini_batch if mode == "minibatch" else cl.get_int("block_size", 4096)
     iters = cl.get_int("iters", 1)
+    if cl.has("native_scan"):
+        return _train_fm_native_scan(cl, hyper, dims, idx_rows, val_rows,
+                                     targets, width, block, mode, iters, dev)
+    if cl.has("mxu_scatter") and mode == "minibatch":
+        raise later_slice("mxu_scatter", _LATER_SLICE["mxu_scatter"])
     step = make_fm_step(hyper, mode, device=dev)
     state = init_fm_state(dims, hyper, device=dev)
     # the JAX package's validation-row stream, draw for draw
@@ -508,6 +508,82 @@ def train_fm(features: FeatureRows, targets, options: Optional[str] = None,
         if iters > 1 and conv.is_converged(n):
             break
     return TrainedFMModel(state=state, hyper=hyper, dims=dims)
+
+
+def _train_fm_native_scan(cl, hyper: FMHyper, dims, idx_rows, val_rows,
+                          targets, width, block, mode, iters,
+                          dev) -> TrainedFMModel:
+    """`-native_scan`: exact sequential FM epochs through the C row loop
+    (native/hivemall_native.cpp::hm_fm_reference_rowloop) on host numpy
+    tables, the JAX package's host path. Envelope = where the C loop and
+    the scan step coincide: -classification, a FIXED -eta, no -adareg,
+    per-row scan mode; anything else refuses. It starts from the port's
+    own `init_fm_state` (drawn on the CPU), so it matches the port's scan
+    mode from the same V, with one pinned deviation: a feature repeated
+    WITHIN a row sees in-place partial updates lane to lane, like the
+    reference's per-feature loop, where the scan gathers the row once. The
+    C loop also sums a row's score in float64. The trained state is placed
+    on `dev`, V's lane padding restored."""
+    from .. import native
+
+    problems = []
+    if not hyper.classification:
+        problems.append("-classification (the C loop is the logistic form)")
+    if hyper.eta.kind != "fixed":
+        problems.append("a fixed -eta (C runs a constant learning rate)")
+    if hyper.adareg:
+        problems.append("no -adareg")
+    if mode != "scan":
+        problems.append("per-row scan mode (drop -mini_batch)")
+    if problems:
+        raise ValueError("-native_scan for train_fm requires: "
+                         + "; ".join(problems))
+    d0 = fm_state_to_numpy(init_fm_state(dims, hyper, device="cpu"))
+    k = hyper.factors
+    # one sentinel slot at index dims: block padding writes land there and
+    # are sliced off (value-0 lanes still take the L2 decay term, like the
+    # reference's own loop — confined to the sentinel)
+    st = {
+        "w0": np.zeros(1, np.float32),
+        "w": np.concatenate([d0["w"], np.zeros(1, np.float32)]),
+        "V": np.concatenate([d0["v"][:, :k], np.zeros((1, k), np.float32)]),
+        "touch": np.zeros(dims + 1, np.uint8),
+    }
+    # zero-row probe: builds and loads the library (raising if it cannot)
+    # without touching the state (a fake row would shift the global w0)
+    native.fm_reference_rowloop(
+        np.zeros((0, 1), np.int32), np.zeros((0, 1), np.float32),
+        np.zeros(0, np.float32), dims + 1, k=k, eta=hyper.eta.eta0,
+        lam=hyper.lambda0, state=st, track_touched=True)
+    n = len(idx_rows)
+    conv = ConversionState(not cl.has("disable_cv"),
+                           cl.get_float("cv_rate", 0.005))
+    for it in range(max(1, iters)):
+        if cl.has("shuffle") and it > 0:
+            idx_rows, val_rows, targets = shuffle_rows(
+                idx_rows, val_rows, targets, hyper.seed + it)
+        epoch_errors = 0
+        for blk in iter_blocks(idx_rows, val_rows, targets, dims, block,
+                               width):
+            epoch_errors += native.fm_reference_rowloop(
+                blk.indices, blk.values, blk.labels, dims + 1, k=k,
+                eta=hyper.eta.eta0, lam=hyper.lambda0, state=st,
+                track_touched=True)
+        # convergence proxy = sign-error count (the C loop's return);
+        # the scan tracks logloss — a documented deviation
+        conv.incr_loss(float(epoch_errors))
+        if iters > 1 and conv.is_converged(n):
+            break
+    v_back = st["V"][:dims]
+    if hyper.padded_factors != k:  # restore the physical lane padding
+        v_back = np.concatenate(
+            [v_back, np.zeros((dims, hyper.padded_factors - k), np.float32)],
+            axis=1)
+    d0.update(w0=st["w0"][0], w=st["w"][:dims], v=v_back,
+              touched=(st["touch"][:dims] != 0).astype(np.int8),
+              step=n * (it + 1))
+    return TrainedFMModel(state=fm_state_from_numpy(d0, device=dev),
+                          hyper=hyper, dims=dims)
 
 
 def fm_predict(w0: float, w: Sequence[float], v: Sequence[Sequence[float]],

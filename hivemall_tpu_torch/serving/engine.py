@@ -40,6 +40,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import native
 from ..core.batch import FeatureBlock, pack_rows, pad_to_bucket
 from ..core.engine import live_lanes, make_predict
 from ..device import DeviceLike, resolve_device
@@ -613,8 +614,11 @@ class ServingEngine:
         """Run one dummy batch through every (batch, width) bucket; returns
         the caching-allocator segments the sweep added on the device (all
         of them paid here, none in the steady state; 0 on the CPU). A
-        second warmup adds none."""
+        second warmup adds none. It also builds or loads the native host
+        library, through which string rows parse, so no request pays its
+        compile."""
         t0 = time.perf_counter()
+        native.library_path()
         self.warmed_buckets = []
         with TRACER.span("engine.warmup", args={"engine": self.name,
                                                 "family": self.family}), \

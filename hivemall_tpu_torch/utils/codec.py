@@ -1,4 +1,4 @@
-"""Binary codecs for model compression (numpy only).
+"""Binary codecs for model compression.
 
 Mirrors the reference codec substrate (ref: utils/codec/{ZigZagLEB128Codec,
 DeflateCodec}.java and utils/lang/HalfFloat.java:34-80), byte for byte the
@@ -6,16 +6,16 @@ sparse-model blobs of the JAX package's `utils/codec.py`: a blob written by eith
 package decodes in the other. `io/checkpoint.save_model_rows(compressed=
 True)` writes model rows through `encode_sparse_model`.
 
-Half-float is IEEE 754 binary16 (numpy float16). The LEB128 array paths are
-vectorised numpy over int64 values; a value outside int64 takes the
-per-value Python path.
+Half-float is IEEE 754 binary16 (numpy float16). The LEB128 array paths run
+through the native host library's zigzag-LEB128 codec over int64 values, as
+in the JAX package; a value outside int64 takes the per-value Python path.
 """
 
 from __future__ import annotations
 
 import struct
 import zlib
-from typing import Iterable, List, Optional, Tuple
+from typing import Iterable, List, Tuple
 
 import numpy as np
 
@@ -70,48 +70,6 @@ def leb128_decode(buf: bytes, pos: int = 0) -> Tuple[int, int]:
         shift += 7
 
 
-def _encode_int64(arr: np.ndarray) -> bytes:
-    """Zigzag + LEB128 of an int64 array: each value's 7-bit groups are
-    written at its byte offset, low group first."""
-    v = arr.astype(np.int64, copy=False)
-    u = ((v << 1) ^ (v >> 63)).view(np.uint64)
-    n = np.ones(u.shape, np.int64)  # bytes per value
-    rest = u >> np.uint64(7)
-    while rest.any():
-        n += rest != 0
-        rest = rest >> np.uint64(7)
-    start = np.cumsum(n) - n
-    out = np.empty(int(n.sum()), np.uint8)
-    for k in range(int(n.max())):
-        sel = n > k
-        group = (u[sel] >> np.uint64(7 * k)) & np.uint64(0x7F)
-        more = np.where(n[sel] > k + 1, 0x80, 0).astype(np.uint64)
-        out[start[sel] + k] = (group | more).astype(np.uint8)
-    return out.tobytes()
-
-
-def _decode_int64(buf: bytes, n: int) -> Optional[np.ndarray]:
-    """The inverse of `_encode_int64`; None when a value does not fit in
-    64 bits (the Python path takes it)."""
-    b = np.frombuffer(buf, np.uint8)
-    ends = np.flatnonzero(b < 0x80)[:n]
-    if ends.size < n:
-        raise IndexError("leb128 buffer ends inside a value")
-    start = np.zeros(n, np.int64)
-    start[1:] = ends[:-1] + 1
-    length = ends - start + 1
-    if int(length.max()) > 10 or np.any(
-            (length == 10) & (b[np.minimum(start + 9, b.size - 1)] > 1)):
-        return None
-    u = np.zeros(n, np.uint64)
-    for k in range(int(length.max())):
-        sel = length > k
-        u[sel] |= (b[start[sel] + k] & 0x7F).astype(np.uint64) \
-            << np.uint64(7 * k)
-    return (u >> np.uint64(1)).view(np.int64) \
-        ^ -(u & np.uint64(1)).view(np.int64)
-
-
 def zigzag_leb128_encode_array(values: Iterable[int]) -> bytes:
     vals = values if isinstance(values, np.ndarray) else list(values)
     arr = None
@@ -122,7 +80,9 @@ def zigzag_leb128_encode_array(values: Iterable[int]) -> bytes:
         except (OverflowError, ValueError):  # >64-bit: Python path only
             arr = None
     if arr is not None and arr.size:
-        return _encode_int64(arr.ravel())
+        from .. import native
+
+        return native.zigzag_leb128_encode(arr.ravel())
     out = bytearray()
     for v in vals:
         leb128_encode(zigzag_encode(int(v)), out)
@@ -131,9 +91,12 @@ def zigzag_leb128_encode_array(values: Iterable[int]) -> bytes:
 
 def zigzag_leb128_decode_array(buf: bytes, n: int) -> List[int]:
     if n:
-        decoded = _decode_int64(buf, n)
-        if decoded is not None:
-            return decoded.tolist()
+        from .. import native
+
+        try:
+            return native.zigzag_leb128_decode(buf, n).tolist()
+        except ValueError:  # >64-bit values: only the Python path has them
+            pass
     out = []
     pos = 0
     for _ in range(n):

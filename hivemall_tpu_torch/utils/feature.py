@@ -8,6 +8,10 @@ grammar is a later slice of the port.)
 String names are folded into the hashed feature space with bit-identical
 MurmurHash3 (see utils/hashing.py), which is the reference's own default
 canonicalization (ref: ftvec/hashing/FeatureHashingUDF.java:172).
+
+`parse_features_batch` parses through the native host library's C parser
+(`native.parse_features_bulk`, as the JAX package does) and keeps the
+numpy path, `parse_features_numpy`, for what the C parser declines.
 """
 
 from __future__ import annotations
@@ -67,7 +71,24 @@ def parse_features_batch(
     String names are bulk murmur-hashed; int names index the space directly,
     matching the reference's dense-model int-feature path
     (ref: LearnerBaseUDTF.java:164-196 dense vs sparse model selection).
+    The C parser takes every row set it accepts (parse + hash + mod in one
+    pass); tuple features, exotic numeric literals and malformed tokens go
+    to `parse_features_numpy`, which keeps the error behavior.
     """
+    from .. import native
+
+    fast = native.parse_features_bulk(rows, num_features)
+    if fast is not None:
+        return fast
+    return parse_features_numpy(rows, num_features)
+
+
+def parse_features_numpy(
+    rows: Sequence[Sequence[FeatureLike]],
+    num_features: int = DEFAULT_NUM_FEATURES,
+) -> Tuple[List[np.ndarray], List[np.ndarray]]:
+    """`parse_features_batch` without the C parser: a Python loop over the
+    tokens and one vectorized hash pass over the string names."""
     idx_rows: List[np.ndarray] = []
     val_rows: List[np.ndarray] = []
     # Collect string names for one vectorized hash pass.

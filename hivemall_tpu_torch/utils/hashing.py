@@ -8,9 +8,8 @@ Bit-compatibility matters: feature spaces must match between any host
 preprocessing (including existing Hivemall-produced models) and our TPU
 kernels, so the same string must land in the same slot.
 
-A vectorized numpy path (`murmurhash3_bytes_batch`) handles bulk host-side
-hashing. (The JAX package can also route this loop through its native
-library; the port keeps the numpy path only.)
+Bulk host-side hashing (`murmurhash3_bytes_batch`) runs through the native
+host library's `hm_murmur3_bulk`, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -81,57 +80,9 @@ def murmurhash3_bytes_batch(
     num_features: int = DEFAULT_NUM_FEATURES,
     seed: int = DEFAULT_SEED,
 ) -> np.ndarray:
-    """Hash many strings; numpy-vectorized across the block loop.
+    """Hash many strings into int64 indices in [0, num_features) through
+    the native library (`hm_murmur3_bulk`)."""
+    from .. import native
 
-    All inputs are processed in lockstep over their 4-byte blocks (padded with
-    a done-mask), which vectorizes the hot path for bulk feature hashing.
-    Returns int64 indices in [0, num_features).
-    """
     bss: List[bytes] = [s.encode("utf-8") if isinstance(s, str) else s for s in strings]
-    if not bss:
-        return np.zeros((0,), dtype=np.int64)
-    lens = np.array([len(b) for b in bss], dtype=np.int64)
-    maxlen = int(lens.max())
-    padded = int(-(-max(maxlen, 1) // 4) * 4)
-    buf = np.zeros((len(bss), padded), dtype=np.uint8)
-    for i, b in enumerate(bss):
-        buf[i, : len(b)] = np.frombuffer(b, dtype=np.uint8)
-    words = buf.view("<u4").astype(np.uint64)  # [N, padded//4]
-
-    h1 = np.full(len(bss), seed, dtype=np.uint64)
-    nblocks = lens >> 2
-    for j in range(words.shape[1]):
-        active = nblocks > j
-        k1 = words[:, j]
-        k1 = (k1 * _C1) & _M32
-        k1 = ((k1 << 15) | (k1 >> 17)) & _M32
-        k1 = (k1 * _C2) & _M32
-        h1x = h1 ^ k1
-        h1x = ((h1x << 13) | (h1x >> 19)) & _M32
-        h1x = (h1x * 5 + 0xE6546B64) & _M32
-        h1 = np.where(active, h1x, h1)
-    # tails: k1 = remaining bytes little-endian
-    tail_len = lens & 3
-    tail_start = (nblocks * 4).astype(np.int64)
-    k1 = np.zeros(len(bss), dtype=np.uint64)
-    for i in range(3):
-        has = tail_len > i
-        idx = np.minimum(tail_start + i, padded - 1)
-        byte = buf[np.arange(len(bss)), idx].astype(np.uint64)
-        k1 = np.where(has, k1 | (byte << np.uint64(8 * i)), k1)
-    has_tail = tail_len > 0
-    k1 = (k1 * _C1) & _M32
-    k1 = ((k1 << 15) | (k1 >> 17)) & _M32
-    k1 = (k1 * _C2) & _M32
-    h1 = np.where(has_tail, h1 ^ k1, h1)
-    # finalization
-    h1 ^= lens.astype(np.uint64)
-    h1 &= _M32
-    h1 ^= h1 >> 16
-    h1 = (h1 * 0x85EBCA6B) & _M32
-    h1 ^= h1 >> 13
-    h1 = (h1 * 0xC2B2AE35) & _M32
-    h1 ^= h1 >> 16
-    signed = h1.astype(np.int64)
-    signed = np.where(signed >= (1 << 31), signed - (1 << 32), signed)
-    return np.mod(signed, num_features)
+    return native.murmur3_bulk(bss, num_features, seed)

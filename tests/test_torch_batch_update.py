@@ -290,11 +290,3 @@ def test_batch_flag_refusals_match_jax(bad):
         with pytest.raises(ValueError, match=BAD_FLAGS[bad]):
             train(feats, y, f"-dims 64 {bad}", **kw)
 
-
-def test_batch_native_apply_is_refused_by_name():
-    """-batch B -native_apply needs the port's native host library: refused
-    as a later slice, never run as something else."""
-    feats, y = rows(True, n=20)
-    with pytest.raises(ValueError, match="later slice"):
-        TC.train_arow(feats, y, "-dims 64 -batch 8 -native_apply",
-                      device="cpu")

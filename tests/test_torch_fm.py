@@ -310,10 +310,11 @@ def test_carry_over_round_trip():
 
 # --- refusals and the device default ----------------------------------------
 
-@pytest.mark.parametrize("flag", ["-native_scan", "-mxu_scatter"])
-def test_train_fm_refuses_later_slice_flags(flag):
+@pytest.mark.parametrize("flag,match", [
+    ("-native_scan", "per-row scan mode"), ("-mxu_scatter", "later slice")])
+def test_train_fm_refuses_later_slice_flags(flag, match):
     feats, y = interaction_rows(n=20)
-    with pytest.raises(ValueError, match="later slice"):
+    with pytest.raises(ValueError, match=match):
         TF.train_fm(feats, y, f"-c -dims 64 {flag} -mini_batch 8",
                     device="cpu")
 
