@@ -92,6 +92,32 @@ Phases (any failure exits non-zero; nothing is caught):
              pack_rows against hm_pack_block; the library's calls per
              binding (> 0 for the parser, both row loops and the batch
              apply) and 0 kernel launches during the native fits.
+11. mf     — matrix factorization at the JAX package's MF bench shape
+             (2^20 users x 2^17 items, k = 16, 131,072 log-uniform rating
+             rows, ratings 1 + 4 * rand, uniform BPR negatives, 16,384
+             held out): train_mf_sgd / train_mf_adagrad / train_bprmf
+             -factor 16 -mini_batch 16384 -iter 2 -disable_cv with a small
+             -eta0 (the defaults diverge here, shown once): seconds, rows/s,
+             init and upload timed apart, holdout RMSE / pairwise accuracy;
+             card == CPU on one block per trainer (rtol 2e-5 / atol 1e-6)
+             and on the exact scan's first 4,096 rows (rtol 1e-5 / atol
+             1e-6), touched and step exact; the SGD step eager, as one CUDA
+             graph, its device operations and byte bound; train_mf_sgd's
+             model frozen at f32 / bf16 / int8 with an 8-plane LSH index,
+             served as /predict pairs against model.predict (f32, rtol 1e-6
+             / atol 1e-7), the CPU engine (bf16) and numpy on the
+             dequantized tables (int8), p50 / p99, 0 allocator segments.
+12. topk   — RetrievalEngine per MF precision over the 131,072 items (k 16,
+             block_items 4096, max_batch 8): warmup, p50 / p99 for batches
+             of 1 and 8 with queries/s and items scored/s and 0 allocator
+             segments after warmup, the blocked merge == the stable argsort
+             of score_catalog on the card for 64 queries (ids and f32 bits),
+             card == CPU engine, the LSH probe's recall@16, one sweep eager
+             / as a CUDA graph / device operations against its bound; the
+             same checks over phase fm's 2^22-feature FM catalog
+             (block_items 65,536, 8 queries); HTTP: the f32 artifact
+             deployed with retrieval={}, 4 clients x 16 POST /topk, 0
+             failed, each == the direct engine call. No hand kernel.
 Prints a kernels JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 """
@@ -1190,7 +1216,7 @@ def phase_fm(seed, dev, smi, data, linear_model):
     print(f"[fm] HTTP: 4 clients x 4 POST /predict of 64 string rows for fm "
           f"in {http_secs:.3f} s beside the linear model ctr: 0 failed, "
           f"answers == the fm f32 engine")
-    return acc, ll, secs
+    return (acc, ll, secs), model
 
 
 BATCH = 2048  # -batch B of phase batch (2 chunks per 4096-row block)
@@ -1797,6 +1823,543 @@ def phase_native(seed, dev, data, built, pallas_run, fm_run, batch_run):
         assert calls[key] > 0, f"{key} was never called"
 
 
+MF_USERS = 1 << 20  # the JAX package's MF bench shape (scripts/bench_mf.py)
+MF_ITEMS = 1 << 17
+MF_K = 16
+MF_BATCH = 16384
+MF_ROWS = 8 * MF_BATCH
+MF_HOLDOUT = 16384
+MF_SCAN_ROWS = 4096
+MF_TOL = (2e-5, 1e-6)  # a minibatch step, card against CPU
+MF_SCAN_TOL = (1e-5, 1e-6)
+# the default rates (0.2 SGD, 1.0 AdaGrad, 0.3 BPR) diverge at this shape:
+# a -mini_batch block sums every duplicate id's delta (the reference's
+# .at[].add), and the head user of the log-uniform ids holds ~7% of a
+# 16,384-row block; phase mf runs the defaults once to show it
+MF_RUNS = (("train_mf_sgd", 0.001), ("train_mf_adagrad", 0.002),
+           ("train_bprmf", 0.05))
+
+
+def mf_data(seed):
+    """MF_ROWS training and MF_HOLDOUT held-out rows (users, items,
+    ratings, negatives) at the JAX package's MF bench shape: users and
+    items log-uniform (workload_ids), ratings 1 + 4 * rand, BPR negatives
+    uniform over the items; the last training row pins both table
+    sizes."""
+    rng = np.random.RandomState(seed + 31)
+    n = MF_ROWS + MF_HOLDOUT
+    u = workload_ids(rng, n, MF_USERS).astype(np.int64)
+    i = workload_ids(rng, n, MF_ITEMS).astype(np.int64)
+    r = (1.0 + 4.0 * rng.rand(n)).astype(np.float32)
+    j = rng.randint(0, MF_ITEMS, n).astype(np.int64)
+    u[MF_ROWS - 1], i[MF_ROWS - 1] = MF_USERS - 1, MF_ITEMS - 1
+    return ([c[:MF_ROWS] for c in (u, i, r, j)],
+            [c[MF_ROWS:] for c in (u, i, r, j)])
+
+
+def mf_compare(tag, got, ref, tol):
+    """MF state on the card == the same step on the CPU (floats at tol,
+    touched and step exact); returns max |err|."""
+    from hivemall_tpu_torch.models.mf import mf_state_to_numpy
+
+    (gs, gl), (rs, rl) = got, ref
+    a, b = mf_state_to_numpy(gs), mf_state_to_numpy(rs)
+    err = abs(float(gl) - float(rl))
+    np.testing.assert_allclose(float(gl), float(rl), rtol=tol[0],
+                               atol=tol[1], err_msg=f"{tag}: loss")
+    for k in ("P", "Q", "Bu", "Bi", "mu", "P_gg", "Q_gg"):
+        if b[k] is None:
+            continue
+        np.testing.assert_allclose(a[k], b[k], rtol=tol[0], atol=tol[1],
+                                   err_msg=f"{tag}: {k}")
+        err = max(err, float(np.max(np.abs(a[k] - b[k]))))
+    for k in ("touched_u", "touched_i"):
+        assert np.array_equal(a[k], b[k]), f"{tag}: {k}"
+    assert a["step"] == b["step"], f"{tag}: step"
+    return err
+
+
+def device_ops(fn):
+    """Device operations (kernels, copies, fills) one call of fn()
+    launches, by torch.profiler; 0 when it records none."""
+    import torch
+
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def mf_hypers(kind, eta0):
+    from hivemall_tpu_torch.models import mf as M
+    from hivemall_tpu_torch.ops.eta import EtaEstimator
+
+    eta = EtaEstimator("invscaling", eta0, power_t=0.1)
+    if kind == "bpr":
+        return M.BPRHyper(factor=MF_K, eta=eta), M.MFHyper(factor=MF_K)
+    h = M.MFHyper(factor=MF_K, eta=eta, adagrad=kind == "adagrad")
+    return h, h
+
+
+def mf_card_vs_cpu(dev, train):
+    """From one CPU-made state per trainer: one full-width -mini_batch
+    block (MF_BATCH rows, 2^20 x 2^17, k = 16) on the card and on the CPU;
+    the SGD step timed eager and as one CUDA graph with its device
+    operations and byte bound; the exact scan of MF_SCAN_ROWS rows on
+    both."""
+    import torch
+
+    from hivemall_tpu_torch.models import mf as M
+
+    u, i, r, j = (c[:MF_BATCH] for c in train)
+    for kind, (_, eta0) in zip(("sgd", "adagrad", "bpr"), MF_RUNS):
+        hyper, init_h = mf_hypers(kind, eta0)
+        make = M.make_bpr_step if kind == "bpr" else M.make_mf_step
+        third = j if kind == "bpr" else r
+        host = M.mf_state_to_numpy(
+            M.init_mf_state(MF_USERS, MF_ITEMS, init_h, device="cpu"))
+        out = [make(hyper, "minibatch", device=d)(
+            M.mf_state_from_numpy(host, d), u, i, third)
+            for d in (dev, "cpu")]
+        e = mf_compare(f"mf {kind} block", *out, MF_TOL)
+        print(f"[mf] {kind} -mini_batch block of {MF_BATCH} rows from one "
+              f"state: card == CPU, max|err| {e:.3g} (rtol {MF_TOL[0]:g} / "
+              f"atol {MF_TOL[1]:g}), touched and step exact")
+        if kind != "sgd" or dev.type != "cuda":
+            continue
+        step = make(hyper, "minibatch", device=dev)
+        st = M.mf_state_from_numpy(host, dev)
+        cols = (torch_on(u, dev), torch_on(i, dev), torch_on(r, dev))
+
+        def run():
+            step(st, *cols)
+
+        eager, graph, ops = cuda_ms(run, 20), graph_ms(run, 20), \
+            device_ops(run)
+        nu, ni = len(np.unique(u)), len(np.unique(i))
+        # ids and ratings read once; each unique user's and item's row,
+        # bias and touched byte read and written once
+        nbytes = MF_BATCH * (8 + 8 + 4) + 2 * (nu + ni) * (4 * MF_K + 4) \
+            + nu + ni
+        bound = 1e3 * nbytes / HBM_BYTES_PER_S
+        print(f"[mf] sgd minibatch step (B={MF_BATCH}, k={MF_K}, "
+              f"{nu} users / {ni} items unique): {eager:.4f} ms eager = "
+              f"{MF_BATCH / eager * 1e3:.0f} rows/s, {graph:.4f} ms as one "
+              f"CUDA graph; {ops if ops else 'not measured'} device "
+              f"operations; bound {bound:.6f} ms by bytes ({nbytes} B)")
+
+    hyper, _ = mf_hypers("sgd", MF_RUNS[0][1])
+    host = M.mf_state_to_numpy(
+        M.init_mf_state(MF_USERS, MF_ITEMS, hyper, device="cpu"))
+    n = MF_SCAN_ROWS
+    out, secs = [], None
+    for d in (dev, "cpu"):
+        step = M.make_mf_step(hyper, "scan", device=d)
+        st = M.mf_state_from_numpy(host, d)
+        sync(dev)
+        t0 = time.perf_counter()
+        out.append(step(st, train[0][:n], train[1][:n], train[2][:n]))
+        sync(dev)
+        secs = secs or time.perf_counter() - t0
+    e = mf_compare("mf sgd scan", *out, MF_SCAN_TOL)
+    print(f"[mf] exact scan (-mini_batch 1) of the first {n} rows: card == "
+          f"CPU, max|err| {e:.3g} (rtol {MF_SCAN_TOL[0]:g} / atol "
+          f"{MF_SCAN_TOL[1]:g}); on the card {secs:.3f} s = {n / secs:.0f} "
+          f"rows/s (plain torch ops, some 25 launches a row)")
+
+
+def holdout_rmse(model, held):
+    u, i, r, _ = held
+    p = model.predict(u, i)
+    with np.errstate(over="ignore", invalid="ignore"):  # a diverged model
+        return float(np.sqrt(np.mean((p - r) ** 2)))
+
+
+def mf_pairs(held, n):
+    return [[int(a), int(b)] for a, b in zip(held[0][:n], held[1][:n])]
+
+
+def phase_mf(seed, dev, smi, train, held):
+    """MF at the JAX package's bench shape: the three trainers with
+    -mini_batch 16384 (seconds, rows/s, init and upload timed apart,
+    holdout quality), the default rates' divergence, card == CPU on one
+    block per trainer and on the exact scan's prefix, then train_mf_sgd's
+    model frozen at f32 / bf16 / int8 with an LSH index, loaded and served
+    as /predict pairs. Returns (model, artifacts by dtype)."""
+    import tempfile
+
+    import torch
+
+    from hivemall_tpu_torch.io.checkpoint import dequantize_int8
+    from hivemall_tpu_torch.models import mf as M
+    from hivemall_tpu_torch.serving import ServingEngine, freeze, load
+
+    print(f"[mf] card: {smi}; {MF_USERS} users x {MF_ITEMS} items, k = "
+          f"{MF_K}, {MF_ROWS} training rows ({len(np.unique(train[0]))} "
+          f"users, {len(np.unique(train[1]))} items seen), {MF_HOLDOUT} "
+          f"held out")
+    models = {}
+    base = float(np.sqrt(np.mean((held[2] - train[2].mean()) ** 2)))
+    for (name, eta0), kind in zip(MF_RUNS, ("sgd", "adagrad", "bpr")):
+        opts = (f"-factor {MF_K} -mini_batch {MF_BATCH} -iter 2 -disable_cv "
+                f"-eta0 {eta0}")
+        _, init_h = mf_hypers(kind, eta0)
+        _, init_secs = timed(lambda: M.init_mf_state(
+            MF_USERS, MF_ITEMS, init_h, device=dev), dev)
+        _, up_secs = timed(lambda: [torch_on(c, dev) for c in train], dev)
+        fn = getattr(M, name)
+        cols = (train[0], train[1], train[3] if kind == "bpr" else train[2])
+        model, secs = timed(lambda: fn(*cols, opts, device=dev), dev)
+        assert model.state.P.device.type == dev.type, "state not on dev"
+        assert torch.isfinite(model.state.P).all() \
+            and torch.isfinite(model.state.Q).all(), f"{name}: not finite"
+        if kind == "bpr":
+            acc = float(np.mean(model.predict_bpr(held[0], held[1])
+                                > model.predict_bpr(held[0], held[3])))
+            quality = (f"held-out triples ranked positive over negative "
+                       f"{acc:.4f}")
+            assert acc > 0.6, f"bpr: pairwise accuracy {acc}"
+        else:
+            init_model = M.TrainedMFModel(
+                M.init_mf_state(MF_USERS, MF_ITEMS, init_h, device=dev),
+                use_bias=True)
+            rmse, rmse0 = holdout_rmse(model, held), \
+                holdout_rmse(init_model, held)
+            quality = (f"holdout RMSE {rmse:.4f} (the initial model "
+                       f"{rmse0:.4f}, the training mean {base:.4f}: the "
+                       f"ratings are uniform noise)")
+            assert np.isfinite(rmse) and rmse < rmse0, f"{name}: {rmse}"
+        rows = 2 * MF_ROWS
+        print(f"[mf] {name} {opts}: {rows} rows (2 epochs) in {secs:.3f} s "
+              f"= {rows / secs:.0f} rows/s; of which, timed apart, the "
+              f"init draw on the CPU and upload {init_secs:.3f} s and the "
+              f"columns' upload {up_secs:.3f} s; {quality}")
+        models[kind] = model
+    default, d_secs = timed(lambda: M.train_mf_sgd(
+        train[0], train[1], train[2],
+        f"-factor {MF_K} -mini_batch {MF_BATCH} -iter 2 -disable_cv",
+        device=dev), dev)
+    print(f"[mf] train_mf_sgd at the default -eta0 0.2: {d_secs:.3f} s, "
+          f"holdout RMSE {holdout_rmse(default, held):.4g}, finite P: "
+          f"{bool(torch.isfinite(default.state.P).all())} (a block sums "
+          f"every duplicate's delta, as the reference does; the JAX "
+          f"package diverges the same way)")
+    del default
+
+    mf_card_vs_cpu(dev, train)
+
+    model = models["sgd"]
+    pairs = mf_pairs(held, 2048)
+    pu, pi = held[0][:2048], held[1][:2048]
+    arts, engines = {}, {}
+    with tempfile.TemporaryDirectory(prefix="hivemall_mf_") as tmp:
+        for dtype, q in PRECISIONS:
+            path = f"{tmp}/mf_{dtype}"
+            t0 = time.perf_counter()
+            freeze(model, path, name="mf", quantize=q,
+                   quant_block_rows=64 if q == "int8" else None,
+                   retrieval_index={"planes": 8, "seed": 0})
+            t1 = time.perf_counter()
+            arts[dtype] = load(path)
+            t2 = time.perf_counter()
+            eng = ServingEngine(arts[dtype], name=f"smoke_mf_{dtype}",
+                                max_batch=512, device=dev)
+            segs = eng.warmup()
+            assert eng.weights_dtype == dtype
+            print(f"[mf] {dtype}: freeze {t1 - t0:.3f} s (LSH index of 8 "
+                  f"planes included), load {t2 - t1:.3f} s; table_bytes "
+                  f"{eng.table_bytes}; warmup of {len(eng.warmed_buckets)} "
+                  f"buckets, {segs} new allocator segments")
+            engines[dtype] = eng
+    cpu = ServingEngine(arts["bfloat16"], name="smoke_mf_bf16_cpu",
+                        max_batch=512, device="cpu")
+    a = arts["int8"].arrays
+    pq = dequantize_int8(a["P"], a["P__scale"], 64)[pu]
+    qq = dequantize_int8(a["Q"], a["Q__scale"], 64)[pi]
+    q8 = np.sum(pq * qq, axis=-1) + np.float32(a["mu"]) + a["Bu"][pu] \
+        + a["Bi"][pi]
+    want = {"float32": model.predict(pu, pi), "bfloat16": cpu.predict(pairs),
+            "int8": q8}
+    nu, ni = MF_USERS, MF_ITEMS
+    expect = {"float32": 4 * (nu + ni) * (MF_K + 1),
+              "bfloat16": 2 * (nu + ni) * MF_K + 4 * (nu + ni),
+              "int8": (nu + ni) * MF_K + 4 * (nu + ni) // 64 * MF_K
+              + 4 * (nu + ni)}
+    for dtype, eng in engines.items():
+        assert eng.table_bytes == expect[dtype], \
+            f"mf {dtype}: table_bytes {eng.table_bytes}"
+        rtol, atol = SERVE_TOL[dtype]
+        got = eng.predict(pairs)
+        np.testing.assert_allclose(got, want[dtype], rtol=rtol, atol=atol,
+                                   err_msg=f"mf /predict {dtype}")
+        counter = f"new_segments.serving.smoke_mf_{dtype}"
+        from hivemall_tpu_torch.runtime.metrics import REGISTRY
+
+        before = REGISTRY.counter("allocator", counter).value
+        lat = []
+        for n in (1, 512):
+            secs = []
+            for s in range(0, 100 * 8, 8):
+                t0 = time.perf_counter()
+                eng.predict(pairs[s:s + n])
+                secs.append(time.perf_counter() - t0)
+            lat.append(f"{n} pairs p50 {percentile_ms(secs, 50):.4f} / p99 "
+                       f"{percentile_ms(secs, 99):.4f} ms")
+        assert REGISTRY.counter("allocator", counter).value == before, \
+            f"mf {dtype}: allocator segments after warmup"
+        print(f"[mf] /predict pairs {dtype}: 2048 held-out pairs == "
+              f"reference (rtol {rtol:g}, atol {atol:g}), largest |diff| "
+              f"{float(np.max(np.abs(got - want[dtype]))):.3g}; " +
+              "; ".join(lat) + " (100 requests each); 0 new allocator "
+              "segments after warmup")
+    return model, arts
+
+
+TOPK_K = 16
+TOPK_BLOCK = 4096
+TOPK_QUERIES = 64
+TOPK_LAT_REQUESTS = 100
+FM_TOPK_BLOCK = 65536
+
+
+def same_ranking(tag, got, want, rtol=1e-5, atol=1e-6):
+    """Two engines' top-K lists: scores at rtol / atol, ids equal at every
+    rank whose neighbouring scores differ by more than that."""
+    for g, w in zip(got, want):
+        gs, ws = np.asarray(g["scores"]), np.asarray(w["scores"])
+        np.testing.assert_allclose(gs, ws, rtol=rtol, atol=atol,
+                                   err_msg=f"{tag}: scores")
+        tol = atol + rtol * np.abs(ws)
+        gap = np.abs(np.diff(ws))
+        for p in range(len(ws)):
+            left = p == 0 or gap[p - 1] > tol[p]
+            right = p == len(ws) - 1 or gap[p] > tol[p]
+            if left and right:
+                assert g["items"][p] == w["items"][p], f"{tag}: rank {p}"
+
+
+def argsort_parity(tag, eng, queries, k):
+    """Blocked merge == stable descending argsort of score_catalog, ids and
+    f32 score bits, on the engine's device."""
+    res = eng.topk(queries, probe=False)
+    scores = eng.score_catalog(queries)
+    assert scores.shape == (len(queries), eng.n_items)
+    assert np.all(np.isfinite(scores)), f"{tag}: non-finite scores"
+    for row, out in zip(scores, res):
+        order = np.argsort(-row, kind="stable")[:k]
+        assert np.array_equal(np.asarray(out["items"], np.int64), order), \
+            f"{tag}: ids differ from the stable argsort"
+        assert np.asarray(out["scores"], np.float32).tobytes() \
+            == row[order].tobytes(), f"{tag}: score bits differ"
+    return res
+
+
+def topk_latency(eng, queries, n_req):
+    """p50 / p99 host-clock ms of n_req topk calls per batch size (1, 8),
+    each ending in the results' copy to the host."""
+    out = {}
+    for b in (1, 8):
+        secs = []
+        for s in range(n_req):
+            qs = [queries[(s * b + t) % len(queries)] for t in range(b)]
+            t0 = time.perf_counter()
+            eng.topk(qs)
+            secs.append(time.perf_counter() - t0)
+        out[b] = (percentile_ms(secs, 50), percentile_ms(secs, 99),
+                  b / float(np.mean(secs)))
+    return out
+
+
+def sweep_timing(eng, b, dev):
+    """One exact sweep of the catalog for b queries on the device: ms eager
+    and as one CUDA graph, device operations per block, and its bound."""
+    import torch
+
+    cat = eng._catalog
+    q = torch.randn(b, cat.vec.shape[1], device=dev)
+    bs = torch.zeros(b, device=dev)
+
+    def run():
+        cat.sweep(q, bs)
+
+    eager, graph, ops = cuda_ms(run, 10), graph_ms(run, 10), device_ops(run)
+    nbytes = cat.table_bytes + b * (cat.vec.shape[1] + 1) * 4
+    flops = 2 * b * cat.n_pad * cat.vec.shape[1]
+    bound = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS)
+    return {"ms": eager, "graph_ms": graph, "ops": ops, "bound_ms": bound,
+            "bytes": nbytes, "blocks": cat.n_steps}
+
+
+def topk_engine_checks(tag, eng, cpu, queries, dev, n_par):
+    """Warm the card engine; latency (allocator pinned); argsort parity on
+    the card; card against the CPU engine. Returns the latency dict."""
+    from hivemall_tpu_torch.runtime.metrics import REGISTRY
+
+    t0 = time.perf_counter()
+    segs = eng.warmup()
+    sync(dev)
+    warm = time.perf_counter() - t0
+    counter = REGISTRY.counter("allocator",
+                               f"new_segments.serving.{eng.name}.topk")
+    before = counter.value
+    lat = topk_latency(eng, queries, TOPK_LAT_REQUESTS)
+    argsort_parity(tag, eng, queries[:n_par], eng.k)
+    got = eng.topk(queries[:n_par])
+    assert counter.value == before, \
+        f"{tag}: {counter.value - before} allocator segments after warmup"
+    same_ranking(f"{tag} card vs CPU", got, cpu.topk(queries[:n_par]))
+    print(f"[topk] {tag}: warmup {warm:.3f} s, {segs} new allocator "
+          f"segments; table_bytes {eng.table_bytes()}; blocked merge == "
+          f"stable argsort of score_catalog on the card for {n_par} "
+          f"queries (ids and f32 bits); card == CPU engine (rtol 1e-5 / "
+          f"atol 1e-6, ids where neighbours differ by more); " + "; ".join(
+              f"batch {b}: p50 {p50:.4f} / p99 {p99:.4f} ms, {qps:.0f} "
+              f"queries/s = {qps * eng.n_items:.4g} items scored/s"
+              for b, (p50, p99, qps) in lat.items())
+          + f" ({TOPK_LAT_REQUESTS} requests each); 0 new allocator "
+          f"segments after warmup")
+    return lat
+
+
+def topk_http(art, queries, dev):
+    """The f32 MF artifact deployed with retrieval={} behind serve(); 4
+    clients x 16 POST /topk of one query each and one POST /predict of 64
+    pairs; every answer against the direct engine call. Returns seconds."""
+    import threading
+    import urllib.request
+
+    from hivemall_tpu_torch.serving import ModelRegistry, serve
+
+    registry = ModelRegistry(max_batch=512, max_delay_ms=2.0, device=dev)
+    server = serve(registry, host="127.0.0.1", port=0)
+    port = server.server_address[1]
+    answers, errors = [], []
+
+    def post(route, body):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}{route}", data=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return json.loads(r.read())
+
+    def client(c):
+        for s in range(16):
+            q = queries[(c * 16 + s) % len(queries)]
+            try:
+                answers.append((q, post("/topk", {"model": "rec",
+                                                  "queries": [q]})))
+            except Exception as e:  # collected and asserted below
+                errors.append(repr(e))
+
+    try:
+        entry = registry.deploy("rec", art, version="1", retrieval={})
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+            assert not t.is_alive(), "an HTTP client hung"
+        secs = time.perf_counter() - t0
+        pairs = [[q, q % MF_ITEMS] for q in queries[:64]]
+        preds = post("/predict", {"model": "rec", "instances": pairs})
+        direct = {q: entry.retrieval_engine.topk([q])[0] for q, _ in answers}
+        served = entry.engine.predict(pairs)
+        models = json.loads(urllib.request.urlopen(
+            f"http://127.0.0.1:{port}/models", timeout=60).read())["models"]
+    finally:
+        server.shutdown()
+        server.server_close()
+        registry.shutdown()
+    assert not errors, f"failed requests: {errors[:3]}"
+    assert len(answers) == 64, f"{len(answers)} of 64 requests answered"
+    for q, out in answers:
+        assert out["k"] == TOPK_K and len(out["results"]) == 1
+        same_ranking("/topk vs the engine", out["results"],
+                     [direct[q]])
+    np.testing.assert_array_equal(np.asarray(preds["predictions"],
+                                             np.float32), served)
+    assert models[0]["retrieval"]["enabled"] is True \
+        and models[0]["retrieval"]["catalog_items"] == MF_ITEMS, models
+    return secs
+
+
+def phase_topk(seed, dev, smi, held, mf_arts, fm_model, fm_rows):
+    """Top-K retrieval on the card: the 131,072-item MF catalog at f32,
+    bf16 and int8 (k 16, block_items 4096, max_batch 8) with the LSH probe's
+    recall, the 2^22-item FM catalog of phase fm's model (block_items
+    65,536), one sweep timed against its bound, and /topk over HTTP."""
+    import torch
+
+    from hivemall_tpu_torch.runtime.metrics import REGISTRY
+    from hivemall_tpu_torch.serving import RetrievalEngine
+
+    print(f"[topk] card: {smi}; torch.backends.cuda.matmul.allow_tf32 = "
+          f"{torch.backends.cuda.matmul.allow_tf32}, "
+          f"float32_matmul_precision = "
+          f"{torch.get_float32_matmul_precision()}")
+    queries = [int(x) for x in held[0][:TOPK_QUERIES]]
+    # the probe's expected union, 1 + planes buckets of ~n / 2^planes
+    # items, doubled for bucket skew (the reference bench's sizing)
+    cand_cap = 2 * MF_ITEMS * 9 // 256
+    geom = dict(k=TOPK_K, block_items=TOPK_BLOCK, max_batch=8,
+                candidate_cap=cand_cap)
+    for dtype, art in mf_arts.items():
+        eng = RetrievalEngine(art, name=f"smoke_topk_{dtype}", device=dev,
+                              **geom)
+        cpu = RetrievalEngine(art, name=f"smoke_topk_{dtype}_cpu",
+                              device="cpu", **geom)
+        topk_engine_checks(f"MF {dtype}", eng, cpu, queries, dev,
+                           TOPK_QUERIES)
+        p0, f0, c0 = (REGISTRY.counter("retrieval",
+                                       f"{eng.name}.{x}").value
+                      for x in ("probed", "fallback", "candidates"))
+        probed = eng.topk(queries, probe=True)
+        exact = eng.topk(queries, probe=False)
+        recall = float(np.mean([len(set(p["items"]) & set(e["items"]))
+                                / TOPK_K for p, e in zip(probed, exact)]))
+        n_p, n_f, n_c = (REGISTRY.counter("retrieval",
+                                          f"{eng.name}.{x}").value - v
+                         for x, v in (("probed", p0), ("fallback", f0),
+                                      ("candidates", c0)))
+        frac = n_c / max(1, n_p) / eng.n_items
+        print(f"[topk] MF {dtype} probe=True on {TOPK_QUERIES} queries "
+              f"(8 planes, candidate_cap {eng.candidate_cap}): recall@"
+              f"{TOPK_K} against exact {recall:.4f}, {n_p} probed, {n_f} "
+              f"fell back, candidates {frac:.4f} of the catalog per probed "
+              f"query")
+        if dtype == "float32" and dev.type == "cuda":
+            for b in (1, 8):
+                t = sweep_timing(eng, b, dev)
+                print(f"[topk] one exact sweep of the f32 MF catalog for "
+                      f"{b} queries ({t['blocks']} blocks of {TOPK_BLOCK}): "
+                      f"{t['ms']:.4f} ms eager, {t['graph_ms']:.4f} ms as "
+                      f"one CUDA graph; {t['ops']} device operations = "
+                      f"{t['ops'] / t['blocks']:.1f} a block; bound "
+                      f"{t['bound_ms']:.6f} ms ({t['bytes']} B read once)")
+        del eng, cpu
+
+    fm_queries = fm_rows[:8]
+    eng = RetrievalEngine(fm_model, name="smoke_topk_fm", k=TOPK_K,
+                          block_items=FM_TOPK_BLOCK, max_batch=8, device=dev)
+    cpu = RetrievalEngine(fm_model, name="smoke_topk_fm_cpu", k=TOPK_K,
+                          block_items=FM_TOPK_BLOCK, max_batch=8,
+                          device="cpu")
+    assert eng.n_items == FULL_DIMS
+    topk_engine_checks("FM f32 (2^22 features, k 5 in 8 lanes)", eng, cpu,
+                       fm_queries, dev, 8)
+    del eng, cpu
+
+    secs = topk_http(mf_arts["float32"], queries, dev)
+    print(f"[topk] HTTP: 4 clients x 16 POST /topk of one query in "
+          f"{secs:.3f} s: 0 failed, every ranking == the direct engine "
+          f"call; one POST /predict of 64 pairs == the engine")
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1836,7 +2399,7 @@ def main(argv=None) -> int:
     for key in LAUNCHES:
         LAUNCHES[key] = 0
     t_fm = time.perf_counter()
-    fm_run = phase_fm(args.seed, dev, smi, data, served[0])
+    fm_run, fm_model = phase_fm(args.seed, dev, smi, data, served[0])
     print(f"[fm] phase took {time.perf_counter() - t_fm:.1f} s; kernel "
           f"launches during it: {dict(LAUNCHES)} (the FM path reaches no "
           f"pallas_call in the JAX package and runs plain torch ops here)")
@@ -1853,6 +2416,22 @@ def main(argv=None) -> int:
     print(f"[native] phase took {time.perf_counter() - t_native:.1f} s (the "
           f"native host library reaches no pallas_call in the JAX package "
           f"and adds no CUDA kernel)")
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+    t_mf = time.perf_counter()
+    mf_train, mf_held = mf_data(args.seed)
+    _, mf_arts = phase_mf(args.seed, dev, smi, mf_train, mf_held)
+    print(f"[mf] phase took {time.perf_counter() - t_mf:.1f} s; kernel "
+          f"launches during it: {dict(LAUNCHES)} (the MF path reaches no "
+          f"pallas_call in the JAX package and runs plain torch ops here)")
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+    t_topk = time.perf_counter()
+    phase_topk(args.seed, dev, smi, mf_held, mf_arts, fm_model,
+               string_rows(data[2][0], data[2][1], 8))
+    print(f"[topk] phase took {time.perf_counter() - t_topk:.1f} s; kernel "
+          f"launches during it: {dict(LAUNCHES)} (retrieval reaches no "
+          f"pallas_call in the JAX package and runs plain torch ops here)")
     source = "hivemall_tpu_torch/kernels/csrc/linear_scan.cu"
     replaces = "hivemall_tpu/kernels/linear_scan.py:44"
     kernels = [

@@ -20,10 +20,15 @@ def iter_model_rows(model) -> Tuple[List[str], Iterable[tuple]]:
       feature 0's bias slot)
     - linear: feature(int), weight(float)[, covar(float)]
 
-    Other families (multiclass, FFM, trees) are later slices of the port
-    and raise ValueError.
+    MF has no row emission (as in the JAX package); other families
+    (multiclass, FFM, trees) are later slices of the port. Both raise
+    ValueError.
     """
     from ..models.fm import TrainedFMModel
+    from ..models.mf import TrainedMFModel
+
+    if isinstance(model, TrainedMFModel):
+        raise ValueError(f"{type(model).__name__}: model has no row emission")
 
     if isinstance(model, TrainedFMModel):
         def fm_rows():

@@ -197,17 +197,23 @@ def _dloss_and_loss(p, y, hyper: FMHyper):
     return g, loss
 
 
-def _fm_scores(state: FMState, indices, values) -> torch.Tensor:
-    """Margin scores [B] of a padded block on the state's device — the one
-    scorer of TrainedFMModel.predict and the f32/bf16 FM servable."""
+def _fm_rows(state: FMState, indices, values):
+    """(p [B], sumVfX [B, kp]) of a padded block on the state's device:
+    the row math of every FM scorer, and the query staging of top-K
+    retrieval (serving/retrieval.py)."""
     dev = state.device
     indices = _to_device(indices, torch.int64, dev)
     values = _to_device(values, torch.float32, dev)
     live, sidx = live_lanes(indices, state.dims)
     wg = gather(state.w, sidx, live)
     vg = _gather_rows(state.v, sidx, live)
-    p, _ = _row_predict(state.w0, wg, vg, values)
-    return p
+    return _row_predict(state.w0, wg, vg, values)
+
+
+def _fm_scores(state: FMState, indices, values) -> torch.Tensor:
+    """Margin scores [B] of a padded block on the state's device — the one
+    scorer of TrainedFMModel.predict and the f32/bf16 FM servable."""
+    return _fm_rows(state, indices, values)[0]
 
 
 def make_fm_step(hyper: FMHyper, mode: str = "minibatch",

@@ -12,7 +12,7 @@ with the same array names, dtypes and manifest keys, so an artifact frozen
 by either package loads and serves in the other. Rule names and dtype names
 (``"float32"``, ``"bfloat16"``, ``"int8"``) are the JAX package's strings.
 
-The port freezes two families:
+The port freezes three families:
 
 - linear: the (feature, weight[, covar]) interchange rows of
   io/checkpoint.save_model_rows at full precision, or the dense weight
@@ -20,9 +20,14 @@ The port freezes two families:
   f32 scales);
 - fm: every FMState table (w0, w, the lane-padded V, the lambdas,
   touched) at full precision, or w and V reduced the same way with w0
-  kept f32.
+  kept f32;
+- mf: P, Q, Bu, Bi and mu at full precision, or P and Q reduced the same
+  way (scales blocked along users / items) with the bias terms kept f32.
 
-Other families, and the retrieval index, are later slices of the port and
+MF and FM artifacts may carry the top-K retrieval index (``freeze(...,
+retrieval_index=...)``: signed-random-projection buckets, arrays
+``index__*``), built by the same numpy code as the JAX package's, so the
+index bytes are equal. Other families are later slices of the port and
 raise by name.
 """
 
@@ -38,6 +43,9 @@ from dataclasses import dataclass, field
 from typing import Dict, Optional
 
 import numpy as np
+import torch
+
+from ..device import DeviceLike, resolve_device
 
 FORMAT = "hivemall-tpu-artifact"
 FORMAT_VERSION = 1
@@ -45,13 +53,13 @@ MANIFEST_FILE = "manifest.json"
 ARRAYS_FILE = "arrays.npz"
 
 # families the JAX package freezes whose port is a later slice
-LATER_SLICE_FAMILIES = ("multiclass", "ffm", "mf", "forest", "gbt")
+LATER_SLICE_FAMILIES = ("multiclass", "ffm", "forest", "gbt")
 
 
 def _later_slice(family: str, what: str) -> ValueError:
     return ValueError(
         f"{what}: the {family!r} family is a later slice of the torch port "
-        f"(hivemall_tpu_torch); it serves the linear and fm families")
+        f"(hivemall_tpu_torch); it serves the linear, fm and mf families")
 
 
 def _host(x) -> np.ndarray:
@@ -87,11 +95,14 @@ def manifest_quant(meta: dict) -> Optional[dict]:
 
 def family_of(model) -> str:
     """Family tag for a trained model (the adapters/model_rows.py dispatch
-    order, as a name). The port trains the linear and fm families."""
+    order, as a name). The port trains the linear, fm and mf families."""
     from ..models.fm import TrainedFMModel
+    from ..models.mf import TrainedMFModel
 
     if isinstance(model, TrainedFMModel):
         return "fm"
+    if isinstance(model, TrainedMFModel):
+        return "mf"
     if hasattr(model, "label_vocab"):
         return "multiclass"
     if hasattr(model, "state") and hasattr(model.state, "weights"):
@@ -132,10 +143,20 @@ def _build_payload(model):
     from ..io.checkpoint import dtype_name
 
     family = family_of(model)
-    if family not in ("linear", "fm"):
+    if family not in ("linear", "fm", "mf"):
         raise _later_slice(family, "freeze")
     arrays: Dict[str, np.ndarray] = {}
     meta: dict = {"columns": _columns(model)}
+    if family == "mf":
+        st = model.state
+        for k in ("P", "Q", "Bu", "Bi", "mu"):
+            arrays[k] = _host(getattr(st, k))
+        meta.update(use_bias=bool(model.use_bias),
+                    num_users=int(arrays["P"].shape[0]),
+                    num_items=int(arrays["Q"].shape[0]),
+                    factor=int(arrays["P"].shape[1]),
+                    weights_dtype=dtype_name(st.P.dtype))
+        return family, arrays, meta
     if family == "fm":
         st, hy = model.state, model.hyper
         for k in ("w0", "w", "v", "lambda_w0", "lambda_w", "lambda_v",
@@ -162,7 +183,7 @@ def _build_payload(model):
 
 
 # Families with a float weight table the JAX package's quantized serving
-# path understands; the port has linear and fm.
+# path understands; the port has linear, fm and mf.
 QUANTIZABLE_FAMILIES = ("linear", "multiclass", "fm", "mf")
 
 
@@ -176,7 +197,8 @@ def _build_quantized_payload(model, quantize: str, block_rows: int):
     and the lane-padded ``v``, with ``w0`` kept f32) store as raw bf16 bits
     (``bf16``) or as per-block absmax int8 with their f32 scales alongside
     (``<name>__scale``), blocked along the feature axis the scorers gather
-    by — so FM's ``v`` scales are ``[ceil(D / block_rows), kp]``.
+    by — so FM's ``v`` scales are ``[ceil(D / block_rows), kp]``. MF's P
+    and Q reduce the same way along users / items; Bu, Bi and mu stay f32.
     """
     from ..io.checkpoint import (QUANT_SCHEME_BF16, QUANT_SCHEME_INT8,
                                  SCALE_SUFFIX, bf16_pack_raw, quantize_int8)
@@ -187,7 +209,7 @@ def _build_quantized_payload(model, quantize: str, block_rows: int):
             f"freeze(quantize={quantize!r}): family {family!r} has no "
             f"quantized serving path (supported: "
             f"{', '.join(QUANTIZABLE_FAMILIES)})")
-    if family not in ("linear", "fm"):
+    if family not in ("linear", "fm", "mf"):
         raise _later_slice(family, f"freeze(quantize={quantize!r})")
     arrays: Dict[str, np.ndarray] = {}
     meta: dict = {"columns": _columns(model)}
@@ -197,12 +219,21 @@ def _build_quantized_payload(model, quantize: str, block_rows: int):
         tables = [("weight", _host(model.state.weights), 0)]
         meta.update(dims=int(model.dims), rule=model.rule.name,
                     use_covariance=False)  # covariance dropped: never scored
-    else:
+    elif family == "fm":
         st, hy = model.state, model.hyper
         tables = [("w", _host(st.w), 0), ("v", _host(st.v), 0)]
         arrays["w0"] = np.asarray(_host(st.w0), np.float32)
         meta.update(dims=int(model.dims), factors=int(hy.factors),
                     classification=bool(hy.classification))
+    else:  # mf
+        st = model.state
+        tables = [("P", _host(st.P), 0), ("Q", _host(st.Q), 0)]
+        for k in ("Bu", "Bi", "mu"):  # bias terms: tiny, stay f32
+            arrays[k] = np.asarray(_host(getattr(st, k)), np.float32)
+        meta.update(use_bias=bool(model.use_bias),
+                    num_users=int(st.P.shape[0]),
+                    num_items=int(st.Q.shape[0]),
+                    factor=int(st.P.shape[1]))
 
     if quantize == "bf16":
         for name, tab, _axis in tables:
@@ -222,6 +253,45 @@ def _build_quantized_payload(model, quantize: str, block_rows: int):
     return family, arrays, meta
 
 
+def _add_retrieval_index(model, family: str, arrays: dict, meta: dict,
+                         opts: dict) -> None:
+    """Build the retrieval LSH index into a freeze payload (freeze's
+    ``retrieval_index=``): SRP buckets over the model's f32 item vectors
+    — always the pre-quantization tables, so a bf16/int8 artifact carries
+    the same index as its f32 twin."""
+    if family not in ("mf", "fm"):
+        raise ValueError(
+            f"retrieval_index: family {family!r} has no retrieval path "
+            f"(mf/fm only)")
+    n_planes = int(opts.pop("planes", 8))
+    seed = int(opts.pop("seed", 0))
+    item_range = opts.pop("item_range", None)
+    if opts:
+        raise ValueError(
+            f"retrieval_index: unknown keys {sorted(opts)} (accepted: "
+            f"planes, seed, item_range)")
+    vecs = np.asarray(_host(model.state.Q if family == "mf"
+                            else model.state.v), np.float32)
+    full = (0, vecs.shape[0])
+    if item_range is None:
+        lo, hi = full
+    else:
+        lo, hi = int(item_range[0]), int(item_range[1])
+        if not (full[0] <= lo < hi <= full[1]):
+            raise ValueError(
+                f"retrieval_index: item_range ({lo}, {hi}) outside the "
+                f"model's {full}")
+    from .retrieval import build_srp_index
+
+    planes, item_ids, offsets = build_srp_index(vecs[lo:hi], n_planes,
+                                                seed, item_lo=lo)
+    arrays["index__planes"] = planes
+    arrays["index__item_ids"] = item_ids
+    arrays["index__offsets"] = offsets
+    meta["index"] = {"scheme": "srp_lsh", "planes": n_planes,
+                     "seed": seed, "item_lo": lo, "item_hi": hi}
+
+
 def freeze(model, path: str, *, name: Optional[str] = None,
            version: Optional[str] = None, quantize: Optional[str] = None,
            quant_block_rows: Optional[int] = None,
@@ -235,13 +305,17 @@ def freeze(model, path: str, *, name: Optional[str] = None,
     ``quantize="bf16"|"int8"`` stores the weight table reduced; the serving
     engine then scores it dequant-free at the manifest dtype.
     ``quant_block_rows`` sets the int8 scale-block row count (power of
-    two; default io.checkpoint.QUANT_BLOCK_ROWS). ``retrieval_index`` (the
-    top-K LSH index) is a later slice of the port and raises.
+    two; default io.checkpoint.QUANT_BLOCK_ROWS).
+
+    ``retrieval_index={"planes": int, "seed": int, "item_range": (lo, hi)}``
+    (MF/FM only, every key optional) additionally builds the top-K
+    retrieval LSH index into the artifact: signed-random-projection
+    buckets over the item vectors (MF: Q rows; FM: v rows over
+    ``item_range``, default the full feature space) as ``index__*``
+    arrays plus a manifest ``meta["index"]`` block, hashed from the f32
+    vectors before any quantization and deterministic in ``seed``
+    (serving/retrieval.py).
     """
-    if retrieval_index is not None:
-        raise ValueError(
-            "retrieval_index: top-K retrieval (serving/retrieval.py) is a "
-            "later slice of the torch port (hivemall_tpu_torch)")
     os.makedirs(path, exist_ok=True)
     mpath = os.path.join(path, MANIFEST_FILE)
     if os.path.exists(mpath):
@@ -260,6 +334,9 @@ def freeze(model, path: str, *, name: Optional[str] = None,
     else:
         raise ValueError(f"quantize must be 'bf16' or 'int8', "
                          f"got {quantize!r}")
+    if retrieval_index is not None:
+        _add_retrieval_index(model, family, arrays, meta,
+                             dict(retrieval_index))
     apath = os.path.join(path, ARRAYS_FILE)
     # savez into memory so the pack is written AND hashed in one pass
     buf = io.BytesIO()
@@ -313,17 +390,156 @@ def load(path: str, verify: bool = True) -> Artifact:
     return Artifact(path=path, manifest=manifest, arrays=arrays)
 
 
-def rebuild_model(artifact: Artifact):
+def _host_table(t: torch.Tensor):
+    """A tensor's host copy at its own dtype: numpy, except bf16, which
+    stays a CPU torch tensor (numpy has no bf16)."""
+    t = t.detach().cpu()
+    return t if t.dtype == torch.bfloat16 else t.numpy()
+
+
+def host_score_tables(source) -> dict:
+    """Family-normalized HOST view of the score-path tables — the input of
+    serving/retrieval.py's RetrievalEngine (the JAX package's
+    ``host_score_tables``, single-device view: the port has no sharded
+    placement yet, but the entries keep the reference's striped form).
+
+    ``source`` is an :class:`Artifact` or a trained model. Returns::
+
+        {"family": str,
+         "weights_dtype": str,              # the dtype tables SERVE at
+         "quant": None | manifest quant block,
+         "meta": {...},                     # dims / factors /
+                                            # classification / use_bias / ...
+         "striped": [(name, array, axis, grid)],
+         "scales": {name: f32 scale array}, # int8 only, same axis as name
+         "replicated": {name: array}}       # w0 / mu
+
+    ``grid`` names the id space the table's axis is gathered by
+    ("features" for linear/FM, "users"/"items" for MF). Tables come back
+    at their SERVING dtype: f32 and int8 tables and every scale as numpy
+    arrays, a bf16 table as a CPU torch bf16 tensor (numpy has no bf16;
+    the JAX package returns an ml_dtypes array there). The score path has
+    no covariances and no optimizer slots."""
+    from ..io.checkpoint import (QUANT_SCHEME_BF16, SCALE_SUFFIX,
+                                 bf16_unpack_raw, dense_from_rows)
+
+    if isinstance(source, Artifact):
+        family, a, meta = source.family, source.arrays, dict(source.meta)
+        quant = manifest_quant(source.meta)
+    else:
+        family, a, meta, quant = family_of(source), None, {}, None
+    if family in LATER_SLICE_FAMILIES:
+        raise _later_slice(family, "host_score_tables")
+    if family not in ("linear", "fm", "mf"):
+        raise ValueError(f"unknown family {family!r}")
+
+    out = {"family": family, "quant": quant, "meta": meta,
+           "striped": [], "scales": {}, "replicated": {}}
+
+    def table(name, out_name=None):
+        """Pack entry at its serving dtype (artifact source only);
+        ``out_name`` keys int8 scales when the striped name differs from
+        the pack name (linear stores "weight", serves as "weights")."""
+        if quant is None:
+            # the manifest dtype pin: the pack stores reduced tables
+            # widened value-exactly; reload at the TRAINED width
+            return _host_table(torch.from_numpy(np.asarray(
+                a[name], np.float32)).to(manifest_dtype(meta)))
+        if quant["scheme"] == QUANT_SCHEME_BF16:
+            return bf16_unpack_raw(a[name])
+        out["scales"][out_name or name] = np.asarray(a[name + SCALE_SUFFIX],
+                                                     np.float32)
+        return np.asarray(a[name], np.int8)
+
+    if a is not None:  # ---- artifact source --------------------------------
+        out["weights_dtype"] = meta.get("weights_dtype", "float32")
+        if family == "linear":
+            if quant is None:
+                w, _ = dense_from_rows(int(meta["dims"]), a["feature"],
+                                       a["weight"], None)
+                w = _host_table(torch.from_numpy(np.asarray(
+                    w, np.float32)).to(manifest_dtype(meta)))
+            else:
+                w = table("weight", out_name="weights")
+            out["striped"].append(("weights", w, 0, "features"))
+        elif family == "fm":
+            out["striped"] += [("w", table("w"), 0, "features"),
+                               ("v", table("v"), 0, "features")]
+            out["replicated"]["w0"] = np.asarray(a["w0"], np.float32)
+        else:  # mf
+            out["striped"] += [("P", table("P"), 0, "users"),
+                               ("Q", table("Q"), 0, "items"),
+                               ("Bu", np.asarray(a["Bu"], np.float32), 0,
+                                "users"),
+                               ("Bi", np.asarray(a["Bi"], np.float32), 0,
+                                "items")]
+            out["replicated"]["mu"] = np.asarray(a["mu"], np.float32)
+            meta.setdefault("num_users", int(out["striped"][0][1].shape[0]))
+            meta.setdefault("num_items", int(out["striped"][1][1].shape[0]))
+        return out
+
+    # ---- live trained model -------------------------------------------------
+    from ..io.checkpoint import dtype_name
+
+    st = source.state
+    if family == "linear":
+        w = _host_table(st.weights)
+        out["striped"].append(("weights", w, 0, "features"))
+        meta["dims"] = int(source.dims)
+    elif family == "fm":
+        w = _host_table(st.w)
+        out["striped"] += [("w", w, 0, "features"),
+                           ("v", _host_table(st.v), 0, "features")]
+        out["replicated"]["w0"] = np.asarray(_host(st.w0), np.float32)
+        meta.update(dims=int(source.dims),
+                    classification=bool(source.hyper.classification))
+    else:  # mf
+        w = _host_table(st.P)
+        out["striped"] += [("P", w, 0, "users"),
+                           ("Q", _host_table(st.Q), 0, "items"),
+                           ("Bu", np.asarray(_host(st.Bu), np.float32), 0,
+                            "users"),
+                           ("Bi", np.asarray(_host(st.Bi), np.float32), 0,
+                            "items")]
+        out["replicated"]["mu"] = np.asarray(_host(st.mu), np.float32)
+        meta.update(use_bias=bool(source.use_bias),
+                    num_users=int(w.shape[0]),
+                    num_items=int(out["striped"][1][1].shape[0]))
+    out["weights_dtype"] = dtype_name(w.dtype)
+    return out
+
+
+def rebuild_model(artifact: Artifact, device: DeviceLike = None):
     """Reconstruct a predictable model object from an artifact — as in the
-    JAX package, a quantized artifact has none, and the linear family is
-    served through serving.engine.make_servable, not a model object."""
+    JAX package, an MF artifact rebuilds a TrainedMFModel (on ``device``:
+    None is the CUDA device, or a RuntimeError when there is none), a
+    quantized artifact has none, and the linear and FM families are served
+    through serving.engine.make_servable, not a model object."""
     family = artifact.family
-    if manifest_quant(artifact.meta) is not None:
+    a, meta = artifact.arrays, artifact.meta
+    if manifest_quant(meta) is not None:
         raise ValueError(
             f"rebuild_model: {family!r} artifact is quantized — there is no "
             f"full-precision model to rebuild; serve it via "
             f"serving.engine.make_servable (dequant-free score path)")
-    if family in ("ffm", "mf"):
+    if family == "ffm":
         raise _later_slice(family, "rebuild_model")
+    if family == "mf":
+        from ..models.mf import MFState, TrainedMFModel
+
+        dev = resolve_device(device)
+        n_u, n_i = int(meta["num_users"]), int(meta["num_items"])
+        dt = manifest_dtype(meta)  # reload at the TRAINED dtype
+
+        def t(name):
+            return torch.tensor(np.asarray(a[name], np.float32)) \
+                .to(dtype=dt, device=dev)
+
+        st = MFState(
+            P=t("P"), Q=t("Q"), Bu=t("Bu"), Bi=t("Bi"), mu=t("mu"),
+            P_gg=None, Q_gg=None,
+            touched_u=torch.ones(n_u, dtype=torch.int8, device=dev),
+            touched_i=torch.ones(n_i, dtype=torch.int8, device=dev), step=0)
+        return TrainedMFModel(state=st, use_bias=bool(meta["use_bias"]))
     raise ValueError(f"rebuild_model: family {family!r} is served via "
                      f"serving.engine.make_servable, not a model object")

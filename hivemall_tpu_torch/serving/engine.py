@@ -1,4 +1,4 @@
-"""Shape-bucketed online predictors for the linear and FM families.
+"""Shape-bucketed online predictors for the linear, FM and MF families.
 
 The port of the JAX package's `serving/engine.py`. There, XLA compiles one
 program per input shape, so the engine pads every request to a
@@ -25,17 +25,23 @@ Scorers (plain torch ops on the card, as the JAX scorers are plain jnp):
 - int8 tables: ``_QuantLinearServable`` / ``_QuantFMServable`` gather the
   int8 ``[B, K]`` (and FM's ``[B, K, kp]``) windows, widen only those
   windows, fold in ``scales[id >> block_shift]`` and sum in f32 — the
-  tables are never dequantized.
+  tables are never dequantized;
+- MF (``[user, item]`` pairs, ``_MFServable`` / ``_QuantMFServable``):
+  the JAX package's MF servables are host numpy gather-dots, so the
+  port's are too — the requested rows are gathered on the servable's
+  device (bf16 / int8 windows widened there), copied to the host, and
+  scaled, dotted and biased in numpy f32 with the reference's own
+  expression, so a served score equals the JAX package's bit for bit.
 
-Other families (multiclass, FFM, MF, trees) and sharded placement are
-later slices of the port and raise by name.
+Other families (multiclass, FFM, trees) and sharded placement are later
+slices of the port and raise by name.
 """
 
 from __future__ import annotations
 
 import threading
 import time
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -72,6 +78,9 @@ class _Servable:
     """
 
     family: str = ""
+    # False for servables whose requests have no row width to bucket (MF
+    # pairs): the engine then warms and serves one width
+    has_width: bool = True
     # the dtype the weight tables SERVE at (the manifest weights_dtype for
     # artifacts) — surfaced per model on /models and /metrics
     weights_dtype: str = "float32"
@@ -350,15 +359,16 @@ class _FMServable(_SparseRowServable):
         return [self.state.w, self.state.v]
 
 
-def q8_fm_scores(w0: torch.Tensor, qw: torch.Tensor, w_scales: torch.Tensor,
-                 qv: torch.Tensor, v_scales: torch.Tensor,
-                 indices: torch.Tensor, values: torch.Tensor,
-                 block_shift: int) -> torch.Tensor:
-    """Dequant-free int8 FM scoring: gather the int8 w [B, K] and v
+def q8_fm_rows(w0: torch.Tensor, qw: torch.Tensor, w_scales: torch.Tensor,
+               qv: torch.Tensor, v_scales: torch.Tensor,
+               indices: torch.Tensor, values: torch.Tensor,
+               block_shift: int):
+    """Dequant-free int8 FM row math: gather the int8 w [B, K] and v
     [B, K, kp] windows, widen only them, fold in their rows' per-block
     scales (``v_scales`` is [D / block_rows, kp]) and combine them with
     the live scorer's row math (models/fm._row_predict), f32 throughout.
-    Pad lanes read index 0 and are masked to 0, as in q8_linear_scores."""
+    Returns (p [B], sumVfX [B, kp]). Pad lanes read index 0 and are masked
+    to 0, as in q8_linear_scores."""
     from ..models.fm import _row_predict
 
     live, sidx = live_lanes(indices, qw.shape[0])
@@ -366,8 +376,14 @@ def q8_fm_scores(w0: torch.Tensor, qw: torch.Tensor, w_scales: torch.Tensor,
     zero = torch.zeros((), dtype=torch.float32, device=qw.device)
     wg = torch.where(live, qw[sidx].float() * w_scales[blk], zero)
     vg = torch.where(live[..., None], qv[sidx].float() * v_scales[blk], zero)
-    p, _ = _row_predict(w0, wg, vg, values)
-    return p
+    return _row_predict(w0, wg, vg, values)
+
+
+def q8_fm_scores(w0, qw, w_scales, qv, v_scales, indices, values,
+                 block_shift: int) -> torch.Tensor:
+    """The scores [B] of q8_fm_rows."""
+    return q8_fm_rows(w0, qw, w_scales, qv, v_scales, indices, values,
+                      block_shift)[0]
 
 
 class _QuantFMServable(_SparseRowServable):
@@ -397,6 +413,108 @@ class _QuantFMServable(_SparseRowServable):
         return [self.qw, self.w_scales, self.qv, self.v_scales]
 
 
+class _PairServable(_Servable):
+    """Shared ``[user, item]`` pair staging for the MF servables (f32 and
+    quantized): no row width to bucket (``has_width`` False). Pad pairs are
+    (0, 0); ids are checked on the host (numpy's indexing rules) before
+    any device gather."""
+
+    family = "mf"
+    has_width = False
+
+    def stage(self, instances, b_pad, width_cap):
+        pairs = np.asarray(instances, np.int64).reshape(len(instances), 2)
+        u = np.zeros(b_pad, np.int64)
+        i = np.zeros(b_pad, np.int64)
+        u[:len(instances)] = pairs[:, 0]
+        i[:len(instances)] = pairs[:, 1]
+        return u, i
+
+    def finalize(self, raw, n: int):
+        return np.asarray(raw)[:n]
+
+    def dummy_instance(self, width):
+        return (0, 0)
+
+    def row_keys(self, instances, width_cap: int):
+        """A (user, item) pair IS its own canonical 16-byte key — no
+        digest needed (same length as the sparse families' blake2b-128,
+        so cache cost accounting is uniform)."""
+        try:
+            pairs = np.ascontiguousarray(
+                np.asarray(instances, np.int64).reshape(len(instances), 2))
+        except (TypeError, ValueError):
+            return None
+        return [p.tobytes() for p in pairs]
+
+
+class _MFServable(_PairServable):
+    """f32 MF tables scored by TrainedMFModel.predict — rows gathered on
+    the state's device, the dot in numpy on the host (the JAX package's
+    host gather-dot, bit for bit)."""
+
+    def __init__(self, model) -> None:
+        from ..io.checkpoint import dtype_name
+
+        self.model = model
+        self.device = model.state.device
+        self.weights_dtype = dtype_name(model.state.P.dtype)
+
+    def device_tables(self):
+        st = self.model.state
+        return [st.P, st.Q, st.Bu, st.Bi]
+
+    def dispatch(self, staged):
+        u, i = staged
+        return self.model.predict(u, i)
+
+
+class _QuantMFServable(_PairServable):
+    """MF over reduced P/Q tables (bf16 or int8) on the device: gather the
+    requested rows, widen ONLY the gathered window to f32 — never the
+    table — copy it to the host and fold the int8 row-block scales there,
+    as the JAX package's host servable does; Bu, Bi and mu stay f32."""
+
+    def __init__(self, P, Q, Bu, Bi, mu, use_bias: bool, *,
+                 p_scales=None, q_scales=None, block_rows: int = 1,
+                 weights_dtype: str = "bfloat16") -> None:
+        self.P = P
+        self.Q = Q
+        self.Bu = Bu
+        self.Bi = Bi
+        self.mu = np.float32(mu)
+        self.use_bias = bool(use_bias)
+        self.p_scales = p_scales
+        self.q_scales = q_scales
+        self.block_shift = int(block_rows).bit_length() - 1
+        self.weights_dtype = weights_dtype
+        self.device = P.device
+
+    def _rows(self, table, scales, ids):
+        from ..models.mf import _host_rows
+
+        g = _host_rows(table, ids)  # per-window widen
+        if scales is not None:
+            g = g * _host_rows(scales, ids >> self.block_shift)
+        return g
+
+    def dispatch(self, staged):
+        from ..models.mf import _checked_ids, _host_rows
+
+        u = _checked_ids(staged[0], self.P.shape[0], "user")
+        i = _checked_ids(staged[1], self.Q.shape[0], "item")
+        out = np.sum(self._rows(self.P, self.p_scales, u)
+                     * self._rows(self.Q, self.q_scales, i),
+                     axis=-1) + self.mu
+        if self.use_bias:
+            out = out + _host_rows(self.Bu, u) + _host_rows(self.Bi, i)
+        return out
+
+    def device_tables(self):
+        return [t for t in (self.P, self.Q, self.p_scales, self.q_scales,
+                            self.Bu, self.Bi) if t is not None]
+
+
 def _fm_serving_state(w0, w, v, dev: torch.device):
     """An FMState holding the score-path tables on ``dev``, w0 f32; the
     training-only fields are placeholders (_fm_scores reads w0, w and v
@@ -414,10 +532,11 @@ def _fm_serving_state(w0, w, v, dev: torch.device):
 
 def _quant_servable_from_artifact(art: Artifact,
                                   dev: torch.device) -> _Servable:
-    """Quantized linear or FM artifact -> dequant-free servable. bf16
+    """Quantized linear, FM or MF artifact -> dequant-free servable. bf16
     tables reload AT bf16 (the raw uint16 bits view back losslessly —
     io.checkpoint.bf16_unpack_raw); int8 tables keep their q arrays + f32
-    scales and score through q8_linear_scores / q8_fm_scores."""
+    scales and score through q8_linear_scores / q8_fm_scores, or MF's
+    gathered windows."""
     from ..core.state import init_linear_state
     from ..io.checkpoint import (QUANT_SCHEME_BF16, QUANT_SCHEME_INT8,
                                  SCALE_SUFFIX, bf16_unpack_raw)
@@ -425,10 +544,24 @@ def _quant_servable_from_artifact(art: Artifact,
     meta, a = art.meta, art.arrays
     quant = manifest_quant(meta)
     scheme, fam = quant["scheme"], art.family
-    dims = int(meta["dims"])
 
     def tab(name, dt):
         return torch.from_numpy(np.array(a[name], dt)).to(dev)
+
+    if fam == "mf":
+        common = (tab("Bu", np.float32), tab("Bi", np.float32),
+                  float(a["mu"]), bool(meta["use_bias"]))
+        if scheme == QUANT_SCHEME_BF16:
+            return _QuantMFServable(bf16_unpack_raw(a["P"]).to(dev),
+                                    bf16_unpack_raw(a["Q"]).to(dev),
+                                    *common, weights_dtype="bfloat16")
+        if scheme == QUANT_SCHEME_INT8:
+            return _QuantMFServable(
+                tab("P", np.int8), tab("Q", np.int8), *common,
+                p_scales=tab("P" + SCALE_SUFFIX, np.float32),
+                q_scales=tab("Q" + SCALE_SUFFIX, np.float32),
+                block_rows=int(quant["block_rows"]), weights_dtype="int8")
+    dims = int(meta["dims"])
 
     if scheme == QUANT_SCHEME_BF16 and fam == "linear":
         state = init_linear_state(
@@ -458,12 +591,16 @@ def _servable_from_artifact(art: Artifact, dev: torch.device) -> _Servable:
     if art.family in LATER_SLICE_FAMILIES:
         raise ValueError(
             f"make_servable: the {art.family!r} family is a later slice of "
-            f"the torch port (hivemall_tpu_torch); it serves the linear "
-            f"and fm families")
-    if art.family not in ("linear", "fm"):
+            f"the torch port (hivemall_tpu_torch); it serves the linear, "
+            f"fm and mf families")
+    if art.family not in ("linear", "fm", "mf"):
         raise ValueError(f"unknown artifact family {art.family!r}")
     if manifest_quant(art.meta) is not None:
         return _quant_servable_from_artifact(art, dev)
+    if art.family == "mf":
+        from .artifact import rebuild_model
+
+        return _MFServable(rebuild_model(art, dev))
     if art.family == "fm":
         # w and V reload at the manifest dtype; the scorer reads no
         # training-only table
@@ -489,11 +626,20 @@ def _servable_from_artifact(art: Artifact, dev: torch.device) -> _Servable:
 
 def _servable_from_model(model, device: DeviceLike) -> _Servable:
     family = family_of(model)
-    if family not in ("linear", "fm"):
+    if family not in ("linear", "fm", "mf"):
         raise ValueError(
             f"make_servable: the {family!r} family is a later slice of the "
             f"torch port (hivemall_tpu_torch)")
     state = model.state
+    if family == "mf":
+        if device is not None and torch.device(device) != state.device:
+            from ..models.mf import (TrainedMFModel, mf_state_from_numpy,
+                                     mf_state_to_numpy)
+
+            model = TrainedMFModel(
+                mf_state_from_numpy(mf_state_to_numpy(state), device),
+                model.use_bias)
+        return _MFServable(model)
     if family == "fm":
         if device is not None and torch.device(device) != state.device:
             state = _fm_serving_state(float(state.w0), state.w, state.v,
@@ -594,7 +740,9 @@ class ServingEngine:
         out.append(self.max_batch)
         return out
 
-    def width_buckets(self) -> List[int]:
+    def width_buckets(self) -> List[Optional[int]]:
+        if not self.servable.has_width:
+            return [None]
         out, w = [], 8
         while w < self.max_width:
             out.append(w)
@@ -625,7 +773,7 @@ class ServingEngine:
                 alloc_segment_guard(f"serving.{self.name}.warmup",
                                     self.device) as g:
             for width in self.width_buckets():
-                inst = self.servable.dummy_instance(width)
+                inst = self.servable.dummy_instance(width or 8)
                 for b in self.batch_buckets():
                     raw = self.servable.run_padded([inst], b, self.max_width)
                     self.servable.finalize(raw, 1)
@@ -674,10 +822,11 @@ class ServingEngine:
                     chunk = instances[s:s + self.max_batch]
                     chunk_n = len(chunk)
                 with TRACER.span("engine.bucket") as bspan:
-                    overwide = self.servable.count_overwide(chunk,
-                                                            self.max_width)
-                    if overwide:
-                        self._truncated.increment(overwide)
+                    if self.servable.has_width:
+                        overwide = self.servable.count_overwide(
+                            chunk, self.max_width)
+                        if overwide:
+                            self._truncated.increment(overwide)
                     b_pad = self.bucket_batch(chunk_n)
                     bspan.set(rows=chunk_n, b_pad=b_pad)
                 with TRACER.span("engine.pad", args={"b_pad": b_pad}):

@@ -18,6 +18,12 @@ HTTP surface (layered on runtime/metrics_http.py — same process, one port):
   ``shed``); 404 unknown model, 400 bad payload. A client ``traceparent``
   header (W3C) is adopted as the request trace's root parent and echoed
   back on every response;
+- ``POST /topk``     body ``{"model": name?, "queries": [...], "k"?,
+  "probe"?}`` -> ``{"model", "version", "k", "results": [{"items",
+  "scores"}, ...]}``. The top-K retrieval surface (serving/retrieval.py)
+  — deploy() must have been given ``retrieval=`` options for the model
+  (400 otherwise). Same priority/deadline/traceparent contract and error
+  mapping as /predict, through the model's SEPARATE retrieval batcher;
 - ``GET /models``    registry listing (name, version, family, dtype,
   table bytes, admission and placement state);
 - ``GET /healthz``   overload-aware: reports ``degraded`` (still 200 —
@@ -25,10 +31,9 @@ HTTP surface (layered on runtime/metrics_http.py — same process, one port):
   threshold; device fields from torch;
 - ``GET /metrics`` / ``GET /trace?n=`` — inherited from metrics_http.
 
-``POST /topk`` (top-K retrieval), ``GET /slo`` (the SLO engine) and
-``GET /debug/bundle`` (the flight recorder) are later slices of the port:
-they answer as the JAX server answers an unknown route (404), with a body
-naming the slice.
+``GET /slo`` (the SLO engine) and ``GET /debug/bundle`` (the flight
+recorder) are later slices of the port: they answer as the JAX server
+answers an unknown route (404), with a body naming the slice.
 """
 
 from __future__ import annotations
@@ -51,20 +56,30 @@ from .admission import (PRIORITY_NAMES, DeadlineExpired, priority_class,
 from .batcher import BatcherClosed, DynamicBatcher, QueueFull
 from .engine import ServingEngine
 
-_TOPK_LATER = ("POST /topk: top-K retrieval (serving/retrieval.py) is a "
-               "later slice of the torch port (hivemall_tpu_torch)")
-
 
 class ModelEntry:
     """One deployed model version: engine + its batching front."""
 
     def __init__(self, name: str, version: str, engine: ServingEngine,
-                 batcher: DynamicBatcher) -> None:
+                 batcher: DynamicBatcher, retrieval_engine=None,
+                 retrieval_batcher: Optional[DynamicBatcher] = None) -> None:
         self.name = name
         self.version = version
         self.engine = engine
         self.batcher = batcher
+        # the top-K retrieval surface (serving/retrieval.py): present only
+        # when deploy() was given ``retrieval=`` options and the family is
+        # MF/FM. Its batcher is separate from the pointwise one, so a /topk
+        # flood never takes /predict's dispatch slots
+        self.retrieval_engine = retrieval_engine
+        self.retrieval_batcher = retrieval_batcher
         self.deployed_unix = time.time()
+
+    def close(self) -> None:
+        """Drain and close this version's batchers."""
+        self.batcher.close(drain=True)
+        if self.retrieval_batcher is not None:
+            self.retrieval_batcher.close(drain=True)
 
     def describe(self) -> dict:
         return {
@@ -85,9 +100,13 @@ class ModelEntry:
             # fractions, live AIMD window, drain-rate estimate and
             # shed/expiry/quota-reject counters
             "admission": self.batcher.overload_state(),
-            # the score cache and retrieval are later slices of the port
+            # the score cache is a later slice of the port
             "cache": {"enabled": False},
-            "retrieval": {"enabled": False},
+            # the top-K surface: catalog size, block/K geometry, index.
+            # {"enabled": False} = /topk answers 400 for this model
+            "retrieval": {"enabled": True,
+                          **self.retrieval_engine.describe()}
+            if self.retrieval_engine is not None else {"enabled": False},
         }
 
 
@@ -152,16 +171,18 @@ class ModelRegistry:
         atomically AFTER the new engine is fully warmed. The version
         defaults to the artifact's manifest version; bare model objects
         auto-increment. ``batcher_overrides`` tunes this model's admission
-        posture over the registry defaults. ``score_cache_bytes`` and
-        ``retrieval`` are later slices of the port and raise."""
+        posture over the registry defaults. ``retrieval`` (a dict of
+        RetrievalEngine kwargs, ``{}`` for the defaults) also stands up the
+        top-K surface for this model — MF/FM only — on the registry's
+        device, warmed, behind its OWN DynamicBatcher (``POST /topk``);
+        None (default) means /topk answers 400 for this model.
+        ``score_cache_bytes`` is a later slice of the port and raises."""
         from .artifact import Artifact, load as load_artifact
 
         if score_cache_bytes:
             raise ValueError(
                 "score_cache_bytes: the hot-row score cache is a later "
                 "slice of the torch port (hivemall_tpu_torch)")
-        if retrieval is not None:
-            raise ValueError(f"retrieval=: {_TOPK_LATER}")
         if isinstance(source, str):
             source = load_artifact(source)
         if version is None and isinstance(source, Artifact):
@@ -187,15 +208,34 @@ class ModelRegistry:
                    starvation_limit=self.starvation_limit,
                    express_high=self.express_high)
         bkw.update(batcher_overrides or {})
+        r_engine = r_batcher = None
+        if retrieval is not None:
+            from .retrieval import RetrievalEngine
+
+            rkw = dict(retrieval)
+            if kw.get("placement") is not None:
+                rkw.setdefault("placement", kw.get("placement"))
+            rkw.setdefault("device", self.device)
+            r_engine = RetrievalEngine(source, name=name, **rkw)
+            if self.warmup:
+                r_engine.warmup()
+            # no score cache / row keys: a top-K row is (query, k, probe)
+            # and its result a ranking, not a score
+            r_batcher = DynamicBatcher(r_engine.topk_batch,
+                                       name=f"{name}.topk",
+                                       **{**bkw,
+                                          "max_batch": r_engine.max_batch})
         batcher = DynamicBatcher(engine.predict, name=name, **bkw)
-        entry = ModelEntry(name, str(version), engine, batcher)
+        entry = ModelEntry(name, str(version), engine, batcher,
+                           retrieval_engine=r_engine,
+                           retrieval_batcher=r_batcher)
         with self._lock:
             old = self._entries.get(name)
             self._entries[name] = entry  # the atomic publish
         if old is not None:
             self._swaps.increment()
             # outside the lock: draining can take max_delay + a batch
-            old.batcher.close(drain=True)
+            old.close()
         REGISTRY.set_gauge(f"serving.{name}.deployed_version",
                            float(version) if str(version).isdigit() else 0.0)
         return entry
@@ -240,6 +280,28 @@ class ModelRegistry:
             f"model {name!r}: {self._SWAP_RETRIES} consecutive version "
             f"swaps collided with this submit — retry")
 
+    def submit_topk(self, name: Optional[str], rows, *,
+                    priority="normal", deadline_ms: Optional[float] = None):
+        """submit(), but into the model's RETRIEVAL batcher. ``rows`` is a
+        list of ``(query, k, probe)`` tuples (RetrievalEngine.topk_batch).
+        Returns (entry, future); (None, None) means the name is unknown;
+        (entry, None) means the model is deployed without a retrieval
+        surface (the caller's 400). Swap-retry semantics match submit()."""
+        for _ in range(self._SWAP_RETRIES):
+            entry = self.get(name)
+            if entry is None:
+                return None, None
+            if entry.retrieval_batcher is None:
+                return entry, None
+            try:
+                return entry, entry.retrieval_batcher.submit(
+                    rows, priority=priority, deadline_ms=deadline_ms)
+            except BatcherClosed:  # retry rebinds to the NEW batcher
+                continue
+        raise BatcherClosed(
+            f"model {name!r}: {self._SWAP_RETRIES} consecutive version "
+            f"swaps collided with this submit — retry")
+
     def health(self) -> dict:
         """Overload-aware health: ``degraded`` (still alive — shedding
         predictably) when any model's queue fills past
@@ -275,7 +337,7 @@ class ModelRegistry:
             entry = self._entries.pop(name, None)
         if entry is None:
             return False
-        entry.batcher.close(drain=True)
+        entry.close()
         return True
 
     def list_models(self):
@@ -288,11 +350,11 @@ class ModelRegistry:
             entries = list(self._entries.values())
             self._entries = {}
         for e in entries:
-            e.batcher.close(drain=True)
+            e.close()
 
 
 class _ServingHandler(metrics_http._Handler):
-    """Extends the metrics handler with /predict, /models and the
+    """Extends the metrics handler with /predict, /topk, /models and the
     overload-aware /healthz. The registry rides on the server object
     (see serve())."""
 
@@ -334,10 +396,9 @@ class _ServingHandler(metrics_http._Handler):
 
     def do_POST(self):  # noqa: N802 - http.server API
         route = self.path.split("?")[0]
-        if route != "/predict":
+        if route not in ("/predict", "/topk"):
             self._drain_body()
-            self._send_json(404, {"error": _TOPK_LATER if route == "/topk"
-                                  else "not found"})
+            self._send_json(404, {"error": "not found"})
             return
         # concurrency admission, at the door: past the in-flight limit the
         # request is refused BEFORE its body is parsed; the body is still
@@ -364,7 +425,7 @@ class _ServingHandler(metrics_http._Handler):
                                 extra_headers=(("Retry-After", "1"),))
                 return
         try:
-            self._predict()
+            self._topk() if route == "/topk" else self._predict()
         finally:
             if held is not None:
                 held.release()
@@ -465,6 +526,115 @@ class _ServingHandler(metrics_http._Handler):
             }, extra_headers=tp_hdr)
 
 
+    def _topk(self) -> None:
+        # /predict's twin for the retrieval surface: same root-span /
+        # traceparent / priority / deadline / error-mapping contract, but
+        # the rows are (query, k, probe) tuples into the model's SEPARATE
+        # retrieval batcher and the answer is a ranking per query
+        remote = TRACER.parse_traceparent(self.headers.get("traceparent"))
+        with TRACER.span("server.topk", remote=remote) as root:
+            tp = TRACER.format_traceparent(root)
+            tp_hdr = (("traceparent", tp),) if tp else ()
+            with TRACER.span("server.parse"):
+                close_hdr = ()
+                try:
+                    try:
+                        length = int(self.headers.get("Content-Length", 0))
+                    except ValueError:
+                        close_hdr = (("Connection", "close"),)
+                        raise
+                    payload = json.loads(self.rfile.read(length) or b"{}")
+                    queries = payload["queries"]
+                    if not isinstance(queries, list):
+                        raise TypeError("queries must be a list")
+                    k = payload.get("k")
+                    if k is not None:
+                        k = int(k)
+                        if k < 1:
+                            raise ValueError(f"k must be >= 1, got {k}")
+                    probe = payload.get("probe")
+                    if probe is not None:
+                        probe = bool(probe)
+                    cls = priority_class(
+                        payload.get("priority",
+                                    self.headers.get("x-priority")
+                                    or "normal"))
+                    deadline_ms = payload.get(
+                        "deadline_ms", self.headers.get("x-deadline-ms"))
+                    if deadline_ms is not None:
+                        deadline_ms = float(deadline_ms)
+                        if not math.isfinite(deadline_ms) \
+                                or deadline_ms <= 0:
+                            raise ValueError(
+                                f"deadline_ms must be a positive number, "
+                                f"got {deadline_ms}")
+                except (KeyError, TypeError, ValueError) as e:
+                    self._send_json(400, {"error": f"bad request: {e}"},
+                                    extra_headers=tp_hdr + close_hdr)
+                    root.set(status=400)
+                    return
+            root.set(queries=len(queries),
+                     model=payload.get("model") or "",
+                     priority=priority_name(cls),
+                     **({"k": k} if k is not None else {}),
+                     **({"deadline_ms": deadline_ms}
+                        if deadline_ms is not None else {}))
+            t0 = time.perf_counter()
+            try:
+                rows = [(q, k, probe) for q in queries]
+                entry, future = self.server.registry.submit_topk(
+                    payload.get("model"), rows,
+                    priority=cls, deadline_ms=deadline_ms)
+                if entry is None:
+                    self._send_json(404,
+                                    {"error": f"unknown model "
+                                              f"{payload.get('model')!r}"},
+                                    extra_headers=tp_hdr)
+                    root.set(status=404)
+                    return
+                if future is None:
+                    # deployed, but deploy() stood up no retrieval surface
+                    self._send_json(
+                        400, {"error": f"model {entry.name!r} has no "
+                                       f"retrieval surface (deploy with "
+                                       f"retrieval= to enable /topk)"},
+                        extra_headers=tp_hdr)
+                    root.set(status=400)
+                    return
+                results = future.result(timeout=self.predict_timeout)
+            except DeadlineExpired as e:
+                self._send_json(504, {"error": str(e),
+                                      "reason": "deadline"},
+                                extra_headers=tp_hdr)
+                root.set(status=504)
+                return
+            except (QueueFull, BatcherClosed) as e:
+                ra = getattr(e, "retry_after_s", None) or 1.0
+                self._send_json(
+                    503, {"error": str(e),
+                          "reason": getattr(e, "reason", "busy")},
+                    extra_headers=tp_hdr + (
+                        ("Retry-After", str(int(math.ceil(ra)))),))
+                root.set(status=503)
+                return
+            except Exception as e:  # scoring bug — surface, don't hang
+                self._send_json(500, {"error": f"{type(e).__name__}: {e}"},
+                                extra_headers=tp_hdr)
+                root.set(status=500)
+                return
+            dt = time.perf_counter() - t0
+            self.server.latency.observe(
+                dt, trace_id=TRACER.exemplar_id(root))
+            self.server.latency_by_class[cls].observe(dt)
+            root.set(status=200, version=entry.version)
+            self._send_json(200, {
+                "model": entry.name,
+                "version": entry.version,
+                "k": k if k is not None else entry.retrieval_engine.k,
+                "results": list(results),
+            }, extra_headers=tp_hdr)
+
+
 def _jsonable(p):
     if isinstance(p, (np.generic,)):
         return p.item()
@@ -479,7 +649,8 @@ def serve(registry: ModelRegistry, port: int = 0, host: str = "127.0.0.1",
     """Start the serving endpoint on a daemon thread (stdlib only);
     ``server.server_address[1]`` is the bound port. The same server
     answers /predict, /models, /metrics, /healthz and /trace, and scores
-    on the registry's device. Stop it with ``server.shutdown()`` and
+    on the registry's device (/topk too, for models deployed with
+    ``retrieval=``). Stop it with ``server.shutdown()`` and
     ``server.server_close()``, then ``registry.shutdown()``.
 
     ``max_concurrent_requests`` bounds in-flight /predict handlers: past

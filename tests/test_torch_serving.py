@@ -434,10 +434,11 @@ def test_http_error_codes_and_later_slice_routes(stack, model):
         with pytest.raises(urllib.error.HTTPError) as e:
             _post(port, payload)
         assert e.value.code == code
+    # /topk landed with retrieval: a model deployed without it is a 400
     with pytest.raises(urllib.error.HTTPError) as e:
         _post(port, {"queries": [[1]]}, path="/topk")
-    assert e.value.code == 404
-    assert "later slice" in json.loads(e.value.read())["error"]
+    assert e.value.code == 400
+    assert "retrieval" in json.loads(e.value.read())["error"]
     for path in ("/slo", "/debug/bundle"):
         with pytest.raises(urllib.error.HTTPError) as e:
             _get(port, path)

@@ -206,3 +206,79 @@ def carried_fm_models(dims=384, factors=5, seed=4, classification=True):
     return (JFM.TrainedFMModel(state=jax_fm_state(d), hyper=jh, dims=dims),
             TFM.TrainedFMModel(state=TFM.fm_state_from_numpy(d, "cpu"),
                                hyper=th, dims=dims))
+
+
+# --- MF helpers (tests/test_torch_mf.py, tests/test_torch_retrieval.py) -----
+
+MF_FIELDS = ("P", "Q", "Bu", "Bi", "mu", "P_gg", "Q_gg")
+
+
+def warm_mf_numpy(n_users, n_items, k, adagrad=False, seed=0):
+    """A warm MF state as numpy fields: random tables and biases, positive
+    AdaGrad accumulators (None without AdaGrad), random touched masks."""
+    rng = np.random.RandomState(seed)
+    return {
+        "P": (0.3 * rng.randn(n_users, k)).astype(np.float32),
+        "Q": (0.3 * rng.randn(n_items, k)).astype(np.float32),
+        "Bu": (0.1 * rng.randn(n_users)).astype(np.float32),
+        "Bi": (0.1 * rng.randn(n_items)).astype(np.float32),
+        "mu": np.float32(0.4),
+        "P_gg": rng.uniform(0, 2, (n_users, k)).astype(np.float32)
+        if adagrad else None,
+        "Q_gg": rng.uniform(0, 2, (n_items, k)).astype(np.float32)
+        if adagrad else None,
+        "touched_u": (rng.rand(n_users) < 0.3).astype(np.int8),
+        "touched_i": (rng.rand(n_items) < 0.3).astype(np.int8),
+        "step": np.int32(500),
+    }
+
+
+def jax_mf_state(d):
+    from hivemall_tpu.models import mf as JM
+
+    def arr(x):
+        return None if x is None else jnp.asarray(x)
+
+    return JM.MFState(
+        P=arr(d["P"]), Q=arr(d["Q"]), Bu=arr(d["Bu"]), Bi=arr(d["Bi"]),
+        mu=jnp.asarray(d["mu"], jnp.float32), P_gg=arr(d["P_gg"]),
+        Q_gg=arr(d["Q_gg"]), touched_u=jnp.asarray(d["touched_u"]),
+        touched_i=jnp.asarray(d["touched_i"]),
+        step=jnp.asarray(d["step"], jnp.int32))
+
+
+def jax_mf_numpy(st):
+    h = jax.device_get(st)
+    out = {k: None if getattr(h, k) is None else np.array(getattr(h, k))
+           for k in MF_FIELDS + ("touched_u", "touched_i")}
+    out["step"] = np.int32(h.step)
+    return out
+
+
+def assert_mf_match(got, want, rtol=RTOL, atol=ATOL):
+    """Port state (MFState) against JAX's fields (numpy dict): floats at
+    rtol/atol, touched and step exact."""
+    from hivemall_tpu_torch.models.mf import mf_state_to_numpy
+
+    a = mf_state_to_numpy(got)
+    for k in MF_FIELDS:
+        if want[k] is None:
+            assert a[k] is None, k
+            continue
+        np.testing.assert_allclose(a[k], want[k], rtol=rtol, atol=atol,
+                                   err_msg=k)
+    for k in ("touched_u", "touched_i"):
+        np.testing.assert_array_equal(a[k], want[k], err_msg=k)
+    assert int(a["step"]) == int(want["step"])
+
+
+def carried_mf_models(n_users=30, n_items=90, k=4, seed=0, use_bias=True):
+    """(jax_model, port_model): one warm MF state carried into both
+    packages' TrainedMFModel (the port's on the CPU)."""
+    from hivemall_tpu.models import mf as JM
+    from hivemall_tpu_torch.models import mf as TM
+
+    d = warm_mf_numpy(n_users, n_items, k, seed=seed)
+    return (JM.TrainedMFModel(state=jax_mf_state(d), use_bias=use_bias),
+            TM.TrainedMFModel(state=TM.mf_state_from_numpy(d, "cpu"),
+                              use_bias=use_bias))
