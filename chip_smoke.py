@@ -118,6 +118,27 @@ Phases (any failure exits non-zero; nothing is caught):
              (block_items 65,536, 8 queries); HTTP: the f32 artifact
              deployed with retrieval={}, 4 clients x 16 POST /topk, 0
              failed, each == the direct engine call. No hand kernel.
+13. mc     — multiclass at the JAX package's bench shape (L = 26, D = 2^20,
+             64 ids of value 1 a row, 131,072 rows, 16,384 held out):
+             train_multiclass_arow -mini_batch 4096 (seconds, rows/s, host
+             staging apart, whether its tables stay finite) and
+             train_multiclass_pa1 -c 0.001 (holdout accuracy beside
+             chance); card == CPU on one 4,096-row block for all nine rules
+             and on the exact scan's first 2,048 rows (AROW, CW); the AROW
+             step eager / as a CUDA graph / device ops / byte bound; the
+             PA1 model frozen at f32 / bf16 / int8 and served (labels ==
+             predict, scores == the CPU engine / numpy, p50 / p99, 0
+             allocator segments) and over HTTP beside main's model.
+14. ffm    — FFM at the JAX package's bench shape (2^20 features, 2^22 V
+             rows, k = 4, 64 fields, 32 tokens, 131,072 rows): train_ffm
+             -mini_batch 4096 unchunked and -row_chunk 512 (seconds,
+             rows/s, parse and V draw apart, holdout logloss beside the
+             constant's); card == CPU on one -w0 block (both tilings,
+             packed V) and the scan's first 1,024 rows; per tiling the
+             step's peak memory, eager / graph time, device ops and byte
+             bound; the f32 blob artifact (bytes, freeze / load seconds),
+             served == predict, and HTTP beside main's model. Phase fm also
+             prints the host seconds of its V draw (JAX's stream).
 Prints a kernels JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 """
@@ -1069,11 +1090,14 @@ def torch_on(a, dev):
     return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
 
-def fm_http(linear_model, fm_path, rows, want, dev):
-    """The FM f32 artifact deployed as "fm" beside main's linear model as
-    "ctr" in one registry behind serve(); 4 clients x 4 POST /predict of
-    64 string rows for fm (and one for ctr), each answer held against the
-    FM engine's scores. Returns seconds."""
+def http_beside_ctr(linear_model, name, family, path, rows, want, dev,
+                    per_client, max_width=256, ctr_rows=None):
+    """The artifact at ``path`` deployed as ``name`` beside main's linear
+    model as "ctr" in one registry behind serve(); 4 clients x
+    ``per_client`` POST /predict of 64 string rows for ``name`` (and one
+    of ``ctr_rows``, default ``rows``, for ctr), each answer held against
+    ``want``, the direct engine's answers per row (scores at rtol 1e-6 /
+    atol 1e-7, labels exactly). Returns seconds."""
     import threading
     import urllib.request
 
@@ -1081,14 +1105,14 @@ def fm_http(linear_model, fm_path, rows, want, dev):
 
     registry = ModelRegistry(max_batch=512, max_delay_ms=2.0, device=dev,
                              engine_kwargs={"max_batch": 512,
-                                            "max_width": 256})
+                                            "max_width": max_width})
     server = serve(registry, host="127.0.0.1", port=0)
     port = server.server_address[1]
     answers, errors = [], []
 
-    def post(model, s):
+    def post(model, s, batch=rows):
         body = json.dumps({"model": model,
-                           "instances": rows[s:s + 64]}).encode()
+                           "instances": batch[s:s + 64]}).encode()
         req = urllib.request.Request(
             f"http://127.0.0.1:{port}/predict", data=body,
             headers={"Content-Type": "application/json"})
@@ -1096,16 +1120,16 @@ def fm_http(linear_model, fm_path, rows, want, dev):
             return json.loads(r.read())
 
     def client(c):
-        for i in range(4):
-            s = (c * 4 + i) * 64
+        for i in range(per_client):
+            s = (c * per_client + i) * 64
             try:
-                answers.append((s, post("fm", s)))
+                answers.append((s, post(name, s)))
             except Exception as e:  # collected and asserted below
                 errors.append(repr(e))
 
     try:
         registry.deploy("ctr", linear_model, version="1")
-        registry.deploy("fm", fm_path, version="1")
+        registry.deploy(name, path, version="1")
         t0 = time.perf_counter()
         threads = [threading.Thread(target=client, args=(c,))
                    for c in range(4)]
@@ -1115,7 +1139,7 @@ def fm_http(linear_model, fm_path, rows, want, dev):
             t.join(timeout=300)
             assert not t.is_alive(), "an HTTP client hung"
         secs = time.perf_counter() - t0
-        ctr = post("ctr", 0)
+        ctr = post("ctr", 0, rows if ctr_rows is None else ctr_rows)
         models = json.loads(urllib.request.urlopen(
             f"http://127.0.0.1:{port}/models", timeout=60).read())["models"]
     finally:
@@ -1123,15 +1147,20 @@ def fm_http(linear_model, fm_path, rows, want, dev):
         server.server_close()
         registry.shutdown()
     assert not errors, f"failed requests: {errors[:3]}"
-    assert len(answers) == 16, f"{len(answers)} of 16 requests answered"
+    assert len(answers) == 4 * per_client, \
+        f"{len(answers)} of {4 * per_client} requests answered"
     for s, out in answers:
-        assert out["model"] == "fm"
-        np.testing.assert_allclose(
-            np.asarray(out["predictions"], np.float32), want[s:s + 64],
-            rtol=1e-6, atol=1e-7, err_msg="/predict fm")
+        assert out["model"] == name
+        if isinstance(want, np.ndarray):
+            np.testing.assert_allclose(
+                np.asarray(out["predictions"], np.float32), want[s:s + 64],
+                rtol=1e-6, atol=1e-7, err_msg=f"/predict {name}")
+        else:
+            assert out["predictions"] == list(want[s:s + 64]), \
+                f"/predict {name}: labels differ from the engine's"
     assert len(ctr["predictions"]) == 64 and ctr["model"] == "ctr"
     assert sorted((m["name"], m["family"]) for m in models) == \
-        [("ctr", "linear"), ("fm", "fm")], f"/models: {models}"
+        sorted([("ctr", "linear"), (name, family)]), f"/models: {models}"
     return secs
 
 
@@ -1143,7 +1172,7 @@ def phase_fm(seed, dev, smi, data, linear_model):
     import tempfile
 
     from hivemall_tpu_torch.io.checkpoint import dequantize_int8
-    from hivemall_tpu_torch.models.fm import train_fm
+    from hivemall_tpu_torch.models.fm import FMHyper, init_fm_state, train_fm
     from hivemall_tpu_torch.serving import ServingEngine
 
     _, (idx, val, y), (h_idx, h_val, h_y) = data
@@ -1153,6 +1182,9 @@ def phase_fm(seed, dev, smi, data, linear_model):
     feats = (list(idx), list(val))
     opts = f"-c -dims {FULL_DIMS} -factor {FM_FACTORS} -mini_batch 4096"
     staging = stage_rows_secs(feats, y, FULL_DIMS, 4096)
+    _, init_secs = timed(lambda: init_fm_state(
+        FULL_DIMS, FMHyper(factors=FM_FACTORS, classification=True),
+        device=dev), dev)
     sync(dev)
     t0 = time.perf_counter()
     model = train_fm(feats, y, opts, device=dev)
@@ -1167,7 +1199,9 @@ def phase_fm(seed, dev, smi, data, linear_model):
     assert not model.state.v[:, FM_FACTORS:].any(), "V pad lanes moved"
     print(f"[fm] train_fm {opts}: {len(y)} rows in {secs:.3f} s = "
           f"{len(y) / secs:.0f} rows/s; host staging of the same rows "
-          f"(timed apart) {staging:.3f} s; holdout acc {acc:.4f} logloss "
+          f"(timed apart) {staging:.3f} s; the init (timed apart: V drawn "
+          f"on the host as JAX draws it, {FULL_DIMS} x {FM_FACTORS}, then "
+          f"uploaded) {init_secs:.3f} s; holdout acc {acc:.4f} logloss "
           f"{ll:.4f}; model_rows {f_out.shape[0]} (finite, V pad lanes 0)")
     assert acc > 0.55, f"fm: holdout accuracy {acc} is near chance"
 
@@ -1209,10 +1243,11 @@ def phase_fm(seed, dev, smi, data, linear_model):
         latency_report("fm", "smoke_fm", engines, h_idx, h_val)
         if dev.type == "cuda":
             fm_scorer_ms(engines["float32"].servable.state, h_idx, h_val, dev)
-        http_secs = fm_http(linear_model, paths["float32"],
-                            string_rows(h_idx, h_val, 1024),
-                            engines["float32"].predict(
-                                flat_rows(h_idx, h_val, 0, 1024)), dev)
+        http_secs = http_beside_ctr(
+            linear_model, "fm", "fm", paths["float32"],
+            string_rows(h_idx, h_val, 1024),
+            engines["float32"].predict(flat_rows(h_idx, h_val, 0, 1024)),
+            dev, 4)
     print(f"[fm] HTTP: 4 clients x 4 POST /predict of 64 string rows for fm "
           f"in {http_secs:.3f} s beside the linear model ctr: 0 failed, "
           f"answers == the fm f32 engine")
@@ -2360,6 +2395,569 @@ def phase_topk(seed, dev, smi, held, mf_arts, fm_model, fm_rows):
 
 
 
+MC_LABELS = 26  # the JAX package's multiclass bench shape (scripts/bench_mc.py)
+MC_DIMS = 1 << 20
+MC_WIDTH = 64
+MC_ROWS = 131072
+MC_HOLDOUT = 16384
+MC_BLOCK = 4096
+MC_SCAN_ROWS = 2048
+MC_PA1_C = 0.001  # the served model's aggressiveness cap
+MC_RULE_HYPER = {"mc_pa1": {"c": 1.0}, "mc_pa2": {"c": 1.0},
+                 "mc_cw": {"phi": 1.0}, "mc_arow": {"r": 0.1},
+                 "mc_arowh": {"r": 0.1, "c": 1.0},
+                 "mc_scw1": {"phi": 1.0, "c": 1.0},
+                 "mc_scw2": {"phi": 1.0, "c": 1.0}}
+
+
+def mc_data(seed):
+    """MC_ROWS training and MC_HOLDOUT held-out rows at the JAX package's
+    multiclass bench shape: 64 ids of value 1.0 a row over 2^20 dims, each
+    log-uniform over the hashed space (workload_ids). Labels from a planted
+    teacher: a row's label is drawn uniformly; half its ids are drawn over
+    the space every label shares (the head each row carries), the other
+    half over its label's own copy of it, the shared placement shifted by
+    a seeded offset per label (the label's topic words)."""
+    rng = np.random.RandomState(seed + 41)
+    n = MC_ROWS + MC_HOLDOUT
+    y = rng.randint(0, MC_LABELS, n).astype(np.int64)
+    shared = workload_ids(rng, (n, MC_WIDTH // 2), MC_DIMS)
+    offset = rng.randint(0, MC_DIMS, MC_LABELS)
+    topic = (workload_ids(rng, (n, MC_WIDTH // 2), MC_DIMS).astype(np.int64)
+             + offset[y][:, None]) % MC_DIMS
+    idx = np.concatenate([shared.astype(np.int64), topic], axis=1)
+    val = np.ones((n, MC_WIDTH), np.float32)
+    return ((idx[:MC_ROWS], val[:MC_ROWS], y[:MC_ROWS]),
+            (idx[MC_ROWS:], val[MC_ROWS:], y[MC_ROWS:]))
+
+
+def mc_compare(tag, got, ref):
+    """Multiclass state on the card == the same step on the CPU (RTOL /
+    ATOL on weights and covariances, touched and step exact); returns
+    max |err|."""
+    from hivemall_tpu_torch.models.multiclass import mc_state_to_numpy
+
+    (gs, gl), (rs, rl) = got, ref
+    a, b = mc_state_to_numpy(gs), mc_state_to_numpy(rs)
+    np.testing.assert_allclose(float(gl), float(rl), rtol=RTOL, atol=ATOL,
+                               err_msg=f"{tag}: loss")
+    err = abs(float(gl) - float(rl))
+    for k in ("weights", "covars"):
+        if b[k] is None:
+            continue
+        np.testing.assert_allclose(a[k], b[k], rtol=RTOL, atol=ATOL,
+                                   err_msg=f"{tag}: {k}")
+        err = max(err, float(np.max(np.abs(a[k] - b[k]))))
+    assert np.array_equal(a["touched"], b["touched"]), f"{tag}: touched"
+    assert a["step"] == b["step"], f"{tag}: step"
+    return err
+
+
+def mc_rules():
+    from hivemall_tpu_torch.models import multiclass as MC
+
+    return [r for r in vars(MC).values() if isinstance(r, MC.MCRule)]
+
+
+def mc_step_bytes(idx, y, missed):
+    """Bytes one minibatch step must move: ids, values and labels read
+    once; the weights and covariances of every label at each unique
+    feature read once (the [L, B, K] gathers); and the weight, covariance
+    and touched entries of the unique (correct row, feature) and (missed
+    row, feature) pairs read and written once."""
+    u_feat = len(np.unique(idx))
+    pairs = np.unique(np.concatenate([(y[:, None] * MC_DIMS + idx).ravel(),
+                                      (missed[:, None] * MC_DIMS
+                                       + idx).ravel()]))
+    return (idx.size * (8 + 4) + len(y) * 8 + u_feat * MC_LABELS * 8
+            + 2 * len(pairs) * (4 + 4 + 1)), u_feat, len(pairs)
+
+
+def mc_card_vs_cpu(dev, train):
+    """From one warm state drawn in numpy (covariances in [0.5, 1]): one
+    MC_BLOCK-row minibatch block at full width for each of the nine rules,
+    and the exact scan of the first MC_SCAN_ROWS rows for AROW and CW, on
+    the card and on the CPU; the AROW step timed eager and as one CUDA
+    graph with its device operations and byte bound."""
+    import torch
+
+    from hivemall_tpu_torch.models import multiclass as MC
+
+    idx, val, y = (c[:MC_BLOCK] for c in train)
+    rng = np.random.RandomState(17)
+    host = {"weights": (0.1 * rng.randn(MC_LABELS, MC_DIMS))
+            .astype(np.float32),
+            "covars": rng.uniform(0.5, 1.0, (MC_LABELS, MC_DIMS))
+            .astype(np.float32),
+            "touched": (rng.rand(MC_LABELS, MC_DIMS) < 0.3).astype(np.int8),
+            "step": 1000}
+    errs = []
+    for rule in mc_rules():
+        d0 = dict(host, covars=host["covars"] if rule.use_covariance
+                  else None)
+        hyper = MC_RULE_HYPER.get(rule.name, {})
+        out = [MC.make_mc_train_step(rule, hyper, "minibatch", device=d)(
+            MC.mc_state_from_numpy(d0, d), idx, val, y)
+            for d in (dev, "cpu")]
+        errs.append(f"{rule.name} {mc_compare(rule.name, *out):.3g}")
+        del out
+    print(f"[mc] one -mini_batch block of {MC_BLOCK} rows at L = "
+          f"{MC_LABELS}, D = {MC_DIMS}, K = {MC_WIDTH} from one warm state, "
+          f"card == CPU (rtol {RTOL:g} / atol {ATOL:g}, touched and step "
+          f"exact) for all nine rules, max|err|: " + ", ".join(errs))
+
+    for name in ("mc_arow", "mc_cw"):
+        rule = [r for r in mc_rules() if r.name == name][0]
+        hyper = MC_RULE_HYPER[name]
+        n = MC_SCAN_ROWS
+        out, secs = [], None
+        for d in (dev, "cpu"):
+            step = MC.make_mc_train_step(rule, hyper, "scan", device=d)
+            st = MC.mc_state_from_numpy(host, d)
+            res, t = timed(lambda: step(st, train[0][:n], train[1][:n],
+                                        train[2][:n]), dev)
+            out.append(res)
+            secs = secs or t
+        e = mc_compare(f"{name} scan", *out)
+        print(f"[mc] {name} exact scan (-mini_batch 1) of the first {n} "
+              f"rows: card == CPU, max|err| {e:.3g}; on the card "
+              f"{secs:.3f} s = {n / secs:.0f} rows/s (plain torch ops, one "
+              f"row's launches after another)")
+
+    if dev.type != "cuda":
+        return None
+    rule = [r for r in mc_rules() if r.name == "mc_arow"][0]
+    step = MC.make_mc_train_step(rule, {"r": 0.1}, "minibatch", device=dev)
+    st = MC.mc_state_from_numpy(host, dev)
+    ti, tv, ty = (torch_on(a, dev) for a in (idx, val, y))
+    scores = MC._mc_scores(st.weights, ti, tv)
+    missed = torch.argmax(scores.scatter(1, ty[:, None], MC.NEG_INF),
+                          dim=1).cpu().numpy()
+
+    def run():
+        step(st, ti, tv, ty)
+
+    eager, graph, ops = cuda_ms(run, 20), graph_ms(run, 20), device_ops(run)
+    nbytes, u_feat, n_pairs = mc_step_bytes(idx, y, missed)
+    bound = 1e3 * nbytes / HBM_BYTES_PER_S
+    print(f"[mc] AROW minibatch step (the train path's, B={MC_BLOCK}, "
+          f"K={MC_WIDTH}, L={MC_LABELS}, D={MC_DIMS}; {u_feat} unique "
+          f"features, {n_pairs} unique (row, feature) pairs updated): "
+          f"{eager:.4f} ms eager = {MC_BLOCK / eager * 1e3:.0f} rows/s, "
+          f"{graph:.4f} ms as one CUDA graph; "
+          f"{ops if ops else 'not measured'} device operations; bound "
+          f"{bound:.6f} ms by bytes ({nbytes} B)")
+    return {"ms": eager, "graph_ms": graph, "ops": ops, "bound_ms": bound}
+
+
+def mc_raw_scores(eng, idx, val, n):
+    """The engine's [n, L] per-label scores of the first n rows (one
+    padded bucket), on the host."""
+    raw = eng.servable.run_padded(flat_rows(idx, val, 0, n), n, 256)
+    return raw.detach().cpu().numpy()[:n]
+
+
+def phase_mc(seed, dev, smi, linear_model):
+    """Multiclass at the JAX package's bench shape: train_multiclass_arow
+    -mini_batch 4096 (seconds, rows/s, host staging apart, whether its
+    tables stay finite, holdout accuracy) and train_multiclass_pa1 -c
+    MC_PA1_C with the same options (holdout accuracy, asserted well above
+    chance), card == CPU per rule on one block and on the scan's prefix,
+    the step timed, then the PA1 model frozen at f32 / bf16 / int8,
+    served, and /predict over HTTP beside main's linear model. Returns the
+    PA1 model's (accuracy, seconds) and the step timing."""
+    import tempfile
+
+    import torch
+
+    from hivemall_tpu_torch.io.checkpoint import dequantize_int8
+    from hivemall_tpu_torch.models.multiclass import (
+        train_multiclass_arow, train_multiclass_pa1)
+    from hivemall_tpu_torch.serving import ServingEngine
+
+    train, (h_idx, h_val, h_y) = mc_data(seed)
+    idx, val, y = train
+    counts = np.bincount(y, minlength=MC_LABELS)
+    majority = float(counts.max() / len(y))
+    print(f"[mc] card: {smi}; L = {MC_LABELS} labels x D = {MC_DIMS}, "
+          f"{MC_WIDTH} log-uniform ids a row, {MC_ROWS} training rows "
+          f"({int(np.count_nonzero(counts))} labels present, the largest "
+          f"{majority:.4f} of the rows), {MC_HOLDOUT} held out")
+    feats = (list(idx), list(val))
+    hold = (list(h_idx), list(h_val))
+    opts = f"-dims {MC_DIMS} -mini_batch {MC_BLOCK}"
+    staging = stage_rows_secs(feats, y.astype(np.float32), MC_DIMS, MC_BLOCK)
+    arow, secs = timed(lambda: train_multiclass_arow(feats, y, opts,
+                                                     device=dev), dev)
+    assert arow.state.weights.device.type == dev.type, "state not on dev"
+    finite = bool(torch.isfinite(arow.state.weights).all()
+                  and torch.isfinite(arow.state.covars).all())
+    cov_min = float(torch.nan_to_num(arow.state.covars, nan=0.0).min())
+    acc = float(np.mean(np.asarray(arow.predict(hold)) == h_y)) \
+        if finite else float("nan")
+    print(f"[mc] train_multiclass_arow {opts}: {MC_ROWS} rows in "
+          f"{secs:.3f} s = {MC_ROWS / secs:.0f} rows/s; host staging of the "
+          f"same rows (timed apart) {staging:.3f} s; tables finite: "
+          f"{finite}, smallest covariance {cov_min:.4g}, holdout accuracy "
+          f"{acc:.4f} (chance {1 / MC_LABELS:.4f}). A block sums every "
+          f"duplicate lane's covariance delta, as the JAX package's "
+          f".at[].add does, so a head feature's covariance goes negative "
+          f"within the first block at this shape in both packages")
+    p_opts = f"{opts} -c {MC_PA1_C}"
+    model, p_secs = timed(lambda: train_multiclass_pa1(
+        feats, y, p_opts, device=dev), dev)
+    assert torch.isfinite(model.state.weights).all(), "mc: not finite"
+    pred = model.predict(hold)
+    p_acc = float(np.mean(np.asarray(pred) == h_y))
+    rows = model.model_rows()
+    assert len(rows) == 3 and len(rows[0]) == len(rows[1]) > 0, "model_rows"
+    print(f"[mc] train_multiclass_pa1 {p_opts}: {MC_ROWS} rows in "
+          f"{p_secs:.3f} s = {MC_ROWS / p_secs:.0f} rows/s; holdout "
+          f"accuracy {p_acc:.4f} (chance {1 / MC_LABELS:.4f}, the largest "
+          f"label {majority:.4f}); model_rows {len(rows[0])} (label, "
+          f"feature) entries; largest |weight| "
+          f"{float(model.state.weights.abs().max()):.4g}; this model is the "
+          f"one served below (PA1's capped step keeps each summed update "
+          f"small)")
+    assert p_acc > 2.0 / MC_LABELS and p_acc > majority, \
+        f"mc: holdout accuracy {p_acc} is near chance"
+
+    timing = mc_card_vs_cpu(dev, train)
+
+    n = 512
+    with tempfile.TemporaryDirectory(prefix="hivemall_mc_") as tmp:
+        paths, arts, engines = frozen_engines(model, tmp, "mc", "mc",
+                                              "smoke_mc", dev)
+        cpu = ServingEngine(arts["bfloat16"], name="smoke_mc_bf16_cpu",
+                            max_batch=512, max_width=256, device="cpu")
+        a = arts["int8"].arrays
+        W = dequantize_int8(a["weights"], a["weights__scale"], 64, axis=1)
+        q8 = np.sum(W[:, h_idx[:n]].astype(np.float64) * h_val[:n],
+                    axis=-1).T
+        want = {"bfloat16": mc_raw_scores(cpu, h_idx, h_val, n),
+                "int8": q8}
+        nb = MC_DIMS // 64
+        expect = {"float32": 4 * MC_LABELS * MC_DIMS,
+                  "bfloat16": 2 * MC_LABELS * MC_DIMS,
+                  "int8": MC_LABELS * MC_DIMS + 4 * MC_LABELS * nb}
+        live = model.predict(hold)
+        for dtype, eng in engines.items():
+            assert eng.table_bytes == expect[dtype], \
+                f"mc {dtype}: table_bytes {eng.table_bytes}"
+            served = eng.predict(flat_rows(h_idx, h_val, 0, len(h_y)))
+            h_acc = float(np.mean(np.asarray(served) == h_y))
+            if dtype == "float32":
+                assert list(served) == list(live), \
+                    "mc f32: served labels != model.predict"
+                line = "labels == model.predict on every held-out row"
+            else:
+                got = mc_raw_scores(eng, h_idx, h_val, n)
+                np.testing.assert_allclose(got, want[dtype], rtol=1e-5,
+                                           atol=1e-6,
+                                           err_msg=f"mc {dtype} scores")
+                line = (f"{n} rows' per-label scores == "
+                        f"{'the CPU engine' if dtype == 'bfloat16' else 'numpy on the dequantized table'}"
+                        f" (rtol 1e-5 / atol 1e-6), largest |diff| "
+                        f"{float(np.max(np.abs(got - want[dtype]))):.3g}")
+            print(f"[mc] {dtype}: {line}; holdout accuracy {h_acc:.4f}")
+        latency_report("mc", "smoke_mc", engines, h_idx, h_val)
+        rows = string_rows(h_idx, h_val, 4096)
+        ref = engines["float32"].predict(flat_rows(h_idx, h_val, 0, 4096))
+        http_secs = http_beside_ctr(linear_model, "mc", "multiclass",
+                                    paths["float32"], rows, ref, dev, 16)
+    print(f"[mc] HTTP: 4 clients x 16 POST /predict of 64 string rows for "
+          f"mc in {http_secs:.3f} s beside the linear model ctr: 0 failed, "
+          f"every answer == the f32 engine's labels")
+    return p_acc, p_secs, timing
+
+
+FFM_FEATURE_BITS = 20  # the JAX package's FFM bench shape (bench_ffm.py)
+FFM_V_BITS = 22
+FFM_K = 4
+FFM_FIELDS = 64
+FFM_WIDTH = 32
+FFM_ROWS = 131072
+FFM_HOLDOUT = 16384
+FFM_BLOCK = 4096
+FFM_CHUNK = 512
+FFM_SCAN_ROWS = 1024
+FFM_TEACHER_RANK = 2
+FFM_TEACHER_HEAD = 1024
+FFM_LAT_REQUESTS = 20
+
+
+def ffm_data(seed):
+    """FFM_ROWS training and FFM_HOLDOUT held-out rows of "field:idx:1"
+    strings at the JAX package's FFM bench shape: 32 log-uniform ids a row
+    over 2^20 features (workload_ids), each feature in one field of 64
+    drawn uniformly (a CTR log's layout: an id belongs to its column).
+    Labels from
+    a planted field-aware teacher over the FFM_TEACHER_HEAD most frequent
+    features (half the lanes): such a feature carries a scalar c and a
+    weight a, a field pair (p, q) a weight M[p, q] of rank
+    FFM_TEACHER_RANK, and a row scores sum_{i<j} M[f_i, f_j] c_i c_j +
+    sum_i a_i over its head lanes; the label is the score's side of the
+    median. Returns (training rows, labels), (held-out rows, labels)."""
+    rng = np.random.RandomState(seed + 51)
+    n, d = FFM_ROWS + FFM_HOLDOUT, 1 << FFM_FEATURE_BITS
+    idx = workload_ids(rng, (n, FFM_WIDTH), d).astype(np.int64)
+    # each feature belongs to one field, the fields uniform over 64
+    fld = rng.randint(0, FFM_FIELDS, d)[idx]
+    # a feature's frequency rank: workload_ids places rank r at perm[r]
+    rank = np.empty(d, np.int64)
+    rank[np.random.RandomState(12345).permutation(d)] = np.arange(d)
+    head = rank < FFM_TEACHER_HEAD
+    u = rng.randn(FFM_FIELDS, FFM_TEACHER_RANK)
+    M = u @ u.T
+    c = np.where(head, rng.randn(d), 0.0)
+    a = np.where(head, 0.3 * rng.randn(d), 0.0)
+    score = np.empty(n)
+    for s in range(0, n, 4096):
+        f, cc = fld[s:s + 4096], c[idx[s:s + 4096]]
+        mb = M[f[:, :, None], f[:, None, :]]
+        score[s:s + 4096] = 0.5 * (
+            np.einsum("bi,bij,bj->b", cc, mb, cc)
+            - np.einsum("bi,bii->b", cc * cc, mb)) \
+            + a[idx[s:s + 4096]].sum(axis=1)
+    y = np.where(score > np.median(score), 1.0, -1.0).astype(np.float32)
+    rows = [[f"{p}:{i}:1" for p, i in zip(fr, ir)]
+            for fr, ir in zip(fld.tolist(), idx.tolist())]
+    return (rows[:FFM_ROWS], y[:FFM_ROWS]), (rows[FFM_ROWS:], y[FFM_ROWS:])
+
+
+def ffm_compare(tag, got, ref):
+    """FFM state on the card == the same step on the CPU (RTOL / ATOL on
+    every float table, touched and step exact); returns max |err|."""
+    from hivemall_tpu_torch.models.ffm import ffm_state_to_numpy
+
+    (gs, gl), (rs, rl) = got, ref
+    a, b = ffm_state_to_numpy(gs), ffm_state_to_numpy(rs)
+    np.testing.assert_allclose(float(gl), float(rl), rtol=RTOL, atol=ATOL,
+                               err_msg=f"{tag}: loss")
+    err = abs(float(gl) - float(rl))
+    for k in ("w0", "w", "z", "n", "v", "v_gg"):
+        np.testing.assert_allclose(a[k], b[k], rtol=RTOL, atol=ATOL,
+                                   err_msg=f"{tag}: {k}")
+        err = max(err, float(np.max(np.abs(a[k] - b[k]))))
+    assert np.array_equal(a["touched"], b["touched"]), f"{tag}: touched"
+    assert a["step"] == b["step"], f"{tag}: step"
+    return err
+
+
+def ffm_step_bytes(idx, fld, hyper):
+    """Bytes one minibatch step must move: ids, values and fields read
+    once, labels once; the V row and AdaGrad entry of every unique pair
+    key read and written once; w, z, n and touched of every unique feature
+    read and written once."""
+    from hivemall_tpu_torch.models.ffm import _row_pair_keys
+
+    keys = _row_pair_keys(idx, fld.astype(np.int64), hyper.v_dims)
+    u_keys = len(np.unique(keys))
+    u_feat = len(np.unique(idx[idx < hyper.num_features]))
+    return (idx.size * (8 + 4 + 8) + idx.shape[0] * 4
+            + 2 * u_keys * (hyper.factors + 1) * 4
+            + 2 * u_feat * (3 * 4 + 1)), u_keys, u_feat
+
+
+def ffm_card_vs_cpu(dev, hyper, staged):
+    """From one warm state (V the seeded draw, AdaGrad accumulators of
+    keys already seen): one FFM_BLOCK-row block
+    with -w0, unchunked and with -row_chunk FFM_CHUNK, V packed, and the
+    exact scan of the first FFM_SCAN_ROWS rows, each on the card and on
+    the CPU; then per variant on the card the step's peak allocated
+    memory, its time eager and as one CUDA graph, device operations and
+    byte bound."""
+    import dataclasses
+
+    import torch
+
+    from hivemall_tpu_torch.models import ffm as FF
+
+    hyper = dataclasses.replace(hyper, global_bias=True)
+    rng = np.random.RandomState(23)
+    d = hyper.num_features
+    host = {"w0": np.float32(0.1),
+            "w": (0.1 * rng.randn(d)).astype(np.float32),
+            "z": (0.2 * rng.randn(d)).astype(np.float32),
+            "n": rng.uniform(0, 1, d).astype(np.float32),
+            "v": FF.initial_v(hyper),
+            # accumulators of keys already seen: from a zero one, V's
+            # first AdaGrad rate is eta0_V / sqrt(eps) = 1, which makes the
+            # scan's rows chaotic in float order (V runs away)
+            "v_gg": rng.uniform(50, 150, hyper.v_dims).astype(np.float32),
+            "touched": (rng.rand(d) < 0.3).astype(np.int8), "step": 1000}
+    blk = tuple(a[:FFM_BLOCK] for a in staged)
+    for chunk in (None, FFM_CHUNK):
+        out = [FF.make_ffm_step(hyper, "minibatch", row_chunk=chunk,
+                                pack_v=True, device=dv)(
+            FF.ffm_state_from_numpy(host, dv), *blk) for dv in (dev, "cpu")]
+        e = ffm_compare(f"ffm block row_chunk={chunk}", *out)
+        del out
+        print(f"[ffm] -mini_batch block of {FFM_BLOCK} rows with -w0, "
+              f"row_chunk {chunk}, V packed: card == CPU (rtol {RTOL:g} / "
+              f"atol {ATOL:g}, touched and step exact), max|err| {e:.3g}")
+    n = FFM_SCAN_ROWS
+    out, secs = [], None
+    for dv in (dev, "cpu"):
+        step = FF.make_ffm_step(hyper, "scan", device=dv)
+        st = FF.ffm_state_from_numpy(host, dv)
+        res, t = timed(lambda: step(st, *(a[:n] for a in staged)), dev)
+        out.append(res)
+        secs = secs or t
+    e = ffm_compare("ffm scan", *out)
+    del out
+    print(f"[ffm] exact scan (-mini_batch 1) of the first {n} rows with "
+          f"-w0: card == CPU, max|err| {e:.3g}; on the card {secs:.3f} s = "
+          f"{n / secs:.0f} rows/s (plain torch ops, one row's launches "
+          f"after another)")
+    if dev.type != "cuda":
+        return {}
+    nbytes, u_keys, u_feat = ffm_step_bytes(blk[0].astype(np.int64), blk[2],
+                                            hyper)
+    bound = 1e3 * nbytes / HBM_BYTES_PER_S
+    timing = {}
+    for chunk in (None, FFM_CHUNK):
+        step = FF.make_ffm_step(hyper, "minibatch", row_chunk=chunk,
+                                device=dev)
+        st = FF.ffm_state_from_numpy(host, dev)
+        args = [torch_on(a, dev) for a in blk]
+        args[0], args[2] = args[0].long(), args[2].long()
+        sync(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        step(st, *args)
+        sync(dev)
+        peak = torch.cuda.max_memory_allocated(dev) - base
+
+        def run():
+            step(st, *args)
+
+        timing[chunk] = (cuda_ms(run, 10), graph_ms(run, 10),
+                         device_ops(run), peak)
+        eager, graph, ops, _ = timing[chunk]
+        print(f"[ffm] minibatch step row_chunk={chunk} (B={FFM_BLOCK}, "
+              f"K={FFM_WIDTH}, k={FFM_K}, {u_keys} unique pair keys, "
+              f"{u_feat} unique features): peak allocated memory of one "
+              f"step {peak / 2 ** 20:.1f} MiB above the state; {eager:.4f} "
+              f"ms eager = {FFM_BLOCK / eager * 1e3:.0f} rows/s, "
+              f"{graph:.4f} ms as one CUDA graph; "
+              f"{ops if ops else 'not measured'} device operations; bound "
+              f"{bound:.6f} ms by bytes ({nbytes} B)")
+    return {"bound_ms": bound, "timing": timing}
+
+
+def phase_ffm(seed, dev, smi, linear_model):
+    """FFM at the JAX package's bench shape: train_ffm -mini_batch 4096,
+    unchunked and with -row_chunk 512 (seconds, rows/s, parse and staging
+    apart, the V draw apart, holdout logloss beside the constant
+    predictor's, the largest |V|), card == CPU on one block and on the
+    scan's prefix, the step timed, then the model frozen at f32 (its
+    blob), loaded, served and answered over HTTP beside main's linear
+    model. Returns the unchunked train's (logloss, seconds) and the step
+    timing."""
+    import tempfile
+
+    import torch
+
+    from hivemall_tpu_torch.models import ffm as FF
+    from hivemall_tpu_torch.serving import ServingEngine, freeze, load
+    from hivemall_tpu_torch.utils import jax_prng
+
+    (rows, y), (h_rows, h_y) = ffm_data(seed)
+    opts = (f"-factor {FFM_K} -feature_hashing {FFM_FEATURE_BITS} -v_bits "
+            f"{FFM_V_BITS} -num_fields {FFM_FIELDS} -mini_batch {FFM_BLOCK}")
+    hyper = FF.ffm_hyper_from_options(FF._ffm_options().parse(opts, "smoke"))
+    print(f"[ffm] card: {smi}; 2^{FFM_FEATURE_BITS} features, 2^"
+          f"{FFM_V_BITS} V rows x k = {FFM_K}, {FFM_FIELDS} fields, "
+          f"{FFM_WIDTH} tokens a row, {FFM_ROWS} training rows, "
+          f"{FFM_HOLDOUT} held out")
+    jax_prng.clear_cache()
+    _, draw_secs = timed(lambda: FF.initial_v(hyper), dev)
+    staged, parse_secs = timed(
+        lambda: FF._stage_ffm_rows(rows, y, hyper), dev)
+    p1 = float(np.mean(y > 0))
+    hy01 = (h_y > 0).astype(np.float32)
+    const_ll = float(-np.mean(hy01 * np.log(p1)
+                              + (1 - hy01) * np.log(1 - p1)))
+    out = {}
+    for chunk in (None, FFM_CHUNK):
+        o = opts + (f" -row_chunk {chunk}" if chunk else "")
+        model, secs = timed(lambda: FF.train_ffm(rows, y, o, device=dev),
+                            dev)
+        assert model.state.v.device.type == dev.type, "state not on dev"
+        assert torch.isfinite(model.state.v).all() \
+            and torch.isfinite(model.state.w).all(), "ffm: not finite"
+        p = model.predict(h_rows)
+        assert p.shape == (FFM_HOLDOUT,) and np.all(np.isfinite(p))
+        acc, ll = log_loss_acc(p, hy01)
+        feats, w, _ = model.model_rows()
+        out[chunk] = (model, ll, secs)
+        print(f"[ffm] train_ffm {o}: {FFM_ROWS} rows in {secs:.3f} s = "
+              f"{FFM_ROWS / secs:.0f} rows/s; timed apart in calls of their "
+              f"own, the rows' parse and staging {parse_secs:.3f} s and the "
+              f"V draw on the host ({hyper.v_dims} x {FFM_K}, JAX's stream) "
+              f"{draw_secs:.3f} s; holdout logloss {ll:.4f} (the constant "
+              f"predictor's {const_ll:.4f}), accuracy {acc:.4f}; largest "
+              f"|V| {float(model.state.v.abs().max()):.4g}; model_rows "
+              f"{len(feats)} features")
+    print("[ffm] (a -mini_batch block sums every duplicate pair key's V "
+          "step, each at AdaGrad's first rate eta0_V / sqrt(eps) = 1 from a "
+          "zero accumulator, as the JAX package's .at[].add does; a head "
+          "feature's keys take thousands of steps in one block, and V grows "
+          "to ~4e5 in both packages at this shape)")
+    model, ll, secs = out[None]
+    del out
+
+    timing = ffm_card_vs_cpu(dev, hyper, staged[:4])
+
+    with tempfile.TemporaryDirectory(prefix="hivemall_ffm_") as tmp:
+        path = f"{tmp}/ffm_float32"
+        _, f_secs = timed(lambda: freeze(model, path, name="ffm"), dev)
+        art, l_secs = timed(lambda: load(path), dev)
+        eng = ServingEngine(art, name="smoke_ffm", max_batch=512,
+                            max_width=64, device=dev)
+        sync(dev)
+        segs = eng.warmup()
+        n = 2048
+        got = eng.predict(h_rows[:n])
+        want = model.predict(h_rows[:n])
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7,
+                                   err_msg="ffm served != model.predict")
+        print(f"[ffm] float32 artifact: blob {art.arrays['blob'].size} B, "
+              f"freeze {f_secs:.3f} s, load {l_secs:.3f} s; table_bytes "
+              f"{eng.table_bytes}; warmup of {len(eng.warmed_buckets)} "
+              f"buckets, {segs} new allocator segments; {n} held-out rows "
+              f"served == model.predict (rtol 1e-6 / atol 1e-7), largest "
+              f"|diff| {float(np.max(np.abs(got - want))):.3g}")
+        from hivemall_tpu_torch.runtime.metrics import REGISTRY
+
+        counter = REGISTRY.counter("allocator",
+                                   "new_segments.serving.smoke_ffm")
+        before = counter.value
+        lat = []
+        for m in (1, 64, 512):
+            secs_l = []
+            for s in range(0, FFM_LAT_REQUESTS * 8, 8):
+                t0 = time.perf_counter()
+                eng.predict(h_rows[s:s + m])
+                secs_l.append(time.perf_counter() - t0)
+            lat.append(f"{m} rows p50 {percentile_ms(secs_l, 50):.4f} / p99 "
+                       f"{percentile_ms(secs_l, 99):.4f} ms")
+        assert counter.value == before, "ffm: allocator segments after warmup"
+        print(f"[ffm] latency over {FFM_LAT_REQUESTS} requests each (string "
+              f"rows parsed on the host): " + "; ".join(lat)
+              + "; 0 new allocator segments after warmup")
+        ref = eng.predict(h_rows[:1024])
+        http_secs = http_beside_ctr(
+            linear_model, "ffm", "ffm", path, h_rows[:1024], ref, dev, 4,
+            max_width=64, ctr_rows=[[t.split(":", 1)[1] for t in r]
+                                    for r in h_rows[:64]])
+    print(f"[ffm] HTTP: 4 clients x 4 POST /predict of 64 FFM string rows "
+          f"in {http_secs:.3f} s beside the linear model ctr: 0 failed, "
+          f"answers == the ffm engine")
+    return ll, secs, timing
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2431,6 +3029,21 @@ def main(argv=None) -> int:
                string_rows(data[2][0], data[2][1], 8))
     print(f"[topk] phase took {time.perf_counter() - t_topk:.1f} s; kernel "
           f"launches during it: {dict(LAUNCHES)} (retrieval reaches no "
+          f"pallas_call in the JAX package and runs plain torch ops here)")
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+    t_mc = time.perf_counter()
+    phase_mc(args.seed, dev, smi, served[0])
+    print(f"[mc] phase took {time.perf_counter() - t_mc:.1f} s; kernel "
+          f"launches during it: {dict(LAUNCHES)} (the multiclass path "
+          f"reaches no pallas_call in the JAX package and runs plain torch "
+          f"ops here)")
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+    t_ffm = time.perf_counter()
+    phase_ffm(args.seed, dev, smi, served[0])
+    print(f"[ffm] phase took {time.perf_counter() - t_ffm:.1f} s; kernel "
+          f"launches during it: {dict(LAUNCHES)} (the FFM path reaches no "
           f"pallas_call in the JAX package and runs plain torch ops here)")
     source = "hivemall_tpu_torch/kernels/csrc/linear_scan.cu"
     replaces = "hivemall_tpu/kernels/linear_scan.py:44"

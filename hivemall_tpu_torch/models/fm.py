@@ -22,13 +22,13 @@ one [B, K, kp] gather, and the updates are one `index_add_` of rows
 lanes to 0, and scatters send them to row 0 with value -0.0, which adds
 nothing.
 
-**Initial V differs from the JAX package's.** JAX draws V from
-``jax.random.normal(PRNGKey(seed))``, a stream torch cannot reproduce. The
-port draws it from a ``torch.Generator`` seeded with the same ``-seed``, on
-the CPU, then copies it to the device — so a port run on the card and one
-on the CPU start from the same V, but a port run and a JAX run with the
-same ``-seed`` do not. `fm_state_from_numpy` / `fm_state_to_numpy` carry a
-state across when both must start from one V.
+**Initial V is the JAX package's.** JAX draws V from
+``jax.random.normal(PRNGKey(seed), (dims, k)) * sigma``; the port draws the
+same numbers on the host with its numpy copy of that stream
+(utils/jax_prng.py, equal to JAX's) and copies them to the device, so a
+port `train_fm` and a JAX one with the same ``-seed`` start from the same
+V. `fm_state_from_numpy` / `fm_state_to_numpy` carry any other state
+across.
 
 `step` is a host int (as in core/state.LinearState). Steps update the
 state's tensors in place where that saves a copy and return the new
@@ -118,14 +118,16 @@ class FMHyper:
 
 def init_fm_state(dims: int, hyper: FMHyper,
                   device: DeviceLike = None) -> FMState:
-    """A fresh model on ``device``: w0 = w = 0, V ~ N(0, sigma^2) drawn on
-    the CPU from ``torch.Generator().manual_seed(hyper.seed)`` (see the
-    module docstring), lambdas at lambda0 (0 on pad lanes)."""
+    """A fresh model on ``device``: w0 = w = 0, V = JAX's
+    ``normal(PRNGKey(seed), (dims, k)) * sigma`` drawn on the host
+    (utils/jax_prng.py), lane-padded with zeros, lambdas at lambda0 (0 on
+    pad lanes)."""
+    from ..utils.jax_prng import normal
+
     dev = resolve_device(device)
     k, k_pad = hyper.factors, hyper.padded_factors
-    gen = torch.Generator().manual_seed(hyper.seed)
-    v = torch.randn((dims, k), generator=gen, dtype=torch.float32) \
-        * hyper.sigma
+    v = torch.from_numpy(normal(hyper.seed, (dims, k))
+                         * np.float32(hyper.sigma))
     if k_pad != k:
         v = torch.cat([v, torch.zeros((dims, k_pad - k))], dim=1)
 
@@ -524,7 +526,7 @@ def _train_fm_native_scan(cl, hyper: FMHyper, dims, idx_rows, val_rows,
     tables, the JAX package's host path. Envelope = where the C loop and
     the scan step coincide: -classification, a FIXED -eta, no -adareg,
     per-row scan mode; anything else refuses. It starts from the port's
-    own `init_fm_state` (drawn on the CPU), so it matches the port's scan
+    own `init_fm_state` (drawn on the host), so it matches the port's scan
     mode from the same V, with one pinned deviation: a feature repeated
     WITHIN a row sees in-place partial updates lane to lane, like the
     reference's per-feature loop, where the scan gathers the row once. The

@@ -12,22 +12,27 @@ with the same array names, dtypes and manifest keys, so an artifact frozen
 by either package loads and serves in the other. Rule names and dtype names
 (``"float32"``, ``"bfloat16"``, ``"int8"``) are the JAX package's strings.
 
-The port freezes three families:
+The port freezes five families:
 
 - linear: the (feature, weight[, covar]) interchange rows of
   io/checkpoint.save_model_rows at full precision, or the dense weight
   table reduced to bf16 (raw uint16 bits) or int8 (per-block absmax with
   f32 scales);
+- multiclass: the [L, D] weights (and covariances) at full precision with
+  the label vocabulary in the manifest, or the weights reduced the same
+  way (int8 scales blocked along the features, axis 1);
 - fm: every FMState table (w0, w, the lane-padded V, the lambdas,
   touched) at full precision, or w and V reduced the same way with w0
   kept f32;
 - mf: P, Q, Bu, Bi and mu at full precision, or P and Q reduced the same
-  way (scales blocked along users / items) with the bias terms kept f32.
+  way (scales blocked along users / items) with the bias terms kept f32;
+- ffm: the model's compressed blob (`TrainedFFMModel.to_blob(half_float=
+  False)`, byte-equal to the JAX package's), full precision only.
 
 MF and FM artifacts may carry the top-K retrieval index (``freeze(...,
 retrieval_index=...)``: signed-random-projection buckets, arrays
 ``index__*``), built by the same numpy code as the JAX package's, so the
-index bytes are equal. Other families are later slices of the port and
+index bytes are equal. The tree families are later slices of the port and
 raise by name.
 """
 
@@ -53,13 +58,21 @@ MANIFEST_FILE = "manifest.json"
 ARRAYS_FILE = "arrays.npz"
 
 # families the JAX package freezes whose port is a later slice
-LATER_SLICE_FAMILIES = ("multiclass", "ffm", "forest", "gbt")
+LATER_SLICE_FAMILIES = ("forest", "gbt")
+# the families the port freezes and serves
+PORTED_FAMILIES = ("linear", "multiclass", "fm", "ffm", "mf")
 
 
 def _later_slice(family: str, what: str) -> ValueError:
     return ValueError(
         f"{what}: the {family!r} family is a later slice of the torch port "
-        f"(hivemall_tpu_torch); it serves the linear, fm and mf families")
+        f"(hivemall_tpu_torch); it serves the "
+        f"{', '.join(PORTED_FAMILIES)} families")
+
+
+def _vocab_jsonable(vocab):
+    """Label vocabulary entries as JSON values (numpy scalars unwrapped)."""
+    return [v.item() if hasattr(v, "item") else v for v in vocab]
 
 
 def _host(x) -> np.ndarray:
@@ -95,12 +108,19 @@ def manifest_quant(meta: dict) -> Optional[dict]:
 
 def family_of(model) -> str:
     """Family tag for a trained model (the adapters/model_rows.py dispatch
-    order, as a name). The port trains the linear, fm and mf families."""
+    order, as a name). The tree models the port does not train yet are
+    recognised by the JAX package's fields (``trees``; GBT's
+    ``shrinkage``), so they refuse by name."""
+    from ..models.ffm import TrainedFFMModel
     from ..models.fm import TrainedFMModel
     from ..models.mf import TrainedMFModel
 
+    if hasattr(model, "trees"):
+        return "gbt" if hasattr(model, "shrinkage") else "forest"
     if isinstance(model, TrainedFMModel):
         return "fm"
+    if isinstance(model, TrainedFFMModel):
+        return "ffm"
     if isinstance(model, TrainedMFModel):
         return "mf"
     if hasattr(model, "label_vocab"):
@@ -143,10 +163,30 @@ def _build_payload(model):
     from ..io.checkpoint import dtype_name
 
     family = family_of(model)
-    if family not in ("linear", "fm", "mf"):
+    if family not in PORTED_FAMILIES:
         raise _later_slice(family, "freeze")
     arrays: Dict[str, np.ndarray] = {}
     meta: dict = {"columns": _columns(model)}
+    if family == "multiclass":
+        st = model.state
+        arrays["weights"] = _host(st.weights)
+        if st.covars is not None:
+            arrays["covars"] = _host(st.covars)
+        meta.update(dims=int(model.dims),
+                    label_vocab=_vocab_jsonable(model.label_vocab),
+                    use_covariance=st.covars is not None,
+                    weights_dtype=dtype_name(st.weights.dtype))
+        return family, arrays, meta
+    if family == "ffm":
+        # the utils/codec compressed-blob recipe (FFMPredictionModel
+        # writeExternal analog); half_float=False keeps bit-exactness
+        arrays["blob"] = np.frombuffer(model.to_blob(half_float=False),
+                                       np.uint8)
+        hy = model.hyper
+        meta.update(factors=int(hy.factors),
+                    num_features=int(hy.num_features),
+                    num_fields=int(hy.num_fields), v_dims=int(hy.v_dims))
+        return family, arrays, meta
     if family == "mf":
         st = model.state
         for k in ("P", "Q", "Bu", "Bi", "mu"):
@@ -182,23 +222,27 @@ def _build_payload(model):
     return family, arrays, meta
 
 
-# Families with a float weight table the JAX package's quantized serving
-# path understands; the port has linear, fm and mf.
+# Families with a float weight table the quantized serving path understands
+# (the sparse-row scorers and the MF embedding lookup). Trees walk int32
+# structure and FFM rides an opaque codec blob, so freeze(quantize=...)
+# refuses them, as in the JAX package.
 QUANTIZABLE_FAMILIES = ("linear", "multiclass", "fm", "mf")
 
 
 def _build_quantized_payload(model, quantize: str, block_rows: int):
     """(family, arrays, meta) holding ONLY the score-path tables, reduced.
 
-    Quantized artifacts are serving-only by construction: the linear
-    covariance and FM's lambdas and touched mask are training state the
-    scorers never read, so they are dropped, and the manifest's ``quant``
-    block records the layout. Weight tables (linear ``weight``; FM ``w``
-    and the lane-padded ``v``, with ``w0`` kept f32) store as raw bf16 bits
-    (``bf16``) or as per-block absmax int8 with their f32 scales alongside
-    (``<name>__scale``), blocked along the feature axis the scorers gather
-    by — so FM's ``v`` scales are ``[ceil(D / block_rows), kp]``. MF's P
-    and Q reduce the same way along users / items; Bu, Bi and mu stay f32.
+    Quantized artifacts are serving-only by construction: the linear and
+    multiclass covariances and FM's lambdas and touched mask are training
+    state the scorers never read, so they are dropped, and the manifest's
+    ``quant`` block records the layout. Weight tables (linear ``weight``;
+    multiclass ``weights``; FM ``w`` and the lane-padded ``v``, with ``w0``
+    kept f32) store as raw bf16 bits (``bf16``) or as per-block absmax int8
+    with their f32 scales alongside (``<name>__scale``), blocked along the
+    feature axis the scorers gather by — so FM's ``v`` scales are
+    ``[ceil(D / block_rows), kp]`` and multiclass's ``[L, ceil(D /
+    block_rows)]``. MF's P and Q reduce the same way along users / items;
+    Bu, Bi and mu stay f32.
     """
     from ..io.checkpoint import (QUANT_SCHEME_BF16, QUANT_SCHEME_INT8,
                                  SCALE_SUFFIX, bf16_pack_raw, quantize_int8)
@@ -209,8 +253,6 @@ def _build_quantized_payload(model, quantize: str, block_rows: int):
             f"freeze(quantize={quantize!r}): family {family!r} has no "
             f"quantized serving path (supported: "
             f"{', '.join(QUANTIZABLE_FAMILIES)})")
-    if family not in ("linear", "fm", "mf"):
-        raise _later_slice(family, f"freeze(quantize={quantize!r})")
     arrays: Dict[str, np.ndarray] = {}
     meta: dict = {"columns": _columns(model)}
     # (pack name, host f32 table, quantized axis): the axis the serving
@@ -219,6 +261,11 @@ def _build_quantized_payload(model, quantize: str, block_rows: int):
         tables = [("weight", _host(model.state.weights), 0)]
         meta.update(dims=int(model.dims), rule=model.rule.name,
                     use_covariance=False)  # covariance dropped: never scored
+    elif family == "multiclass":
+        tables = [("weights", _host(model.state.weights), 1)]
+        meta.update(dims=int(model.dims),
+                    label_vocab=_vocab_jsonable(model.label_vocab),
+                    use_covariance=False)
     elif family == "fm":
         st, hy = model.state, model.hyper
         tables = [("w", _host(st.w), 0), ("v", _host(st.v), 0)]
@@ -397,6 +444,12 @@ def _host_table(t: torch.Tensor):
     return t if t.dtype == torch.bfloat16 else t.numpy()
 
 
+# Families whose score tables stripe along a gathered axis (the sharded
+# serving placement's input, a later slice of the port); trees and FFM's
+# codec blob have none, as in the JAX package.
+SHARDABLE_FAMILIES = ("linear", "multiclass", "fm", "mf")
+
+
 def host_score_tables(source) -> dict:
     """Family-normalized HOST view of the score-path tables — the input of
     serving/retrieval.py's RetrievalEngine (the JAX package's
@@ -408,14 +461,15 @@ def host_score_tables(source) -> dict:
         {"family": str,
          "weights_dtype": str,              # the dtype tables SERVE at
          "quant": None | manifest quant block,
-         "meta": {...},                     # dims / factors /
+         "meta": {...},                     # dims / label_vocab /
+                                            # factors /
                                             # classification / use_bias / ...
          "striped": [(name, array, axis, grid)],
          "scales": {name: f32 scale array}, # int8 only, same axis as name
          "replicated": {name: array}}       # w0 / mu
 
     ``grid`` names the id space the table's axis is gathered by
-    ("features" for linear/FM, "users"/"items" for MF). Tables come back
+    ("features" for linear/multiclass/FM, "users"/"items" for MF). Tables come back
     at their SERVING dtype: f32 and int8 tables and every scale as numpy
     arrays, a bf16 table as a CPU torch bf16 tensor (numpy has no bf16;
     the JAX package returns an ml_dtypes array there). The score path has
@@ -428,10 +482,11 @@ def host_score_tables(source) -> dict:
         quant = manifest_quant(source.meta)
     else:
         family, a, meta, quant = family_of(source), None, {}, None
-    if family in LATER_SLICE_FAMILIES:
-        raise _later_slice(family, "host_score_tables")
-    if family not in ("linear", "fm", "mf"):
-        raise ValueError(f"unknown family {family!r}")
+    if family not in SHARDABLE_FAMILIES:
+        raise ValueError(
+            f"family {family!r} has no sharded serving path (stripeable "
+            f"families: {', '.join(SHARDABLE_FAMILIES)}); serve it "
+            f"single-device")
 
     out = {"family": family, "quant": quant, "meta": meta,
            "striped": [], "scales": {}, "replicated": {}}
@@ -462,6 +517,9 @@ def host_score_tables(source) -> dict:
             else:
                 w = table("weight", out_name="weights")
             out["striped"].append(("weights", w, 0, "features"))
+        elif family == "multiclass":
+            out["striped"].append(("weights", table("weights"), 1,
+                                   "features"))
         elif family == "fm":
             out["striped"] += [("w", table("w"), 0, "features"),
                                ("v", table("v"), 0, "features")]
@@ -486,6 +544,11 @@ def host_score_tables(source) -> dict:
         w = _host_table(st.weights)
         out["striped"].append(("weights", w, 0, "features"))
         meta["dims"] = int(source.dims)
+    elif family == "multiclass":
+        w = _host_table(st.weights)
+        out["striped"].append(("weights", w, 1, "features"))
+        meta.update(dims=int(source.dims),
+                    label_vocab=list(source.label_vocab))
     elif family == "fm":
         w = _host_table(st.w)
         out["striped"] += [("w", w, 0, "features"),
@@ -511,10 +574,11 @@ def host_score_tables(source) -> dict:
 
 def rebuild_model(artifact: Artifact, device: DeviceLike = None):
     """Reconstruct a predictable model object from an artifact — as in the
-    JAX package, an MF artifact rebuilds a TrainedMFModel (on ``device``:
-    None is the CUDA device, or a RuntimeError when there is none), a
-    quantized artifact has none, and the linear and FM families are served
-    through serving.engine.make_servable, not a model object."""
+    JAX package, an MF artifact rebuilds a TrainedMFModel and an FFM
+    artifact a TrainedFFMModel (from its blob), on ``device`` (None is the
+    CUDA device, or a RuntimeError when there is none); a quantized
+    artifact has none, and the linear, multiclass and FM families are
+    served through serving.engine.make_servable, not a model object."""
     family = artifact.family
     a, meta = artifact.arrays, artifact.meta
     if manifest_quant(meta) is not None:
@@ -523,7 +587,9 @@ def rebuild_model(artifact: Artifact, device: DeviceLike = None):
             f"full-precision model to rebuild; serve it via "
             f"serving.engine.make_servable (dequant-free score path)")
     if family == "ffm":
-        raise _later_slice(family, "rebuild_model")
+        from ..models.ffm import TrainedFFMModel
+
+        return TrainedFFMModel.from_blob(a["blob"].tobytes(), device=device)
     if family == "mf":
         from ..models.mf import MFState, TrainedMFModel
 

@@ -1,4 +1,5 @@
-"""Shape-bucketed online predictors for the linear, FM and MF families.
+"""Shape-bucketed online predictors for the linear, multiclass, FM, FFM and
+MF families.
 
 The port of the JAX package's `serving/engine.py`. There, XLA compiles one
 program per input shape, so the engine pads every request to a
@@ -19,13 +20,21 @@ alloc_segment_guard`` around every predict (counter
 
 Scorers (plain torch ops on the card, as the JAX scorers are plain jnp):
 - f32 / bf16 tables: the function the trained model's own predict runs —
-  ``core/engine.make_predict`` (linear), ``models/fm._fm_scores`` (FM) —
-  so a served score equals the live model's; bf16 tables serve AT bf16
-  (the gathered window widens to f32 inside the product);
-- int8 tables: ``_QuantLinearServable`` / ``_QuantFMServable`` gather the
-  int8 ``[B, K]`` (and FM's ``[B, K, kp]``) windows, widen only those
-  windows, fold in ``scales[id >> block_shift]`` and sum in f32 — the
-  tables are never dequantized;
+  ``core/engine.make_predict`` (linear), ``models/multiclass._mc_scores``
+  (multiclass), ``models/fm._fm_scores`` (FM), ``models/ffm._ffm_scores``
+  (FFM, f32 only) — so a served score equals the live model's; bf16
+  tables serve AT bf16 (the gathered window widens to f32 inside the
+  product);
+- int8 tables: ``_QuantLinearServable`` / ``_QuantMulticlassServable`` /
+  ``_QuantFMServable`` gather the int8 ``[B, K]`` (multiclass's
+  ``[L, B, K]``, FM's ``[B, K, kp]``) windows, widen only those windows,
+  fold in ``scales[id >> block_shift]`` and sum in f32 — the tables are
+  never dequantized;
+- multiclass answers labels: the ``[B, L]`` scores come back to the host
+  and the argmax runs there in numpy, mapped through the label
+  vocabulary (the JAX package's ``finalize``);
+- FFM stages ``"field:idx:value"`` string rows into ``[B, K]`` ids, values
+  and fields, and scores the pairwise block on the device;
 - MF (``[user, item]`` pairs, ``_MFServable`` / ``_QuantMFServable``):
   the JAX package's MF servables are host numpy gather-dots, so the
   port's are too — the requested rows are gathered on the servable's
@@ -33,8 +42,8 @@ Scorers (plain torch ops on the card, as the JAX scorers are plain jnp):
   scaled, dotted and biased in numpy f32 with the reference's own
   expression, so a served score equals the JAX package's bit for bit.
 
-Other families (multiclass, FFM, trees) and sharded placement are later
-slices of the port and raise by name.
+The tree families and sharded placement are later slices of the port and
+raise by name.
 """
 
 from __future__ import annotations
@@ -52,8 +61,8 @@ from ..core.engine import live_lanes, make_predict
 from ..device import DeviceLike, resolve_device
 from ..runtime.metrics import REGISTRY, alloc_segment_guard
 from ..runtime.tracing import TRACER
-from .artifact import (LATER_SLICE_FAMILIES, Artifact, family_of, load,
-                       manifest_dtype, manifest_quant)
+from .artifact import (LATER_SLICE_FAMILIES, PORTED_FAMILIES, Artifact,
+                       family_of, load, manifest_dtype, manifest_quant)
 from .placement import resolve_placement
 
 # serving latency is sub-ms-to-seconds shaped; finer low end than the
@@ -113,7 +122,7 @@ class _Servable:
 
     def count_overwide(self, instances, width_cap: int) -> int:
         """How many rows will actually truncate at ``width_cap``."""
-        raise NotImplementedError
+        return sum(1 for r in instances if len(r) > width_cap)
 
     def row_keys(self, instances, width_cap: int):
         """Per-row canonical keys for a hot-row score cache, or None when
@@ -337,6 +346,80 @@ class _QuantLinearServable(_SparseRowServable):
         return [self.qw, self.scales]
 
 
+class _ArgmaxLabelServable(_SparseRowServable):
+    """Shared label selection for the multiclass servables (f32/bf16 and
+    int8): the [B, L] scores come to the host, where the argmax (first
+    maximal index) maps through label_vocab."""
+
+    label_vocab: list
+
+    def finalize(self, raw, n):
+        scores = raw.detach().cpu().numpy()[:n]
+        return [self.label_vocab[i] for i in np.argmax(scores, axis=1)]
+
+
+class _MulticlassServable(_ArgmaxLabelServable):
+    """f32 or bf16 [L, D] weights scored by models/multiclass._mc_scores —
+    the function TrainedMulticlassModel.scores runs."""
+
+    family = "multiclass"
+
+    def __init__(self, weights: torch.Tensor, label_vocab,
+                 dims: int) -> None:
+        from ..io.checkpoint import dtype_name
+
+        super().__init__(dims, weights.device)
+        self.weights = weights
+        self.label_vocab = list(label_vocab)
+        self.weights_dtype = dtype_name(weights.dtype)
+
+    def dispatch(self, staged):
+        from ..models.multiclass import _mc_scores
+
+        return _mc_scores(self.weights, staged.indices, staged.values)
+
+    def device_tables(self):
+        # the scorer reads the weight matrix only (see _LinearServable)
+        return [self.weights]
+
+
+def q8_mc_scores(qW: torch.Tensor, scales: torch.Tensor,
+                 indices: torch.Tensor, values: torch.Tensor,
+                 block_shift: int) -> torch.Tensor:
+    """Dequant-free int8 multiclass scores [B, L]: weights [L, D] int8,
+    scales [L, D / block_rows] f32 (blocked along the gathered feature
+    axis); the gathered [L, B, K] window widens, the scales fold in, the
+    lane sum runs in f32. Pad lanes read feature 0 and are masked to 0."""
+    live, sidx = live_lanes(indices, qW.shape[1])
+    W = qW[:, sidx].float() * scales[:, sidx >> block_shift]
+    W = torch.where(live, W, torch.zeros((), dtype=W.dtype, device=W.device))
+    return torch.sum(W * values, dim=-1).transpose(0, 1)
+
+
+class _QuantMulticlassServable(_ArgmaxLabelServable):
+    """int8 multiclass [L, D] table served dequant-free (q8_mc_scores);
+    argmax label selection shared with _MulticlassServable."""
+
+    family = "multiclass"
+    weights_dtype = "int8"
+
+    def __init__(self, qW: torch.Tensor, scales: torch.Tensor,
+                 block_rows: int, label_vocab, dims: int) -> None:
+        super().__init__(dims, qW.device)
+        self.qW = qW
+        self.scales = scales
+        self.label_vocab = list(label_vocab)
+        self.block_shift = int(block_rows).bit_length() - 1
+
+    def dispatch(self, staged):
+        idx = torch.from_numpy(staged.indices).to(self.device).long()
+        val = torch.from_numpy(staged.values).to(self.device)
+        return q8_mc_scores(self.qW, self.scales, idx, val, self.block_shift)
+
+    def device_tables(self):
+        return [self.qW, self.scales]
+
+
 class _FMServable(_SparseRowServable):
     """f32 or bf16 FM tables scored by models/fm._fm_scores — the function
     TrainedFMModel.predict runs."""
@@ -411,6 +494,37 @@ class _QuantFMServable(_SparseRowServable):
 
     def device_tables(self):
         return [self.qw, self.w_scales, self.qv, self.v_scales]
+
+
+class _FFMServable(_Servable):
+    """An FFM model scored by models/ffm._ffm_scores — the function
+    TrainedFFMModel.predict runs — over staged "field:idx:value" rows."""
+
+    family = "ffm"
+
+    def __init__(self, state, hyper) -> None:
+        self.state = state
+        self.hyper = hyper
+        self.device = state.device
+
+    def device_tables(self):
+        # _ffm_scores reads v, w and w0; the FTRL and AdaGrad tables riding
+        # on the state are not score-path bytes
+        return [self.state.v, self.state.w, self.state.w0]
+
+    def stage(self, instances, b_pad, width_cap):
+        from ..models.ffm import _stage_ffm_rows
+
+        return _stage_ffm_rows(instances, None, self.hyper, b_pad,
+                               width_cap)[:3]
+
+    def dispatch(self, staged):
+        from ..models.ffm import _ffm_scores
+
+        return _ffm_scores(self.state, self.hyper, *staged)
+
+    def dummy_instance(self, width):
+        return [f"{k % 8}:{k}:1.0" for k in range(width)]
 
 
 class _PairServable(_Servable):
@@ -532,11 +646,11 @@ def _fm_serving_state(w0, w, v, dev: torch.device):
 
 def _quant_servable_from_artifact(art: Artifact,
                                   dev: torch.device) -> _Servable:
-    """Quantized linear, FM or MF artifact -> dequant-free servable. bf16
-    tables reload AT bf16 (the raw uint16 bits view back losslessly —
-    io.checkpoint.bf16_unpack_raw); int8 tables keep their q arrays + f32
-    scales and score through q8_linear_scores / q8_fm_scores, or MF's
-    gathered windows."""
+    """Quantized linear, multiclass, FM or MF artifact -> dequant-free
+    servable. bf16 tables reload AT bf16 (the raw uint16 bits view back
+    losslessly — io.checkpoint.bf16_unpack_raw); int8 tables keep their q
+    arrays + f32 scales and score through q8_linear_scores / q8_mc_scores
+    / q8_fm_scores, or MF's gathered windows."""
     from ..core.state import init_linear_state
     from ..io.checkpoint import (QUANT_SCHEME_BF16, QUANT_SCHEME_INT8,
                                  SCALE_SUFFIX, bf16_unpack_raw)
@@ -568,6 +682,9 @@ def _quant_servable_from_artifact(art: Artifact,
             dims, use_covariance=False, dtype=torch.bfloat16,
             initial_weights=bf16_unpack_raw(a["weight"]), device=dev)
         return _LinearServable(state, dims)
+    if scheme == QUANT_SCHEME_BF16 and fam == "multiclass":
+        return _MulticlassServable(bf16_unpack_raw(a["weights"]).to(dev),
+                                   meta["label_vocab"], dims)
     if scheme == QUANT_SCHEME_BF16 and fam == "fm":
         return _FMServable(_fm_serving_state(
             a["w0"], bf16_unpack_raw(a["w"]), bf16_unpack_raw(a["v"]), dev),
@@ -578,6 +695,11 @@ def _quant_servable_from_artifact(art: Artifact,
             return _QuantLinearServable(
                 tab("weight", np.int8), tab("weight" + SCALE_SUFFIX,
                                             np.float32), block_rows, dims)
+        if fam == "multiclass":
+            return _QuantMulticlassServable(
+                tab("weights", np.int8),
+                tab("weights" + SCALE_SUFFIX, np.float32), block_rows,
+                meta["label_vocab"], dims)
         if fam == "fm":
             return _QuantFMServable(
                 tab("w0", np.float32), tab("w", np.int8),
@@ -591,16 +713,26 @@ def _servable_from_artifact(art: Artifact, dev: torch.device) -> _Servable:
     if art.family in LATER_SLICE_FAMILIES:
         raise ValueError(
             f"make_servable: the {art.family!r} family is a later slice of "
-            f"the torch port (hivemall_tpu_torch); it serves the linear, "
-            f"fm and mf families")
-    if art.family not in ("linear", "fm", "mf"):
+            f"the torch port (hivemall_tpu_torch); it serves the "
+            f"{', '.join(PORTED_FAMILIES)} families")
+    if art.family not in PORTED_FAMILIES:
         raise ValueError(f"unknown artifact family {art.family!r}")
     if manifest_quant(art.meta) is not None:
         return _quant_servable_from_artifact(art, dev)
-    if art.family == "mf":
+    if art.family in ("mf", "ffm"):
         from .artifact import rebuild_model
 
-        return _MFServable(rebuild_model(art, dev))
+        model = rebuild_model(art, dev)
+        if art.family == "ffm":
+            return _FFMServable(model.state, model.hyper)
+        return _MFServable(model)
+    if art.family == "multiclass":
+        # the weights reload at the manifest dtype; the scorer reads no
+        # covariance
+        w = torch.from_numpy(np.asarray(art.arrays["weights"])) \
+            .to(manifest_dtype(art.meta))
+        return _MulticlassServable(w.to(dev), art.meta["label_vocab"],
+                                   int(art.meta["dims"]))
     if art.family == "fm":
         # w and V reload at the manifest dtype; the scorer reads no
         # training-only table
@@ -626,11 +758,21 @@ def _servable_from_artifact(art: Artifact, dev: torch.device) -> _Servable:
 
 def _servable_from_model(model, device: DeviceLike) -> _Servable:
     family = family_of(model)
-    if family not in ("linear", "fm", "mf"):
+    if family not in PORTED_FAMILIES:
         raise ValueError(
             f"make_servable: the {family!r} family is a later slice of the "
             f"torch port (hivemall_tpu_torch)")
     state = model.state
+    moved = device is not None and torch.device(device) != state.device
+    if family == "multiclass":
+        w = state.weights.to(device) if moved else state.weights
+        return _MulticlassServable(w, model.label_vocab, model.dims)
+    if family == "ffm":
+        if moved:
+            from ..models.ffm import ffm_state_from_numpy, ffm_state_to_numpy
+
+            state = ffm_state_from_numpy(ffm_state_to_numpy(state), device)
+        return _FFMServable(state, model.hyper)
     if family == "mf":
         if device is not None and torch.device(device) != state.device:
             from ..models.mf import (TrainedMFModel, mf_state_from_numpy,
@@ -800,7 +942,8 @@ class ServingEngine:
         ``(idx_rows, val_rows)`` per-row arrays (the
         ``models.base._stage_rows`` convention) or the flat
         ``(flat_idx, flat_val, lens)`` packed form (see _is_preparsed).
-        Returns numpy f32 scores."""
+        Returns numpy f32 scores, or a list of labels for the multiclass
+        family."""
         pre = (isinstance(self.servable, _SparseRowServable)
                and _is_preparsed(instances))
         off = _preparsed_offsets(instances) if pre else None
@@ -854,4 +997,6 @@ class ServingEngine:
                                    rate)
         if len(outs) == 1:
             return outs[0]
-        return np.concatenate(outs)
+        if isinstance(outs[0], np.ndarray):
+            return np.concatenate(outs)
+        return [x for o in outs for x in o]  # labels (multiclass)

@@ -151,3 +151,39 @@ def decode_sparse_model(blob: bytes) -> Tuple[np.ndarray, np.ndarray]:
     else:
         weights = np.frombuffer(payload, np.float32, count=n, offset=off).copy()
     return feats, np.asarray(weights, np.float32)
+
+
+# ------------------------------------------------------------------ basE91
+
+# Joachim Henke's basE91 alphabet, the reference's utils/codec/Base91.java
+_B91_ALPHABET = (
+    "ABCDEFGHIJKLMNOPQRSTUVWXYZabcdefghijklmnopqrstuvwxyz0123456789"
+    "!#$%&()*+,./:;<=>?@[]^_`{|}~\""
+)
+
+
+def base91(data: bytes) -> str:
+    """basE91 encode (ref: tools/text/Base91UDF.java) — the text form of an
+    FFM model blob in its model rows."""
+    b = 0
+    n = 0
+    out: List[str] = []
+    for byte in data:
+        b |= byte << n
+        n += 8
+        if n > 13:
+            v = b & 8191
+            if v > 88:
+                b >>= 13
+                n -= 13
+            else:
+                v = b & 16383
+                b >>= 14
+                n -= 14
+            out.append(_B91_ALPHABET[v % 91])
+            out.append(_B91_ALPHABET[v // 91])
+    if n:
+        out.append(_B91_ALPHABET[b % 91])
+        if n > 7 or b > 90:
+            out.append(_B91_ALPHABET[b // 91])
+    return "".join(out)

@@ -2,8 +2,8 @@
 
 The linear learners' feature grammar: ``"name"`` or ``"name:value"`` —
 split at the FIRST colon, value defaults to 1.0, name may be an int index or
-arbitrary string (ref: core/.../model/FeatureValue.java:74-93). (The FM/FFM
-grammar is a later slice of the port.)
+arbitrary string (ref: core/.../model/FeatureValue.java:74-93). The FM/FFM
+grammar, ``"field:index:value"`` or ``"index:value"``, is `FMFeature`.
 
 String names are folded into the hashed feature space with bit-identical
 MurmurHash3 (see utils/hashing.py), which is the reference's own default
@@ -21,7 +21,7 @@ from typing import List, Sequence, Tuple, Union
 
 import numpy as np
 
-from .hashing import DEFAULT_NUM_FEATURES, murmurhash3_bytes_batch
+from .hashing import DEFAULT_NUM_FEATURES, mhash, murmurhash3_bytes_batch
 
 FeatureLike = Union[str, Tuple[int, float], Tuple[str, float]]
 
@@ -116,3 +116,43 @@ def parse_features_numpy(
         for (r, k), h in zip(str_slots, hashed):
             idx_rows[r][k] = h
     return idx_rows, val_rows
+
+
+@dataclass
+class FMFeature:
+    """FM/FFM feature: (field, index, value) (ref: fm/Feature.java:32).
+    The JAX package's grammar, statement for statement: a string field
+    hashes into [0, num_fields), a string index into [0, num_features).
+    Note that the negative-index check raises INSIDE the int parse's
+    handler, so with ``as_int`` (the default) a negative index is hashed
+    as a string like any other non-integer index."""
+
+    index: int
+    value: float
+    field: int = -1  # -1 when not field-aware
+
+    @staticmethod
+    def parse(s: str, as_int: bool = True,
+              num_features: int = DEFAULT_NUM_FEATURES,
+              num_fields: int = 1024) -> "FMFeature":
+        parts = s.split(":")
+        if len(parts) == 2:
+            idx_s, val_s = parts
+            field = -1
+        elif len(parts) == 3:
+            field_s, idx_s, val_s = parts
+            try:
+                field = int(field_s)
+            except ValueError:
+                field = mhash(field_s, num_fields)
+        else:
+            raise ValueError(f"invalid FM feature {s!r}")
+        try:
+            idx = int(idx_s)
+            if idx < 0:
+                raise ValueError(f"index must be non-negative: {s!r}")
+        except ValueError:
+            if not as_int:
+                raise
+            idx = mhash(idx_s, num_features)
+        return FMFeature(idx, float(val_s), field)

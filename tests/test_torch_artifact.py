@@ -219,12 +219,18 @@ def test_later_slices_raise_by_name(tmp_path):
     with pytest.raises(ValueError, match="has no retrieval path"):
         freeze(tm, str(tmp_path / "r"), retrieval_index={})
 
-    class Multiclass:
-        label_vocab = ["a"]
-        state = tm.state
+    class Forest:  # the JAX package's TrainedForest fields
+        trees = []
+        classification = True
 
-    with pytest.raises(ValueError, match="later slice"):
-        freeze(Multiclass(), str(tmp_path / "mc"))
+    class GBT:  # ... and TrainedGBT's
+        trees = []
+        shrinkage = 0.1
+
+    with pytest.raises(ValueError, match="'forest'.*later slice"):
+        freeze(Forest(), str(tmp_path / "forest"))
+    with pytest.raises(ValueError, match="'gbt'.*later slice"):
+        freeze(GBT(), str(tmp_path / "gbt"))
     with pytest.raises(ValueError, match="later slice"):
         make_servable(tm, placement="model_sharded")
     with pytest.raises(ValueError, match="later slice"):

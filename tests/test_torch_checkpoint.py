@@ -238,11 +238,12 @@ def test_iter_model_rows_matches_jax(rule):
 
 
 def test_iter_model_rows_refuses_other_families():
-    class Multiclass:
-        label_vocab = ["a", "b"]
+    class Forest:  # the JAX package's TrainedForest fields
+        trees = []
+        classification = True
 
     with pytest.raises(ValueError, match="later slice"):
-        iter_model_rows(Multiclass())
+        iter_model_rows(Forest())
 
 
 def _train_rows(n=300, d=128, seed=0):

@@ -3,10 +3,10 @@ ops/scatter.py) against the JAX package's (hivemall_tpu/models/fm.py,
 hivemall_tpu/ops/scatter.py) on the CPU (`device="cpu"`).
 
 The same numpy inputs go to both packages, and each run starts from one
-state carried across with `fm_state_from_numpy`: the port draws its initial
-V from a torch generator, which cannot reproduce JAX's PRNG stream, so a
-`train_fm` comparison replaces the port's `init_fm_state` with one that
-returns JAX's initial state. Tolerance rtol 1e-5 / atol 1e-6 (the port's
+state carried across with `fm_state_from_numpy`. The port's `init_fm_state`
+draws JAX's initial V (tests/test_torch_jax_prng.py holds the draw); a
+`train_fm` comparison still replaces it with one that returns JAX's own
+initial state, so both runs start from one array. Tolerance rtol 1e-5 / atol 1e-6 (the port's
 parity tolerance, tests/torch_cases.py); `touched` and `step` exact. None
 of the JAX functions used here is red on this tree (tests/test_fm.py is
 green in the driver's last run)."""

@@ -67,10 +67,17 @@ def test_default_device_without_cuda_raises():
         pytest.skip("a CUDA device is present; the default is taken")
     from hivemall_tpu_torch.device import resolve_device
     from hivemall_tpu_torch.models.classifier import train_arow
+    from hivemall_tpu_torch.models.ffm import train_ffm
+    from hivemall_tpu_torch.models.multiclass import train_multiclass_arow
 
     feats = ([np.array([1, 2])], [np.ones(2, np.float32)])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_arow(feats, [1], "-dims 16")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_multiclass_arow(feats, ["a"], "-dims 16")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_ffm([["0:1:1", "1:2:1"]], [1],
+                  "-feature_hashing 10 -v_bits 10")
     with pytest.raises(RuntimeError):
         resolve_device()
     assert resolve_device("cpu") == torch.device("cpu")

@@ -282,3 +282,180 @@ def carried_mf_models(n_users=30, n_items=90, k=4, seed=0, use_bias=True):
     return (JM.TrainedMFModel(state=jax_mf_state(d), use_bias=use_bias),
             TM.TrainedMFModel(state=TM.mf_state_from_numpy(d, "cpu"),
                               use_bias=use_bias))
+
+
+# --- multiclass helpers (tests/test_torch_multiclass.py, _mc_serving.py) ----
+
+MC_RULES = ("mc_perceptron", "mc_pa", "mc_pa1", "mc_pa2", "mc_cw", "mc_arow",
+            "mc_arowh", "mc_scw1", "mc_scw2")
+MC_HYPER = {"mc_pa1": {"c": 1.0}, "mc_pa2": {"c": 0.5},
+            "mc_cw": {"phi": 1.0}, "mc_arow": {"r": 0.1},
+            "mc_arowh": {"r": 0.1, "c": 1.0},
+            "mc_scw1": {"phi": 1.0, "c": 1.0},
+            "mc_scw2": {"phi": 1.0, "c": 1.0}}
+
+
+def mc_rules(name):
+    """(JAX MCRule, port MCRule) of one rule name."""
+    from hivemall_tpu.models import multiclass as JMC
+    from hivemall_tpu_torch.models import multiclass as TMC
+
+    def by_name(mod):
+        return {r.name: r for r in vars(mod).values()
+                if isinstance(r, mod.MCRule)}[name]
+
+    return by_name(JMC), by_name(TMC)
+
+
+def warm_mc_numpy(num_labels, dims, use_cov, seed=0, tie=False):
+    """A warm multiclass state as numpy fields: random weights,
+    covariances in [0.5, 1.5] (None without covariance), random touched.
+    With ``tie`` (and L >= 3) label rows 1 and 2 are equal, so every row
+    whose label is neither scores them equal: the missed label is decided
+    by the tie."""
+    rng = np.random.RandomState(seed)
+    w = (0.1 * rng.randn(num_labels, dims)).astype(np.float32)
+    c = rng.uniform(0.5, 1.5, (num_labels, dims)).astype(np.float32) \
+        if use_cov else None
+    if tie and num_labels >= 3:
+        w[2] = w[1]
+        if c is not None:
+            c[2] = c[1]
+    return {"weights": w, "covars": c,
+            "touched": (rng.rand(num_labels, dims) < 0.3).astype(np.int8),
+            "step": np.int32(500)}
+
+
+def jax_mc_state(d):
+    from hivemall_tpu.models.multiclass import MulticlassState
+
+    return MulticlassState(
+        weights=jnp.asarray(d["weights"]),
+        covars=None if d["covars"] is None else jnp.asarray(d["covars"]),
+        touched=jnp.asarray(d["touched"]),
+        step=jnp.asarray(d["step"], jnp.int32))
+
+
+def jax_mc_numpy(st):
+    h = jax.device_get(st)
+    return {"weights": np.array(h.weights),
+            "covars": None if h.covars is None else np.array(h.covars),
+            "touched": np.array(h.touched), "step": np.int32(h.step)}
+
+
+def assert_mc_match(got, want, rtol=RTOL, atol=ATOL):
+    """Port state (MulticlassState) against JAX's fields (numpy dict)."""
+    from hivemall_tpu_torch.models.multiclass import mc_state_to_numpy
+
+    a = mc_state_to_numpy(got)
+    np.testing.assert_allclose(a["weights"], want["weights"], rtol=rtol,
+                               atol=atol, err_msg="weights")
+    if want["covars"] is None:
+        assert a["covars"] is None
+    else:
+        np.testing.assert_allclose(a["covars"], want["covars"], rtol=rtol,
+                                   atol=atol, err_msg="covars")
+    np.testing.assert_array_equal(a["touched"], want["touched"])
+    assert int(a["step"]) == int(want["step"])
+
+
+def carried_mc_models(num_labels=5, dims=256, use_cov=True, seed=2):
+    """(jax_model, port_model): one warm multiclass state carried into both
+    packages' TrainedMulticlassModel (the port's on the CPU), labels the
+    strings "c0".. plus one int."""
+    from hivemall_tpu.models import multiclass as JMC
+    from hivemall_tpu_torch.models import multiclass as TMC
+
+    d = warm_mc_numpy(num_labels, dims, use_cov, seed=seed)
+    vocab = [f"c{i}" for i in range(num_labels - 1)] + [7]
+    return (JMC.TrainedMulticlassModel(state=jax_mc_state(d),
+                                       label_vocab=vocab, dims=dims),
+            TMC.TrainedMulticlassModel(
+                state=TMC.mc_state_from_numpy(d, "cpu"), label_vocab=vocab,
+                dims=dims))
+
+
+# --- FFM helpers (tests/test_torch_ffm.py, tests/test_torch_ffm_serving.py) -
+
+FFM_FIELDS = ("w0", "w", "z", "n", "v", "v_gg", "touched", "step")
+
+
+def ffm_hypers(**kw):
+    """(JAX FFMHyper, port FFMHyper) with the same fields; small tables by
+    default (2^10 features, 2^12 V rows, 8 fields, k = 4)."""
+    from hivemall_tpu.models import ffm as JFF
+    from hivemall_tpu_torch.models import ffm as TFF
+
+    eta = kw.pop("eta", ("invscaling", 0.2, 0.1))
+    kind, eta0, extra = eta
+    ek = {"total_steps": float(extra)} if kind == "simple" else (
+        {"power_t": extra} if kind == "invscaling" else {})
+    common = dict(factors=4, num_features=1 << 10, v_dims=1 << 12,
+                  num_fields=8, seed=3)
+    common.update(kw)
+    return (JFF.FFMHyper(eta=JEta.EtaEstimator(kind, eta0, **ek), **common),
+            TFF.FFMHyper(eta=TEta.EtaEstimator(kind, eta0, **ek), **common))
+
+
+def warm_ffm_numpy(hyper, seed=0):
+    """A warm FFM state as numpy fields: random w / z, positive n and V
+    accumulators, a random V and touched mask, w0 0.2."""
+    rng = np.random.RandomState(seed)
+    d, dv, k = hyper.num_features, hyper.v_dims, hyper.factors
+    return {
+        "w0": np.float32(0.2),
+        "w": (0.2 * rng.randn(d)).astype(np.float32),
+        "z": (0.3 * rng.randn(d)).astype(np.float32),
+        "n": rng.uniform(0, 2, d).astype(np.float32),
+        "v": (0.2 * rng.randn(dv, k)).astype(np.float32),
+        "v_gg": rng.uniform(0, 2, dv).astype(np.float32),
+        "touched": (rng.rand(d) < 0.3).astype(np.int8),
+        "step": np.int32(500),
+    }
+
+
+def jax_ffm_state(d):
+    from hivemall_tpu.models.ffm import FFMState
+
+    return FFMState(**{k: jnp.asarray(d[k]) for k in FFM_FIELDS[:-1]},
+                    step=jnp.asarray(d["step"], jnp.int32))
+
+
+def jax_ffm_numpy(st):
+    h = jax.device_get(st)
+    return {k: np.array(getattr(h, k)) for k in FFM_FIELDS}
+
+
+def assert_ffm_match(got, want, rtol=RTOL, atol=ATOL):
+    """Port state (FFMState) against JAX's fields (numpy dict): floats at
+    rtol/atol, touched and step exact."""
+    from hivemall_tpu_torch.models.ffm import ffm_state_to_numpy
+
+    a = ffm_state_to_numpy(got)
+    for k in FFM_FIELDS[:6]:
+        np.testing.assert_allclose(a[k], want[k], rtol=rtol, atol=atol,
+                                   err_msg=k)
+    np.testing.assert_array_equal(a["touched"], want["touched"])
+    assert int(a["step"]) == int(want["step"])
+
+
+def ffm_rows(n=400, n_fields=4, per_field=6, seed=5, extra=0):
+    """CTR-style "field:idx:1" rows, one active feature per field (plus
+    ``extra`` random tokens), labels from a planted field-aware teacher
+    (the JAX package's tests/test_ffm.py generator)."""
+    rng = np.random.RandomState(seed)
+    V = rng.randn(n_fields * per_field, n_fields, 3) * 0.5
+    rows, ys = [], []
+    for _ in range(n):
+        active = [f * per_field + rng.randint(per_field)
+                  for f in range(n_fields)]
+        s = 0.0
+        for a in range(n_fields):
+            for b in range(a + 1, n_fields):
+                s += float(np.dot(V[active[a], b], V[active[b], a]))
+        row = [f"{f}:{active[f]}:1" for f in range(n_fields)]
+        row += [f"{rng.randint(n_fields)}:{rng.randint(200)}:"
+                f"{rng.rand():.3f}" for _ in range(extra)]
+        rows.append(row)
+        ys.append(np.sign(s) if s != 0 else 1.0)
+    return rows, np.asarray(ys, np.float32)
