@@ -139,6 +139,29 @@ Phases (any failure exits non-zero; nothing is caught):
              bound; the f32 blob artifact (bytes, freeze / load seconds),
              served == predict, and HTTP beside main's model. Phase fm also
              prints the host seconds of its V draw (JAX's stream).
+15. trees  — train_randomforest_classifier -trees 32 at the JAX package's
+             forest bench shape (20,000 x 20 uniform rows, the
+             XOR-or label of scripts/bench_forest.py) on the card and on the
+             CPU: node for node on every tree, OOB errors and opscode text
+             identical; -grow batched == per_tree on the card;
+             train_gradient_tree_boosting_classifier -trees 16 -iters 16
+             -depth 6 -seed 3 on 50,000 rows, twice on the card and once on
+             the CPU: trees equal, decision scores within rtol 1e-5 / atol
+             1e-6, the share of equal predictions, whether the two card
+             runs are equal (reported); train_randomforest_regr -trees 8 on
+             integer-valued targets card == CPU node for node; then -trees
+             32 on rows of the UCI Covertype data set's shape (581,012 x 54:
+             10 Q + 44 one-hot C columns, 7 classes, drawn from --seed):
+             fit seconds with the host binning timed apart, trees/s and
+             row-trees/s, holdout accuracy on 65,536 rows beside the OOB
+             error, host syncs a tree, peak memory; one level at S = 512
+             (hist / split / route, eager and by CUDA events, beside each
+             byte bound) and the OOB walk; both models frozen, loaded and
+             served on the card (max_batch 512: artifact bytes, freeze /
+             load seconds, labels == predict, p50 / p99 at 1 / 64 / 512
+             rows, 0 allocator segments after warmup) and the forest over
+             HTTP beside main's model (4 clients x 16, 0 failed). No hand
+             kernel: the JAX trees reach no pallas_call.
 Prints a kernels JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 """
@@ -2958,6 +2981,390 @@ def phase_ffm(seed, dev, smi, linear_model):
     return ll, secs, timing
 
 
+TREE_ROWS = 20000  # the JAX package's forest bench shape (bench_forest.py)
+TREE_FEATURES = 20
+TREE_TREES = 32
+GBT_ROWS = 50000  # ... and its GBT bench shape
+GBT_OPTS = "-trees 16 -iters 16 -depth 6 -seed 3"
+GBT_TOL = (1e-5, 1e-6)
+REGR_TREES = 8
+COVER_ROWS = 581012  # the UCI Covertype data set's shape: 10 quantitative
+COVER_Q = 10  # columns, 4 wilderness and 40 soil one-hot columns, 7 classes
+COVER_WILDERNESS = 4
+COVER_SOIL = 40
+COVER_CLASSES = 7
+COVER_HOLDOUT = 1 << 16
+COVER_TREES = 32
+COVER_S = 512  # the widest frontier at the default 512 leaves
+TREE_LAT_REQUESTS = 100
+
+
+def bench_rows(rng, n, f):
+    """scripts/bench_forest.py's rows: uniform features, the label
+    (x0 > .5) XOR (x1 > .5) OR (x2 > .8)."""
+    X = rng.rand(n, f)
+    y = ((X[:, 0] > 0.5) ^ (X[:, 1] > 0.5) | (X[:, 2] > 0.8)).astype(int)
+    return X, y
+
+
+def cover_data(seed):
+    """Rows of the Covertype data set's shape, drawn from ``seed``: ten
+    integer-valued quantitative columns in the data set's ranges (elevation,
+    aspect, slope, hydrology / road / fire distances, three hillshades),
+    one-hot wilderness (4) and soil (40) columns, and 7 cover classes from
+    elevation bands moved by wilderness, slope, water distance and soil
+    group, 5% of labels redrawn. Returns ((X, y) train, (X, y) held out)."""
+    rng = np.random.RandomState(seed + 54)
+    n = COVER_ROWS + COVER_HOLDOUT
+
+    def col(draw, lo, hi):
+        return np.clip(np.round(draw), lo, hi)
+
+    q = [col(rng.normal(2960, 280, n), 1859, 3858),
+         rng.randint(0, 361, n).astype(np.float64),
+         col(rng.gamma(3.0, 4.7, n), 0, 66),
+         col(rng.exponential(270, n), 0, 1397),
+         col(rng.normal(46, 58, n), -173, 601),
+         col(rng.exponential(2350, n), 0, 7117),
+         col(rng.normal(212, 27, n), 0, 254),
+         col(rng.normal(223, 20, n), 0, 254),
+         col(rng.normal(143, 38, n), 0, 254),
+         col(rng.exponential(1980, n), 0, 7173)]
+    wild = rng.choice(COVER_WILDERNESS, n, p=[0.45, 0.05, 0.44, 0.06])
+    soil = rng.randint(0, COVER_SOIL, n)
+    X = np.zeros((n, COVER_Q + COVER_WILDERNESS + COVER_SOIL))
+    X[:, :COVER_Q] = np.stack(q, 1)
+    X[np.arange(n), COVER_Q + wild] = 1.0
+    X[np.arange(n), COVER_Q + COVER_WILDERNESS + soil] = 1.0
+    score = (q[0] + 60.0 * (wild == 2) - 80.0 * (wild == 3)
+             + 4.0 * (q[2] - 14.0) - 0.05 * q[3] + 30.0 * (soil % 7 == 0))
+    y = np.digitize(score, [2450, 2650, 2850, 3000, 3150, 3300])
+    noise = rng.rand(n) < 0.05
+    y[noise] = rng.randint(0, COVER_CLASSES, int(noise.sum()))
+    return ((X[:COVER_ROWS], y[:COVER_ROWS]),
+            (X[COVER_ROWS:], y[COVER_ROWS:]))
+
+
+def same_trees(got, want, values=True):
+    """Two lists of TreeArrays equal node for node: the structure exact,
+    and with ``values`` the leaf values and class counts exact too."""
+    if len(got) != len(want):
+        return False
+    keys = ("feature", "threshold_bin", "nominal", "left", "right") + (
+        ("leaf_value",) if values else ())
+    for a, b in zip(got, want):
+        if a.n_nodes != b.n_nodes or not all(
+                np.array_equal(getattr(a, k), getattr(b, k)) for k in keys):
+            return False
+        if values and ((a.leaf_dist is None) != (b.leaf_dist is None) or (
+                a.leaf_dist is not None
+                and not np.array_equal(a.leaf_dist, b.leaf_dist))):
+            return False
+    return True
+
+
+def same_forest(got, want):
+    """Trees node for node, and the OOB counts and exported text equal."""
+    return same_trees([t.tree for t in got.trees],
+                      [t.tree for t in want.trees]) and all(
+        (a.oob_errors, a.oob_tests, a.model)
+        == (b.oob_errors, b.oob_tests, b.model)
+        for a, b in zip(got.trees, want.trees))
+
+
+def forest_line(f):
+    nodes = sum(t.tree.n_nodes for t in f.trees)
+    depth = max(t.tree.max_depth_used for t in f.trees)
+    oob = sum(t.oob_errors for t in f.trees) / max(
+        1, sum(t.oob_tests for t in f.trees))
+    return nodes, depth, oob
+
+
+def host_ms(fn, dev, reps):
+    """Mean host-clock ms of fn() ending in a synchronize, after one
+    warm-up call: what a level pays eager, the host's issue cost
+    included."""
+    fn()
+    sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    sync(dev)
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def tree_level_timing(Xb, y, w, n_bins, nominal, dev):
+    """One grow_tree level of the Covertype-shaped fit at the widest
+    frontier (S = COVER_S, a tenth of the rows settled): the histogram
+    scatter (hoisted lane offsets and weights, as grow_tree builds them
+    once per tree), the split search and the routing step, each eager on
+    the host clock and by CUDA events, beside its byte bound. Bounds count
+    each input read once and each output written once: the scatter reads
+    the binned rows, labels, weights and slots and writes the histogram;
+    the split reads the histogram and writes S rows; routing needs one bin
+    a row, its slot and its next slot. Returns {name: (eager, events,
+    bound_ms, bytes)}."""
+    import torch
+
+    from hivemall_tpu_torch.models.trees import grow as TG
+
+    N, F = Xb.shape
+    S, C = COVER_S, COVER_CLASSES
+    rng = np.random.RandomState(3)
+    Xbt = torch.from_numpy(Xb).to(dev)
+    yt = torch.from_numpy(y.astype(np.int32)).to(dev)
+    wt = torch.from_numpy(w).to(dev)
+    a = rng.randint(0, S, N).astype(np.int32)
+    a[rng.rand(N) < 0.1] = -1
+    at = torch.from_numpy(a).to(dev)
+    offsets = TG._lane_offsets(Xbt, n_bins, C, yt)
+    values = (TG._lanes(wt, F),)
+    block = F * n_bins * C
+    hist = TG._scatter_hist(offsets, at, S, block, values)[0].reshape(
+        S, F, n_bins, C)
+    nomt = torch.from_numpy(nominal).to(dev)
+    feat_ok = torch.from_numpy(TG._feature_subspace(
+        S, S, F, int(np.ceil(np.sqrt(F))), rng)).to(dev)
+    feat = rng.randint(0, F, S).astype(np.int32)
+    tabs = TG._route_tables(
+        feat, rng.randint(0, n_bins, S).astype(np.int32), nominal[feat],
+        rng.randint(0, 2 * S, S).astype(np.int32),
+        rng.randint(0, 2 * S, S).astype(np.int32), rng.rand(S) < 0.2, dev)
+    hist_bytes = S * F * n_bins * C * 4
+    steps = {
+        "hist": (lambda: TG._scatter_hist(offsets, at, S, block, values),
+                 N * F * 4 + 3 * N * 4 + hist_bytes),
+        "split": (lambda: TG._best_split_classification(
+            hist, nomt, feat_ok, "gini", 1.0),
+            hist_bytes + S * F + F + S * (3 + C) * 4),
+        "route": (lambda: TG._route(Xbt, at, *tabs), 3 * N * 4 + 6 * S * 4),
+    }
+    out = {}
+    for name, (fn, nbytes) in steps.items():
+        out[name] = (host_ms(fn, dev, 5), cuda_ms(fn, 5),
+                     1e3 * nbytes / HBM_BYTES_PER_S, nbytes)
+    out["split_ops"] = device_ops(steps["split"][0])
+    return out
+
+
+def tree_serving(name, model, X, dev, tmp):
+    """Freeze ``model`` under ``tmp``, load it, warm one engine on ``dev``
+    (max_batch 512), hold its labels against ``model.predict`` on 4,096
+    rows, and time TREE_LAT_REQUESTS requests of 1 / 64 / 512 rows with no
+    new allocator segment after warmup. Returns (path, engine)."""
+    import os
+
+    from hivemall_tpu_torch.runtime.metrics import REGISTRY
+    from hivemall_tpu_torch.serving import ServingEngine, freeze, load
+
+    path = f"{tmp}/{name}"
+    t0 = time.perf_counter()
+    freeze(model, path, name=name)
+    t1 = time.perf_counter()
+    art = load(path)
+    t2 = time.perf_counter()
+    nbytes = sum(os.path.getsize(os.path.join(path, f))
+                 for f in os.listdir(path))
+    tag = f"smoke_{name}"
+    eng = ServingEngine(art, name=tag, max_batch=512, device=dev)
+    segs = eng.warmup()
+    n = 4096
+    served = eng.predict(X[:n])
+    assert np.array_equal(served, model.predict(X[:n])), \
+        f"trees {name}: served labels != predict"
+    counter = REGISTRY.counter("allocator", f"new_segments.serving.{tag}")
+    before = counter.value
+    rng = np.random.RandomState(6)
+    lat = []
+    for m in (1, 64, 512):
+        secs = []
+        for s in rng.randint(0, len(X) - m, size=TREE_LAT_REQUESTS):
+            t = time.perf_counter()
+            eng.predict(X[s:s + m])
+            secs.append(time.perf_counter() - t)
+        lat.append(f"{m} rows p50 {percentile_ms(secs, 50):.4f} / p99 "
+                   f"{percentile_ms(secs, 99):.4f} ms")
+    assert counter.value == before, \
+        f"trees {name}: {counter.value - before} allocator segments"
+    print(f"[trees] serve {name}: artifact {nbytes} B, freeze {t1 - t0:.3f} "
+          f"s, load {t2 - t1:.3f} s; table_bytes {eng.table_bytes} on the "
+          f"card; warmup of {len(eng.warmed_buckets)} buckets, {segs} new "
+          f"allocator segments; labels == predict on {n} rows; latency over "
+          f"{TREE_LAT_REQUESTS} requests each: " + "; ".join(lat)
+          + "; 0 new allocator segments after warmup")
+    return path, eng
+
+
+def phase_trees(seed, dev, smi, linear_model, ctr_rows):
+    """Random forests and GBT: the bench forest card == CPU and batched ==
+    per_tree node for node, the bench GBT card against the CPU and against
+    itself, an integer-target regression forest card == CPU, a forest
+    fit at the Covertype data set's shape with its per-level timing, then
+    both models frozen, served and over HTTP beside main's linear model."""
+    import tempfile
+
+    import torch
+
+    from hivemall_tpu_torch.models.trees import binning as TB
+    from hivemall_tpu_torch.models.trees import forest as TF
+    from hivemall_tpu_torch.models.trees import grow as TG
+
+    cpu = torch.device("cpu")
+    rng = np.random.RandomState(seed)
+    print(f"[trees] card: {smi}")
+    X, y = bench_rows(rng, TREE_ROWS, TREE_FEATURES)
+    opts = f"-trees {TREE_TREES} -seed 1"
+    card, secs = timed(lambda: TF.train_randomforest_classifier(
+        X, y, opts, device=dev), dev)
+    ref, cpu_secs = timed(lambda: TF.train_randomforest_classifier(
+        X, y, opts, device=cpu), cpu)
+    assert same_forest(card, ref), "trees: bench forest card != CPU"
+    batched, b_secs = timed(lambda: TF.train_randomforest_classifier(
+        X, y, opts + " -grow batched", device=dev), dev)
+    assert same_forest(batched, card), "trees: batched != per_tree"
+    nodes, depth, oob = forest_line(card)
+    print(f"[trees] train_randomforest_classifier {opts} on {TREE_ROWS} x "
+          f"{TREE_FEATURES} (bench_forest.py's rows; depth 16, 512 leaves "
+          f"by default): card {secs:.3f} s, CPU {cpu_secs:.3f} s, -grow "
+          f"batched on the card {b_secs:.3f} s; {nodes} nodes, depth "
+          f"{depth}, OOB error {oob:.4f}; card == CPU node for node on every "
+          f"tree with OOB errors and opscode text identical; batched == "
+          f"per_tree node for node")
+
+    Xg, yg = bench_rows(rng, GBT_ROWS, TREE_FEATURES)
+    g1, g_secs = timed(lambda: TF.train_gradient_tree_boosting_classifier(
+        Xg, yg, GBT_OPTS, device=dev), dev)
+    g2, _ = timed(lambda: TF.train_gradient_tree_boosting_classifier(
+        Xg, yg, GBT_OPTS, device=dev), dev)
+    gc, gc_secs = timed(lambda: TF.train_gradient_tree_boosting_classifier(
+        Xg, yg, GBT_OPTS, device=cpu), cpu)
+    s1, s2, sc = (g.decision_function(Xg) for g in (g1, g2, gc))
+    flat = [[t for r in g.trees for t in r] for g in (g1, g2, gc)]
+    same_rounds = sum(same_trees([a], [b]) for a, b in zip(flat[0], flat[2]))
+    same_shape = sum(same_trees([a], [b], values=False)
+                     for a, b in zip(flat[0], flat[2]))
+    runs_equal = same_trees(flat[0], flat[1]) and np.array_equal(s1, s2)
+    close = bool(np.allclose(s1, sc, rtol=GBT_TOL[0], atol=GBT_TOL[1]))
+    share = float(np.mean(g1.predict(Xg) == gc.predict(Xg)))
+    acc = float(np.mean(g1.predict(Xg) == yg))
+    print(f"[trees] train_gradient_tree_boosting_classifier {GBT_OPTS} on "
+          f"{GBT_ROWS} x {TREE_FEATURES}: card {g_secs:.3f} s, CPU "
+          f"{gc_secs:.3f} s; training accuracy {acc:.4f}; card vs CPU: "
+          f"{same_rounds} of {len(flat[0])} trees equal node for node "
+          f"({same_shape} in structure), "
+          f"decision scores within rtol {GBT_TOL[0]:g} / atol "
+          f"{GBT_TOL[1]:g}: {close} (largest |diff| "
+          f"{float(np.max(np.abs(s1 - sc))):.3g}), equal predictions "
+          f"{share:.6f}; two card runs equal: {runs_equal} (largest |diff| "
+          f"{float(np.max(np.abs(s1 - s2))):.3g}; the residual histograms "
+          f"sum floats with CUDA's atomic adds)")
+
+    yr = (np.floor(4 * X[:, 0]) - np.floor(2 * X[:, 3])
+          + (X[:, 2] > 0.8)).astype(np.float32)
+    r_opts = f"-trees {REGR_TREES} -seed 2"
+    rc, r_secs = timed(lambda: TF.train_randomforest_regr(
+        X, yr, r_opts, device=dev), dev)
+    rcpu, rc_secs = timed(lambda: TF.train_randomforest_regr(
+        X, yr, r_opts, device=cpu), cpu)
+    assert same_forest(rc, rcpu), "trees: regression forest card != CPU"
+    print(f"[trees] train_randomforest_regr {r_opts} on the same rows, "
+          f"integer-valued targets (f32 sums exact): card {r_secs:.3f} s, "
+          f"CPU {rc_secs:.3f} s; card == CPU node for node, OOB squared "
+          f"errors identical")
+
+    t0 = time.perf_counter()
+    (Xc, yc), (Xh, yh) = cover_data(seed)
+    gen = time.perf_counter() - t0
+    attrs = ["Q"] * COVER_Q + ["C"] * (COVER_WILDERNESS + COVER_SOIL)
+    t0 = time.perf_counter()
+    bins = TB.make_bins(Xc, attrs)
+    Xbc = TB.bin_data(Xc, bins)
+    bin_secs = time.perf_counter() - t0
+    n_bins = max(b.n_bins for b in bins)
+    c_opts = f"-trees {COVER_TREES} -seed {seed + 7} -attrs {','.join(attrs)}"
+    on_card = dev.type == "cuda"  # a CPU rehearsal skips the device timings
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    syncs = dict(TG.SYNCS)
+    forest, fit = timed(lambda: TF.train_randomforest_classifier(
+        Xc, yc, c_opts, device=dev), dev)
+    peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
+    grow_syncs = TG.SYNCS["grow"] - syncs["grow"]
+    walk_syncs = TG.SYNCS["walk"] - syncs["walk"]
+    nodes, depth, oob = forest_line(forest)
+    t0 = time.perf_counter()
+    h_acc = float(np.mean(forest.predict(Xh) == yh))
+    pred_secs = time.perf_counter() - t0
+    majority = float(np.bincount(yc, minlength=COVER_CLASSES).max()
+                     / len(yc))
+    F = Xc.shape[1]
+    print(f"[trees] Covertype-shaped data: {COVER_ROWS} rows x {F} columns "
+          f"({COVER_Q} Q, {COVER_WILDERNESS + COVER_SOIL} C), "
+          f"{COVER_CLASSES} classes (the largest {majority:.4f}), "
+          f"{COVER_HOLDOUT} held out; drawn in {gen:.3f} s; host binning "
+          f"(make_bins + bin_data, timed apart) {bin_secs:.3f} s, {n_bins} "
+          f"bins")
+    print(f"[trees] train_randomforest_classifier -trees {COVER_TREES} "
+          f"(depth 16, 512 leaves, {int(np.ceil(np.sqrt(F)))} candidate "
+          f"features a node): fit {fit:.3f} s, of which host binning about "
+          f"{bin_secs:.3f} s; {COVER_TREES / fit:.3f} trees/s, "
+          f"{COVER_ROWS * COVER_TREES / fit:.4g} row-trees/s; {nodes} "
+          f"nodes, depth {depth}; OOB error {oob:.4f}, holdout accuracy "
+          f"{h_acc:.4f} on {COVER_HOLDOUT} rows (predict {pred_secs:.3f} "
+          f"s); host syncs {grow_syncs / COVER_TREES:.2f} a tree in growth "
+          f"(one a level) + {walk_syncs} for the OOB walk; peak device "
+          f"memory {peak / 2 ** 20:.1f} MiB")
+    assert h_acc > majority, f"trees: Covertype holdout accuracy {h_acc}"
+
+    w = np.bincount(np.random.RandomState(1).randint(0, COVER_ROWS,
+                                                     COVER_ROWS),
+                    minlength=COVER_ROWS).astype(np.float32)
+    if on_card:
+        tree_device_timing(forest, Xbc, yc, w, n_bins, attrs, dev)
+
+    with tempfile.TemporaryDirectory(prefix="hivemall_trees_") as tmp:
+        f_path, f_eng = tree_serving("forest", forest, Xh, dev, tmp)
+        tree_serving("gbt", g1, Xg, dev, tmp)
+        rows = Xh[:1024].tolist()
+        want = f_eng.predict(Xh[:1024]).tolist()
+        http_secs = http_beside_ctr(linear_model, "forest", "forest", f_path,
+                                    rows, want, dev, 16, ctr_rows=ctr_rows)
+    print(f"[trees] HTTP: 4 clients x 16 POST /predict of 64 raw Covertype "
+          f"rows for forest in {http_secs:.3f} s beside the linear model ctr: "
+          f"0 failed, every answer == the engine's labels")
+
+
+def tree_device_timing(forest, Xbc, yc, w, n_bins, attrs, dev):
+    """Phase trees' device timings of the Covertype-shaped fit: one level
+    (tree_level_timing) and the OOB walk of every tree over every row."""
+    import torch
+
+    from hivemall_tpu_torch.models.trees import grow as TG
+
+    F = Xbc.shape[1]
+    lv = tree_level_timing(Xbc, yc, w, n_bins, np.array(
+        [a == "C" for a in attrs]), dev)
+    print(f"[trees] one level at S = {COVER_S} ({COVER_S} x {F} x {n_bins} x "
+          f"{COVER_CLASSES} f32 histogram, {COVER_ROWS * F} lanes "
+          f"scattered): " + "; ".join(
+              f"{k} {lv[k][0]:.4f} ms eager / {lv[k][1]:.4f} ms by CUDA "
+              f"events, bound {lv[k][2]:.6f} ms ({lv[k][3]} B at "
+              f"{HBM_BYTES_PER_S:.3g} B/s)" for k in ("hist", "split",
+                                                     "route"))
+          + f"; the split search launches {lv['split_ops']} device "
+          f"operations")
+    stacked = TG.stack_trees([t.tree for t in forest.trees], dev)
+    Xbt = torch.from_numpy(Xbc).to(dev)
+    walk_ms = cuda_ms(lambda: TG.predict_forest_binned(stacked, Xbt), 3)
+    walk_bytes = Xbc.nbytes + COVER_TREES * COVER_ROWS * 4 + sum(
+        v.numel() * v.element_size() for v in stacked.values()
+        if torch.is_tensor(v))
+    print(f"[trees] the OOB walk ({COVER_TREES} trees x {COVER_ROWS} rows, "
+          f"{stacked['depth']} steps): {walk_ms:.4f} ms by CUDA events, "
+          f"bound {1e3 * walk_bytes / HBM_BYTES_PER_S:.6f} ms ({walk_bytes} "
+          f"B)")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3045,6 +3452,14 @@ def main(argv=None) -> int:
     print(f"[ffm] phase took {time.perf_counter() - t_ffm:.1f} s; kernel "
           f"launches during it: {dict(LAUNCHES)} (the FFM path reaches no "
           f"pallas_call in the JAX package and runs plain torch ops here)")
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+    t_trees = time.perf_counter()
+    phase_trees(args.seed, dev, smi, served[0],
+                string_rows(data[2][0], data[2][1], 64))
+    print(f"[trees] phase took {time.perf_counter() - t_trees:.1f} s; kernel "
+          f"launches during it: {dict(LAUNCHES)} (the trees reach no "
+          f"pallas_call in the JAX package and run plain torch ops here)")
     source = "hivemall_tpu_torch/kernels/csrc/linear_scan.cu"
     replaces = "hivemall_tpu/kernels/linear_scan.py:44"
     kernels = [

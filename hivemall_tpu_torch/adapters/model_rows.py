@@ -21,19 +21,36 @@ def iter_model_rows(model) -> Tuple[List[str], Iterable[tuple]]:
     - FFM: feature(int), Wi(float), blob(str|None) — w0 on the feature == -1
       row, then the touched features' weights, then a feature == -2 row
       carrying the whole model as basE91 text of ``to_blob()``
+    - GBT: iter(int), cls(int), model_type(str), pred_model(str),
+      intercept(float), shrinkage(float), var_importance(list[float]),
+      oob_error_rate(None), classes(str, the JSON label vocabulary) — one
+      row per (boosting round, class tree)
+    - forest: model_id(int), model_type(str), pred_model(str),
+      var_importance(list[float]), oob_errors(int), oob_tests(int)
     - multiclass: label, feature(int), weight(float)[, covar(float)] over
       the touched (label, feature) entries
     - linear: feature(int), weight(float)[, covar(float)]
 
-    MF has no row emission (as in the JAX package); the tree families are
-    later slices of the port. Both raise ValueError.
+    MF has no row emission (as in the JAX package) and raises ValueError.
     """
     from ..models.ffm import TrainedFFMModel
     from ..models.fm import TrainedFMModel
     from ..models.mf import TrainedMFModel
+    from ..models.trees.forest import TrainedForest, TrainedGBT
 
     if isinstance(model, TrainedMFModel):
         raise ValueError(f"{type(model).__name__}: model has no row emission")
+
+    if isinstance(model, TrainedGBT):
+        cols = ["iter", "cls", "model_type", "pred_model", "intercept",
+                "shrinkage", "var_importance", "oob_error_rate", "classes"]
+
+        def gbt_rows():
+            for m, c, mt, text, ic, sh, imp, oob, vocab in model.model_rows():
+                yield (int(m), int(c), str(mt), text, float(ic), float(sh),
+                       [float(x) for x in imp], oob, vocab)
+
+        return cols, gbt_rows()
 
     if isinstance(model, TrainedFMModel):
         def fm_rows():
@@ -56,11 +73,16 @@ def iter_model_rows(model) -> Tuple[List[str], Iterable[tuple]]:
 
         return ["feature", "Wi", "blob"], ffm_rows()
 
-    if hasattr(model, "trees"):
-        raise ValueError(
-            f"{type(model).__name__}: model has no row emission in the torch "
-            f"port (hivemall_tpu_torch) — the tree families are later "
-            f"slices")
+    if isinstance(model, TrainedForest):
+        cols = ["model_id", "model_type", "pred_model", "var_importance",
+                "oob_errors", "oob_tests"]
+
+        def forest_rows():
+            for mid, mtype, text, imp, oe, ot in model.model_rows():
+                yield (int(mid), str(mtype), text,
+                       [float(x) for x in imp], int(oe), int(ot))
+
+        return cols, forest_rows()
 
     if hasattr(model, "label_vocab"):  # multiclass family
         rows = model.model_rows()

@@ -3,8 +3,9 @@
 The counterpart of the JAX package's `native/__init__.py`, with its
 function names, argument order and return conventions: bulk murmur3
 hashing, bulk feature parsing, the zigzag-LEB128 codec, the per-row AROW
-and FM loops behind `-native_scan`, and the batched apply behind
-`-batch B -native_apply`. Everything here runs on the host, on numpy
+and FM loops behind `-native_scan`, the batched apply behind
+`-batch B -native_apply`, and the bulk evaluator of exported tree opcode
+programs (`forest_eval`). Everything here runs on the host, on numpy
 arrays; no device tensor crosses the C ABI.
 
 **One deliberate difference.** The JAX package returns None from every
@@ -20,8 +21,8 @@ callers take their Python path exactly there.
 kernels' wrappers count launches.
 
 Not bound here (later slices, with the modules that need them):
-`decode_records` / `encode_records` (io/records.py), `forest_eval` (the
-trees), `lattice_tokenize_bulk` (nlp/) and the sanitizer variants.
+`decode_records` / `encode_records` (io/records.py),
+`lattice_tokenize_bulk` (nlp/) and the sanitizer variants.
 `pack_block` is left out too: the port's `core/batch.pack_rows` is a
 vectorised numpy pack (PERF.md).
 """
@@ -43,7 +44,7 @@ _load_error: Optional[str] = None
 CALLS = {"murmur3": 0, "murmur3_bulk": 0, "parse_features_bulk": 0,
          "zigzag_leb128_encode": 0, "zigzag_leb128_decode": 0,
          "arow_reference_rowloop": 0, "fm_reference_rowloop": 0,
-         "batch_apply_block": 0}
+         "batch_apply_block": 0, "forest_eval": 0}
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -65,6 +66,7 @@ _PROTOTYPES = {
         _I64, [ctypes.c_int32, _F32, _F32, _F32, _P, _P, _I64, _I64,
                _I64, _I64, _I64, _P, _P, _P, _P, _P, _I64, _I64,
                _P, _P, _P, _P, _P, _I64, _P, _P, _P, ctypes.c_int32, _P]),
+    "hm_forest_eval": (_I64, [_P, _P, _P, _P, _I64, _P, _I64, _I64, _P]),
 }
 
 
@@ -377,3 +379,31 @@ def fm_reference_rowloop(idx: np.ndarray, val: np.ndarray,
     if rc < 0:
         raise ValueError("fm reference rowloop: k > 64 unsupported")
     return rc
+
+
+def forest_eval(programs: Sequence[Tuple[np.ndarray, np.ndarray, np.ndarray]],
+                X: np.ndarray) -> np.ndarray:
+    """Evaluate T compiled opcode programs (models/trees/vm.py
+    compile_script_arrays output) over X [N, F] raw rows -> [T, N] float64
+    leaf values, StackMachine's semantics. Raises ValueError on a malformed
+    program (an out-of-range operand, a stack fault, a revisited op)."""
+    lib = _load()
+    T = len(programs)
+    X = np.ascontiguousarray(X, dtype=np.float64)
+    N, F = X.shape
+    offsets = np.zeros(T + 1, np.int64)
+    for t, (ops, _, _) in enumerate(programs):
+        offsets[t + 1] = offsets[t] + len(ops)
+    ops = np.ascontiguousarray(np.concatenate([p[0] for p in programs]),
+                               dtype=np.int8)
+    argi = np.ascontiguousarray(np.concatenate([p[1] for p in programs]),
+                                dtype=np.int32)
+    argf = np.ascontiguousarray(np.concatenate([p[2] for p in programs]),
+                                dtype=np.float64)
+    out = np.empty((T, N), np.float64)
+    CALLS["forest_eval"] += 1
+    rc = lib.hm_forest_eval(_ptr(ops), _ptr(argi), _ptr(argf), _ptr(offsets),
+                            T, _ptr(X), N, F, _ptr(out))
+    if rc != 0:
+        raise ValueError("malformed opcode program")
+    return out

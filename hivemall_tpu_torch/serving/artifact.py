@@ -12,7 +12,7 @@ with the same array names, dtypes and manifest keys, so an artifact frozen
 by either package loads and serves in the other. Rule names and dtype names
 (``"float32"``, ``"bfloat16"``, ``"int8"``) are the JAX package's strings.
 
-The port freezes five families:
+The port freezes seven families:
 
 - linear: the (feature, weight[, covar]) interchange rows of
   io/checkpoint.save_model_rows at full precision, or the dense weight
@@ -27,13 +27,18 @@ The port freezes five families:
 - mf: P, Q, Bu, Bi and mu at full precision, or P and Q reduced the same
   way (scales blocked along users / items) with the bias terms kept f32;
 - ffm: the model's compressed blob (`TrainedFFMModel.to_blob(half_float=
-  False)`, byte-equal to the JAX package's), full precision only.
+  False)`, byte-equal to the JAX package's), full precision only;
+- forest / gbt: every tree's node arrays (``tree<i>__feature``,
+  ``__threshold_bin``, ``__nominal``, ``__left``, ``__right``,
+  ``__leaf_value``; GBT's trees flattened round-major) and each feature's
+  bin edges (``bin<f>__edges``, float64 at rest, their nominal flags in the
+  manifest); GBT adds its float64 ``intercept`` and its ``classes``. Full
+  precision only.
 
 MF and FM artifacts may carry the top-K retrieval index (``freeze(...,
 retrieval_index=...)``: signed-random-projection buckets, arrays
 ``index__*``), built by the same numpy code as the JAX package's, so the
-index bytes are equal. The tree families are later slices of the port and
-raise by name.
+index bytes are equal.
 """
 
 from __future__ import annotations
@@ -57,17 +62,8 @@ FORMAT_VERSION = 1
 MANIFEST_FILE = "manifest.json"
 ARRAYS_FILE = "arrays.npz"
 
-# families the JAX package freezes whose port is a later slice
-LATER_SLICE_FAMILIES = ("forest", "gbt")
-# the families the port freezes and serves
-PORTED_FAMILIES = ("linear", "multiclass", "fm", "ffm", "mf")
-
-
-def _later_slice(family: str, what: str) -> ValueError:
-    return ValueError(
-        f"{what}: the {family!r} family is a later slice of the torch port "
-        f"(hivemall_tpu_torch); it serves the "
-        f"{', '.join(PORTED_FAMILIES)} families")
+# the families the port freezes and serves (all of the JAX package's)
+PORTED_FAMILIES = ("linear", "multiclass", "fm", "ffm", "mf", "forest", "gbt")
 
 
 def _vocab_jsonable(vocab):
@@ -108,19 +104,20 @@ def manifest_quant(meta: dict) -> Optional[dict]:
 
 def family_of(model) -> str:
     """Family tag for a trained model (the adapters/model_rows.py dispatch
-    order, as a name). The tree models the port does not train yet are
-    recognised by the JAX package's fields (``trees``; GBT's
-    ``shrinkage``), so they refuse by name."""
+    order, as a name)."""
     from ..models.ffm import TrainedFFMModel
     from ..models.fm import TrainedFMModel
     from ..models.mf import TrainedMFModel
+    from ..models.trees.forest import TrainedForest, TrainedGBT
 
-    if hasattr(model, "trees"):
-        return "gbt" if hasattr(model, "shrinkage") else "forest"
+    if isinstance(model, TrainedGBT):
+        return "gbt"
     if isinstance(model, TrainedFMModel):
         return "fm"
     if isinstance(model, TrainedFFMModel):
         return "ffm"
+    if isinstance(model, TrainedForest):
+        return "forest"
     if isinstance(model, TrainedMFModel):
         return "mf"
     if hasattr(model, "label_vocab"):
@@ -158,15 +155,80 @@ def _columns(model):
         return None
 
 
+def _pack_trees(prefix: str, trees, arrays: dict) -> None:
+    for i, t in enumerate(trees):
+        arrays[f"{prefix}{i}__feature"] = np.asarray(t.feature, np.int32)
+        arrays[f"{prefix}{i}__threshold_bin"] = np.asarray(t.threshold_bin,
+                                                          np.int32)
+        arrays[f"{prefix}{i}__nominal"] = np.asarray(t.nominal, bool)
+        arrays[f"{prefix}{i}__left"] = np.asarray(t.left, np.int32)
+        arrays[f"{prefix}{i}__right"] = np.asarray(t.right, np.int32)
+        arrays[f"{prefix}{i}__leaf_value"] = np.asarray(t.leaf_value,
+                                                       np.float32)
+
+
+def _unpack_trees(prefix: str, n: int, arrays: dict):
+    from ..models.trees.grow import TreeArrays
+
+    out = []
+    for i in range(n):
+        feature = arrays[f"{prefix}{i}__feature"]
+        out.append(TreeArrays(
+            feature=feature,
+            threshold_bin=arrays[f"{prefix}{i}__threshold_bin"],
+            nominal=arrays[f"{prefix}{i}__nominal"],
+            left=arrays[f"{prefix}{i}__left"],
+            right=arrays[f"{prefix}{i}__right"],
+            leaf_dist=None,
+            leaf_value=arrays[f"{prefix}{i}__leaf_value"],
+            n_nodes=int(feature.shape[0]),
+        ))
+    return out
+
+
+def _pack_bins(bins, arrays: dict, meta: dict) -> None:
+    meta["bins_nominal"] = [bool(b.nominal) for b in bins]
+    for f, b in enumerate(bins):
+        # the training-precision edges at rest; the serving engine narrows
+        # them to f32 at load where no two edges collapse (_TreeServable)
+        arrays[f"bin{f}__edges"] = np.asarray(b.edges, np.float64)
+
+
+def _unpack_bins(meta: dict, arrays: dict):
+    from ..models.trees.binning import BinInfo
+
+    out = []
+    for f, nominal in enumerate(meta["bins_nominal"]):
+        edges = arrays[f"bin{f}__edges"]
+        out.append(BinInfo(bool(nominal), edges, len(edges)))
+    return out
+
+
 def _build_payload(model):
     """(family, arrays dict, meta dict) for a trained model."""
     from ..io.checkpoint import dtype_name
 
     family = family_of(model)
-    if family not in PORTED_FAMILIES:
-        raise _later_slice(family, "freeze")
     arrays: Dict[str, np.ndarray] = {}
     meta: dict = {"columns": _columns(model)}
+    if family == "forest":
+        _pack_trees("tree", [t.tree for t in model.trees], arrays)
+        _pack_bins(model.bins, arrays, meta)
+        meta.update(n_trees=len(model.trees),
+                    classification=bool(model.classification),
+                    n_classes=int(model.n_classes),
+                    attrs=list(model.attrs))
+        return family, arrays, meta
+    if family == "gbt":
+        flat = [t for round_trees in model.trees for t in round_trees]
+        _pack_trees("tree", flat, arrays)
+        _pack_bins(model.bins, arrays, meta)
+        arrays["intercept"] = np.asarray(model.intercept, np.float64)
+        arrays["classes"] = np.asarray(model.classes)
+        meta.update(n_rounds=len(model.trees),
+                    n_class_trees=len(model.trees[0]) if model.trees else 0,
+                    shrinkage=float(model.shrinkage))
+        return family, arrays, meta
     if family == "multiclass":
         st = model.state
         arrays["weights"] = _host(st.weights)

@@ -1,5 +1,5 @@
-"""Shape-bucketed online predictors for the linear, multiclass, FM, FFM and
-MF families.
+"""Shape-bucketed online predictors for the linear, multiclass, FM, FFM,
+MF, random forest and GBT families.
 
 The port of the JAX package's `serving/engine.py`. There, XLA compiles one
 program per input shape, so the engine pads every request to a
@@ -40,10 +40,15 @@ Scorers (plain torch ops on the card, as the JAX scorers are plain jnp):
   port's are too — the requested rows are gathered on the servable's
   device (bf16 / int8 windows widened there), copied to the host, and
   scaled, dotted and biased in numpy f32 with the reference's own
-  expression, so a served score equals the JAX package's bit for bit.
+  expression, so a served score equals the JAX package's bit for bit;
+- forest / GBT (raw feature rows, ``_ForestServable`` / ``_GBTServable``):
+  requests bin on the host (f32, the edges narrowed alongside; f64 when
+  narrowing would collapse two edges), the stacked node tables live on the
+  servable's device and every tree walks there in one batched walk; the
+  ``[T, B]`` leaf values come back to the host, where the forest votes (or
+  averages) and GBT sums its rounds — labels through ``/predict``.
 
-The tree families and sharded placement are later slices of the port and
-raise by name.
+Sharded placement is a later slice of the port and raises by name.
 """
 
 from __future__ import annotations
@@ -61,8 +66,8 @@ from ..core.engine import live_lanes, make_predict
 from ..device import DeviceLike, resolve_device
 from ..runtime.metrics import REGISTRY, alloc_segment_guard
 from ..runtime.tracing import TRACER
-from .artifact import (LATER_SLICE_FAMILIES, PORTED_FAMILIES, Artifact,
-                       family_of, load, manifest_dtype, manifest_quant)
+from .artifact import (PORTED_FAMILIES, Artifact, family_of, load,
+                       manifest_dtype, manifest_quant)
 from .placement import resolve_placement
 
 # serving latency is sub-ms-to-seconds shaped; finer low end than the
@@ -629,6 +634,128 @@ class _QuantMFServable(_PairServable):
                             self.Bu, self.Bi) if t is not None]
 
 
+class _TreeServable(_Servable):
+    """Shared host binning + batched tree walk on the device (forest, GBT).
+
+    f32 request staging with edges narrowed ALONGSIDE: an edge that IS a
+    data value stays equal to it (both sides of the searchsorted round
+    identically), so every training-valued instance bins as the tree was
+    grown; a request value within one f32 ulp of an edge may bin to the
+    neighbour, the f32 resolution the serving dtype accepts. Distinct edges
+    that collapse under f32 (nominal codes >= 2^24, quantile edges of
+    large-magnitude features) would make a bin unreachable, so then the
+    model stays on the f64 path end to end — the JAX package's policy."""
+
+    has_width = False
+
+    def __init__(self, trees_flat, bins, device: torch.device) -> None:
+        from ..models.trees.binning import BinInfo
+        from ..models.trees.grow import stack_trees
+
+        if any(np.unique(np.asarray(b.edges, np.float32)).size
+               != len(b.edges) for b in bins):
+            self.stage_dtype = np.float64
+            self.bins = bins
+        else:
+            self.stage_dtype = np.float32
+            self.bins = [BinInfo(b.nominal, np.asarray(b.edges, np.float32),
+                                 b.n_bins) for b in bins]
+        self.n_features = len(bins)
+        self.device = device
+        self.stacked = stack_trees(trees_flat, device) if trees_flat \
+            else None
+
+    def device_tables(self):
+        if self.stacked is None:
+            return []
+        return [v for v in self.stacked.values()
+                if isinstance(v, torch.Tensor)]
+
+    def _binned(self, instances) -> np.ndarray:
+        from ..models.trees.binning import bin_data
+
+        X = np.asarray(instances, self.stage_dtype).reshape(
+            len(instances), self.n_features)
+        return bin_data(X, self.bins)
+
+    def stage(self, instances, b_pad, width_cap):
+        Xb = np.zeros((b_pad, self.n_features), np.int32)
+        Xb[:len(instances)] = self._binned(instances)
+        return Xb
+
+    def dispatch(self, staged):
+        from ..models.trees.grow import predict_forest_binned
+
+        if self.stacked is None:
+            return torch.zeros((0, staged.shape[0]), dtype=torch.float32)
+        return predict_forest_binned(
+            self.stacked, torch.from_numpy(staged).to(self.device))
+
+    def leaf_values(self, raw, n: int) -> np.ndarray:
+        """The walk's [T, n] leaf values on the host (the wait)."""
+        return raw.detach().cpu().numpy()[:, :n]
+
+    def dummy_instance(self, width):
+        return [0.0] * self.n_features
+
+    def row_keys(self, instances, width_cap: int):
+        """blake2b-128 over the BINNED row (int32 bin ids) — the form the
+        walk consumes, so two raw rows that bin alike share a key.
+        Malformed requests are uncacheable (None)."""
+        from hashlib import blake2b
+
+        try:
+            Xb = np.ascontiguousarray(self._binned(instances), np.int32)
+        except (TypeError, ValueError):
+            return None
+        return [blake2b(row.tobytes(), digest_size=16).digest()
+                for row in Xb]
+
+
+class _ForestServable(_TreeServable):
+    family = "forest"
+
+    def __init__(self, trees, bins, classification: bool, n_classes: int,
+                 device: torch.device) -> None:
+        super().__init__(trees, bins, device)
+        self.classification = classification
+        self.n_classes = n_classes
+
+    def finalize(self, raw, n):
+        from ..models.trees.forest import forest_vote
+
+        leaf_vals = self.leaf_values(raw, n)  # [T, n]
+        if self.classification:
+            return forest_vote(leaf_vals, self.n_classes)
+        return leaf_vals.mean(axis=0)
+
+
+class _GBTServable(_TreeServable):
+    family = "gbt"
+
+    def __init__(self, trees_flat, n_rounds: int, n_class_trees: int,
+                 intercept, shrinkage: float, classes, bins,
+                 device: torch.device) -> None:
+        super().__init__(trees_flat, bins, device)
+        self.n_rounds = n_rounds
+        self.K = n_class_trees
+        # at the tree path's dtype: f32 normally, f64 when the collapse
+        # guard kept the model on the f64 path end to end
+        self.intercept = np.asarray(intercept, self.stage_dtype)
+        self.shrinkage = float(shrinkage)
+        self.classes = np.asarray(classes)
+
+    def finalize(self, raw, n):
+        from ..models.trees.forest import gbt_decision_scores
+
+        scores = gbt_decision_scores(self.leaf_values(raw, n),
+                                     self.intercept, self.shrinkage,
+                                     self.n_rounds, self.K)
+        if scores.shape[1] == 1:
+            return self.classes[(scores[:, 0] > 0).astype(int)]
+        return self.classes[np.argmax(scores, axis=1)]
+
+
 def _fm_serving_state(w0, w, v, dev: torch.device):
     """An FMState holding the score-path tables on ``dev``, w0 f32; the
     training-only fields are placeholders (_fm_scores reads w0, w and v
@@ -710,15 +837,23 @@ def _quant_servable_from_artifact(art: Artifact,
 
 
 def _servable_from_artifact(art: Artifact, dev: torch.device) -> _Servable:
-    if art.family in LATER_SLICE_FAMILIES:
-        raise ValueError(
-            f"make_servable: the {art.family!r} family is a later slice of "
-            f"the torch port (hivemall_tpu_torch); it serves the "
-            f"{', '.join(PORTED_FAMILIES)} families")
     if art.family not in PORTED_FAMILIES:
         raise ValueError(f"unknown artifact family {art.family!r}")
     if manifest_quant(art.meta) is not None:
         return _quant_servable_from_artifact(art, dev)
+    if art.family in ("forest", "gbt"):
+        from .artifact import _unpack_bins, _unpack_trees
+
+        meta, a = art.meta, art.arrays
+        bins = _unpack_bins(meta, a)
+        if art.family == "forest":
+            return _ForestServable(
+                _unpack_trees("tree", int(meta["n_trees"]), a), bins,
+                bool(meta["classification"]), int(meta["n_classes"]), dev)
+        n_rounds, k = int(meta["n_rounds"]), int(meta["n_class_trees"])
+        return _GBTServable(_unpack_trees("tree", n_rounds * k, a), n_rounds,
+                            k, a["intercept"], float(meta["shrinkage"]),
+                            a["classes"], bins, dev)
     if art.family in ("mf", "ffm"):
         from .artifact import rebuild_model
 
@@ -758,10 +893,19 @@ def _servable_from_artifact(art: Artifact, dev: torch.device) -> _Servable:
 
 def _servable_from_model(model, device: DeviceLike) -> _Servable:
     family = family_of(model)
-    if family not in PORTED_FAMILIES:
-        raise ValueError(
-            f"make_servable: the {family!r} family is a later slice of the "
-            f"torch port (hivemall_tpu_torch)")
+    if family in ("forest", "gbt"):
+        # the node arrays live on the host; they stack onto the model's
+        # device unless ``device`` names another
+        dev = model.device if device is None else torch.device(device)
+        if family == "forest":
+            return _ForestServable([t.tree for t in model.trees], model.bins,
+                                   model.classification, model.n_classes,
+                                   dev)
+        flat = [t for round_trees in model.trees for t in round_trees]
+        return _GBTServable(flat, len(model.trees),
+                            len(model.trees[0]) if model.trees else 0,
+                            model.intercept, model.shrinkage, model.classes,
+                            model.bins, dev)
     state = model.state
     moved = device is not None and torch.device(device) != state.device
     if family == "multiclass":

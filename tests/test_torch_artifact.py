@@ -219,7 +219,22 @@ def test_later_slices_raise_by_name(tmp_path):
     with pytest.raises(ValueError, match="has no retrieval path"):
         freeze(tm, str(tmp_path / "r"), retrieval_index={})
 
-    class Forest:  # the JAX package's TrainedForest fields
+    # the tree families landed: the port's own models freeze and emit rows
+    from hivemall_tpu_torch.models.trees import forest as TF
+
+    X = np.random.RandomState(0).rand(60, 3)
+    y = (X[:, 0] > 0.5).astype(int)
+    for family, model in (
+            ("forest", TF.train_randomforest_classifier(
+                X, y, "-trees 2 -seed 1", device="cpu")),
+            ("gbt", TF.train_gradient_tree_boosting_classifier(
+                X, y, "-trees 2 -seed 1", device="cpu"))):
+        man = freeze(model, str(tmp_path / family))
+        assert man["family"] == family
+        assert man["meta"]["columns"][:2] in (["model_id", "model_type"],
+                                              ["iter", "cls"])
+
+    class Forest:  # the JAX package's TrainedForest fields, not the class
         trees = []
         classification = True
 
@@ -227,10 +242,10 @@ def test_later_slices_raise_by_name(tmp_path):
         trees = []
         shrinkage = 0.1
 
-    with pytest.raises(ValueError, match="'forest'.*later slice"):
-        freeze(Forest(), str(tmp_path / "forest"))
-    with pytest.raises(ValueError, match="'gbt'.*later slice"):
-        freeze(GBT(), str(tmp_path / "gbt"))
+    with pytest.raises(ValueError, match="no serving family"):
+        freeze(Forest(), str(tmp_path / "forest_stand_in"))
+    with pytest.raises(ValueError, match="no serving family"):
+        freeze(GBT(), str(tmp_path / "gbt_stand_in"))
     with pytest.raises(ValueError, match="later slice"):
         make_servable(tm, placement="model_sharded")
     with pytest.raises(ValueError, match="later slice"):

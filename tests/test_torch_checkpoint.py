@@ -238,11 +238,22 @@ def test_iter_model_rows_matches_jax(rule):
 
 
 def test_iter_model_rows_refuses_other_families():
-    class Forest:  # the JAX package's TrainedForest fields
+    from hivemall_tpu_torch.models.trees import forest as TF
+
+    # the port's own forest emits the JAX package's forest rows
+    X = np.random.RandomState(0).rand(60, 3)
+    forest = TF.train_randomforest_classifier(
+        X, (X[:, 0] > 0.5).astype(int), "-trees 2 -seed 1", device="cpu")
+    cols, rows = iter_model_rows(forest)
+    assert cols == ["model_id", "model_type", "pred_model",
+                    "var_importance", "oob_errors", "oob_tests"]
+    assert [r[0] for r in rows] == [0, 1]
+
+    class Forest:  # the JAX package's TrainedForest fields, not the class
         trees = []
         classification = True
 
-    with pytest.raises(ValueError, match="later slice"):
+    with pytest.raises(ValueError, match="no row emission"):
         iter_model_rows(Forest())
 
 

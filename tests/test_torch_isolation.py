@@ -69,6 +69,9 @@ def test_default_device_without_cuda_raises():
     from hivemall_tpu_torch.models.classifier import train_arow
     from hivemall_tpu_torch.models.ffm import train_ffm
     from hivemall_tpu_torch.models.multiclass import train_multiclass_arow
+    from hivemall_tpu_torch.models.trees import (
+        train_gradient_tree_boosting_classifier, train_randomforest_classifier,
+        train_randomforest_regr)
 
     feats = ([np.array([1, 2])], [np.ones(2, np.float32)])
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -78,6 +81,11 @@ def test_default_device_without_cuda_raises():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_ffm([["0:1:1", "1:2:1"]], [1],
                   "-feature_hashing 10 -v_bits 10")
+    X = np.random.RandomState(0).rand(8, 2)
+    for trainer in (train_randomforest_classifier, train_randomforest_regr,
+                    train_gradient_tree_boosting_classifier):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            trainer(X, [0, 1] * 4, "-trees 1")
     with pytest.raises(RuntimeError):
         resolve_device()
     assert resolve_device("cpu") == torch.device("cpu")

@@ -459,3 +459,34 @@ def ffm_rows(n=400, n_fields=4, per_field=6, seed=5, extra=0):
         rows.append(row)
         ys.append(np.sign(s) if s != 0 else 1.0)
     return rows, np.asarray(ys, np.float32)
+
+
+TREE_INT_FIELDS = ("feature", "threshold_bin", "nominal", "left", "right")
+
+
+def assert_trees_equal(got, want, rtol=1e-6):
+    """Two TreeArrays node for node: structure and leaf_dist exact,
+    leaf_value at ``rtol``, the importance at ``rtol`` when both have one."""
+    assert got.n_nodes == want.n_nodes
+    for k in TREE_INT_FIELDS:
+        np.testing.assert_array_equal(getattr(got, k), getattr(want, k),
+                                      err_msg=k)
+    if want.leaf_dist is None:
+        assert got.leaf_dist is None
+    else:
+        np.testing.assert_array_equal(got.leaf_dist, want.leaf_dist)
+    np.testing.assert_allclose(got.leaf_value, want.leaf_value, rtol=rtol)
+    if got.importance is not None and want.importance is not None:
+        np.testing.assert_allclose(got.importance, want.importance,
+                                   rtol=rtol)
+
+
+def tree_data(n=400, f=5, seed=7):
+    """Uniform rows, an axis-aligned label with an interaction, and two
+    integer-valued regression targets (f32 histogram sums stay exact)."""
+    rng = np.random.RandomState(seed)
+    X = rng.rand(n, f)
+    y = ((X[:, 0] > 0.4) & (X[:, 3 % f] < 0.6)).astype(int)
+    yr = (np.floor(4 * X[:, 1]) - np.floor(2 * X[:, 4 % f])).astype(
+        np.float32)
+    return X, y, yr
