@@ -146,9 +146,10 @@ Phases (any failure exits non-zero; nothing is caught):
              identical; -grow batched == per_tree on the card;
              train_gradient_tree_boosting_classifier -trees 16 -iters 16
              -depth 6 -seed 3 on 50,000 rows, twice on the card and once on
-             the CPU: trees equal, decision scores within rtol 1e-5 / atol
-             1e-6, the share of equal predictions, whether the two card
-             runs are equal (reported); train_randomforest_regr -trees 8 on
+             the CPU: trees equal to the CPU's (counted), decision scores
+             within rtol 1e-5 / atol 1e-6, the share of equal predictions,
+             the two card runs bit-equal (checked: the histograms add each
+             bin's lanes in a fixed order); train_randomforest_regr -trees 8 on
              integer-valued targets card == CPU node for node; then -trees
              32 on rows of the UCI Covertype data set's shape (581,012 x 54:
              10 Q + 44 one-hot C columns, 7 classes, drawn from --seed):
@@ -162,6 +163,26 @@ Phases (any failure exits non-zero; nothing is caught):
              rows, 0 allocator segments after warmup) and the forest over
              HTTP beside main's model (4 clients x 16, 0 failed). No hand
              kernel: the JAX trees reach no pallas_call.
+16. pipeline — the continuous training pipeline (pipeline/) on the card at
+             the main path's widths: AROW r=0.1 at D = 2^22, width 32,
+             DriftStream batches of 4,096 (a concept phase every 131,072
+             events). Run 1: 64 batches on the pipeline's worker thread
+             (freeze every 65,536 events, checkpoint every 32,768, every
+             8th batch to a 16,384-row holdout, a label-flip window over
+             the middle freeze cycle) while 4 clients POST /predict of 64
+             string rows to the same registry (max_batch 64): at least 3
+             gated publishes, 2 of them hot swaps, the flip window refused
+             for regression, 0 failed requests; freshness p50 / p99, the
+             mean ms of the pipeline's spans, artifact and checkpoint bytes,
+             the worker's rows/s, /predict p50 / p99, serving's allocator
+             segments, peak memory. Run 2: 32 batches under a seeded fault
+             plan (crash_mid_write, corrupt, transient_step; a checkpoint
+             every 4 batches): 2 restarts, the .prev fallback fired, the
+             final checkpoint at batch 32 with no lost step. Run 3: 48
+             batches on the card and on the CPU (one checkpoint, last):
+             the same gate decisions, final w / cov at rtol 1e-4 / atol
+             1e-5, touched equal. No hand kernel: the pipeline trains
+             in minibatch mode and reaches no pallas_call.
 Prints a kernels JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 """
@@ -2053,6 +2074,7 @@ def phase_mf(seed, dev, smi, train, held):
     from hivemall_tpu_torch.io.checkpoint import dequantize_int8
     from hivemall_tpu_torch.models import mf as M
     from hivemall_tpu_torch.serving import ServingEngine, freeze, load
+    from hivemall_tpu_torch.utils import jax_prng
 
     print(f"[mf] card: {smi}; {MF_USERS} users x {MF_ITEMS} items, k = "
           f"{MF_K}, {MF_ROWS} training rows ({len(np.unique(train[0]))} "
@@ -2064,6 +2086,7 @@ def phase_mf(seed, dev, smi, train, held):
         opts = (f"-factor {MF_K} -mini_batch {MF_BATCH} -iter 2 -disable_cv "
                 f"-eta0 {eta0}")
         _, init_h = mf_hypers(kind, eta0)
+        jax_prng.clear_cache()  # time the draw itself; the fit reuses it
         _, init_secs = timed(lambda: M.init_mf_state(
             MF_USERS, MF_ITEMS, init_h, device=dev), dev)
         _, up_secs = timed(lambda: [torch_on(c, dev) for c in train], dev)
@@ -3255,9 +3278,10 @@ def phase_trees(seed, dev, smi, linear_model, ctr_rows):
           f"decision scores within rtol {GBT_TOL[0]:g} / atol "
           f"{GBT_TOL[1]:g}: {close} (largest |diff| "
           f"{float(np.max(np.abs(s1 - sc))):.3g}), equal predictions "
-          f"{share:.6f}; two card runs equal: {runs_equal} (largest |diff| "
-          f"{float(np.max(np.abs(s1 - s2))):.3g}; the residual histograms "
-          f"sum floats with CUDA's atomic adds)")
+          f"{share:.6f}; two card runs bit-equal: {runs_equal} (largest "
+          f"|diff| {float(np.max(np.abs(s1 - s2))):.3g}; every histogram "
+          f"bin adds its lanes in lane order, on both devices)")
+    assert runs_equal, "trees: two card runs of the bench GBT differ"
 
     yr = (np.floor(4 * X[:, 0]) - np.floor(2 * X[:, 3])
           + (X[:, 2] > 0.8)).astype(np.float32)
@@ -3365,6 +3389,349 @@ def tree_device_timing(forest, Xbc, yc, w, n_bins, attrs, dev):
           f"B)")
 
 
+PIPE_DIMS = 1 << 22  # bench.py:35's headline shape: 2^22 dims, 32 nnz
+PIPE_WIDTH = 32
+PIPE_BATCH = 4096
+PIPE_BATCHES = 64  # run 1: 262,144 events (cut from 128 for time)
+PIPE_DRIFT = 131072  # events per concept phase
+PIPE_FREEZE = 65536  # events per freeze -> gate -> publish cycle
+PIPE_CKPT = 32768  # events per elastic checkpoint
+PIPE_HOLDOUT_ROWS = 16384
+PIPE_FAULT_BATCHES = 32  # run 2
+PIPE_FAULT_CKPT = 4 * 4096  # run 2: a write every 4 batches
+PIPE_PARITY_BATCHES = 48  # run 3: three freeze cycles
+PIPE_CLIENTS = 4
+PIPE_REQUEST_ROWS = 64
+PIPE_SPANS = ("pipeline.train", "pipeline.freeze", "pipeline.gate",
+              "pipeline.publish", "pipeline.revert", "pipeline.checkpoint")
+
+
+def pipe_config(root, **kw):
+    from hivemall_tpu_torch.models.classifier import AROW
+    from hivemall_tpu_torch.pipeline import PipelineConfig
+
+    base = dict(artifact_root=root, dims=PIPE_DIMS, rule=AROW,
+                hyper={"r": 0.1}, name="ctr", width=PIPE_WIDTH,
+                freeze_every_events=PIPE_FREEZE,
+                checkpoint_every_events=PIPE_CKPT, holdout_every=8,
+                holdout_capacity_rows=PIPE_HOLDOUT_ROWS,
+                gate_engine_kwargs={"max_batch": 256,
+                                    "max_width": PIPE_WIDTH})
+    base.update(kw)
+    return PipelineConfig(**base)
+
+
+def pipe_registry(dev):
+    from hivemall_tpu_torch.serving import ModelRegistry
+
+    return ModelRegistry(max_batch=64, max_delay_ms=2.0, device=dev,
+                         engine_kwargs={"max_width": PIPE_WIDTH})
+
+
+def pipe_stream(seed, n_batches, flip=True):
+    """The run's DriftStream; with ``flip`` the label-flip window covers
+    the freeze cycle in the middle of the run, aligned to the cadence
+    (scripts/bench_pipeline.py:127-129). Returns (stream, flip window)."""
+    from hivemall_tpu_torch.dataset.lr_datagen import DriftStream
+
+    window = None
+    if flip:
+        cycle = max(2, (n_batches * PIPE_BATCH // PIPE_FREEZE) // 2)
+        window = (cycle * PIPE_FREEZE, (cycle + 1) * PIPE_FREEZE)
+    return DriftStream(PIPE_DIMS, batch=PIPE_BATCH, width=PIPE_WIDTH,
+                       seed=seed, drift_every=PIPE_DRIFT,
+                       label_flip_events=window), window
+
+
+def pipe_traffic(port, pool, stop, out):
+    """One client: POST /predict of 64 string rows from ``pool`` until
+    ``stop``. A 404 before the first publish is "not serving yet"; any
+    other failure is a failed request."""
+    import urllib.error
+    import urllib.request
+
+    i = 0
+    while not stop.is_set():
+        body = json.dumps({"model": "ctr",
+                           "instances": pool[i % len(pool)]}).encode()
+        i += 1
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/predict", data=body,
+            headers={"Content-Type": "application/json"})
+        t0 = time.perf_counter()
+        try:
+            with urllib.request.urlopen(req, timeout=120) as r:
+                ans = json.loads(r.read())
+            assert len(ans["predictions"]) == PIPE_REQUEST_ROWS
+            out["secs"].append(time.perf_counter() - t0)
+            out["versions"].add(ans["version"])
+        except urllib.error.HTTPError as e:
+            if e.code == 404 and not out["versions"]:
+                out["not_serving"] += 1
+                stop.wait(0.05)
+            else:
+                out["failed"].append(f"HTTP {e.code}: {e.read()[:200]!r}")
+        except Exception as e:  # collected and asserted by the caller
+            out["failed"].append(repr(e))
+
+
+def pipe_run_live(seed, dev, tmp):
+    """Run 1: the pipeline on the card for PIPE_BATCHES batches on a worker
+    thread while PIPE_CLIENTS clients POST /predict to the same registry.
+    Returns the numbers phase pipeline prints and checks."""
+    import os
+    import threading
+
+    import torch
+
+    from hivemall_tpu_torch.pipeline import ContinuousPipeline
+    from hivemall_tpu_torch.runtime.metrics import REGISTRY
+    from hivemall_tpu_torch.runtime.tracing import TRACER
+    from hivemall_tpu_torch.serving import serve
+
+    stream, flip = pipe_stream(seed, PIPE_BATCHES)
+    rng = np.random.RandomState(seed + 91)
+    pool = [[[f"{int(i)}:{v:.3f}" for i, v in zip(
+        rng.randint(0, PIPE_DIMS, PIPE_WIDTH), rng.rand(PIPE_WIDTH))]
+        for _ in range(PIPE_REQUEST_ROWS)] for _ in range(64)]
+    registry = pipe_registry(dev)
+    server = serve(registry, host="127.0.0.1", port=0)
+    root = os.path.join(tmp, "live")
+    pipe = ContinuousPipeline(registry, stream.block, pipe_config(root),
+                              holdout_stream_fn=stream.clean_block,
+                              device=dev)
+    seg = REGISTRY.counter("allocator", "new_segments.serving.ctr")
+    swaps = REGISTRY.counter("serving", "registry.swaps")
+    seg0, swaps0 = seg.value, swaps.value
+    traffic = {"secs": [], "versions": set(), "failed": [], "not_serving": 0}
+    stop = threading.Event()
+    clients = [threading.Thread(target=pipe_traffic,
+                                args=(server.server_address[1], pool, stop,
+                                      traffic))
+               for _ in range(PIPE_CLIENTS)]
+    TRACER.clear()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    try:
+        for c in clients:
+            c.start()
+        t0 = time.perf_counter()
+        pipe.start(PIPE_BATCHES)
+        finished = pipe.join(timeout=900)
+        wall = time.perf_counter() - t0
+        stop.set()
+        for c in clients:
+            c.join(timeout=300)
+            assert not c.is_alive(), "a /predict client hung"
+    finally:
+        stop.set()
+        pipe.stop()
+        server.shutdown()
+        server.server_close()
+        registry.shutdown()
+    assert finished, "pipeline run 1 did not finish"
+    st = pipe.status()
+    assert st["fatal"] is None, f"pipeline run 1: {st['fatal']}"
+    stages = TRACER.stage_breakdown()
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    arts = [os.path.join(root, f"ctr-v{d['version']}")
+            for d in st["decisions"] if d["reason"] != "artifact_corrupt"]
+    art_bytes = [sum(os.path.getsize(os.path.join(a, f))
+                     for f in os.listdir(a)) for a in arts
+                 if os.path.isdir(a)]
+    ckpt_bytes = os.path.getsize(pipe.cfg.checkpoint_path)
+    return dict(status=st, flip=flip, wall=wall, traffic=traffic,
+                stages=stages, peak=peak, art_bytes=art_bytes,
+                ckpt_bytes=ckpt_bytes, segments=seg.value - seg0,
+                swaps=swaps.value - swaps0,
+                freshness=pipe.freshness_percentiles())
+
+
+def pipe_run_faults(seed, dev, tmp):
+    """Run 2: PIPE_FAULT_BATCHES batches under a seeded fault plan composed
+    as tests/test_pipeline.py composes it (crash_mid_write at write 3,
+    corrupt at write 5, transient_step at step 17; a write every 4
+    batches, a freeze every 16). Returns (status, fired kinds, fallback warnings, manifest,
+    seconds)."""
+    import os
+    import warnings
+
+    from hivemall_tpu_torch.io.checkpoint import load_elastic
+    from hivemall_tpu_torch.pipeline import ContinuousPipeline
+    from hivemall_tpu_torch.runtime import faults
+
+    stream, _ = pipe_stream(seed, PIPE_FAULT_BATCHES, flip=False)
+    registry = pipe_registry(dev)
+    root = os.path.join(tmp, "faults")
+    pipe = ContinuousPipeline(
+        registry, stream.block,
+        pipe_config(root, checkpoint_every_events=PIPE_FAULT_CKPT,
+                    freeze_every_events=4 * PIPE_FAULT_CKPT),
+        holdout_stream_fn=stream.clean_block, device=dev)
+    plan = faults.FaultPlan(seed=seed + 3, faults=(
+        faults.Fault("crash_mid_write", at_write=3),
+        faults.Fault("corrupt", at_write=5),
+        faults.Fault("transient_step", at_step=17)))
+    t0 = time.perf_counter()
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            with faults.inject(plan) as injector:
+                st = pipe.run(PIPE_FAULT_BATCHES)
+    finally:
+        registry.shutdown()
+    secs = time.perf_counter() - t0
+    _, manifest = load_elastic(pipe.cfg.checkpoint_path)
+    fallbacks = sum("falling back" in str(w.message) for w in caught)
+    return st, sorted(f["kind"] for f in injector.fired), fallbacks, \
+        manifest, secs
+
+
+def pipe_run_parity(seed, dev, tmp, tag):
+    """Run 3 on one device: PIPE_PARITY_BATCHES batches, no traffic, one
+    checkpoint, at the end.
+    Returns (status, final checkpoint arrays, seconds)."""
+    import os
+
+    from hivemall_tpu_torch.io.checkpoint import load_elastic
+    from hivemall_tpu_torch.pipeline import ContinuousPipeline
+
+    stream, _ = pipe_stream(seed, PIPE_PARITY_BATCHES, flip=False)
+    registry = pipe_registry(dev)
+    pipe = ContinuousPipeline(registry, stream.block,
+                              pipe_config(os.path.join(tmp, tag),
+                                          checkpoint_every_events=(
+                                              PIPE_PARITY_BATCHES
+                                              * PIPE_BATCH)),
+                              holdout_stream_fn=stream.clean_block,
+                              device=dev)
+    t0 = time.perf_counter()
+    try:
+        st = pipe.run(PIPE_PARITY_BATCHES)
+    finally:
+        registry.shutdown()
+    arrays, _ = load_elastic(pipe.cfg.checkpoint_path)
+    return st, arrays, time.perf_counter() - t0
+
+
+def phase_pipeline(seed, dev, smi):
+    """The continuous training pipeline (hivemall_tpu_torch/pipeline/) on
+    the card at the main path's widths: run 1 under live /predict traffic
+    (gated publishes, hot swaps, a refused poisoned cycle, 0 failed
+    requests, freshness), run 2 under a seeded fault plan (self-healing,
+    no lost work), run 3 card against CPU (the same gate decisions, the
+    final tables within the smoke's tolerance)."""
+    import tempfile
+
+    import torch
+
+    print(f"[pipeline] card: {smi}")
+    with tempfile.TemporaryDirectory(prefix="hivemall_pipeline_") as tmp:
+        live = pipe_run_live(seed, dev, tmp)
+        st, tr = live["status"], live["traffic"]
+        decisions = st["decisions"]
+        published = [d for d in decisions if d["published"]]
+        hot_swaps = [d for d in published if d["reason"] != "first_publish"]
+        refused = [d for d in decisions if d["reason"] == "regression"]
+        flip_end = live["flip"][1] - 1
+        print(f"[pipeline] run 1: AROW r=0.1 at D = {PIPE_DIMS}, width "
+              f"{PIPE_WIDTH}, {PIPE_BATCHES} batches of {PIPE_BATCH} "
+              f"(DriftStream seed {seed}, a concept phase every "
+              f"{PIPE_DRIFT} events, label flip on events {live['flip']}); "
+              f"freeze every {PIPE_FREEZE} events, checkpoint every "
+              f"{PIPE_CKPT}, holdout every 8th batch into "
+              f"{PIPE_HOLDOUT_ROWS} rows; {PIPE_CLIENTS} clients POST "
+              f"/predict of {PIPE_REQUEST_ROWS} string rows throughout: "
+              f"wall {live['wall']:.3f} s")
+        print("[pipeline] run 1 lineage: " + "; ".join(
+            f"v{d['version']} {d['reason']}"
+            + (f" (cand {d['candidate_logloss']:.4f}"
+               + (f" vs live {d['incumbent_logloss']:.4f}"
+                  if d.get("incumbent_logloss") is not None else "") + ")"
+               if d.get("candidate_logloss") is not None else "")
+            for d in decisions))
+        lat = tr["secs"]
+        means = {k: live["stages"].get(k, {}).get("mean_ms")
+                 for k in PIPE_SPANS}
+        counts = {k: live["stages"].get(k, {}).get("count", 0)
+                  for k in PIPE_SPANS}
+        fresh = live["freshness"]
+        print(f"[pipeline] run 1: {len(published)} gated publishes "
+              f"({len(hot_swaps)} hot swaps of a serving version, registry "
+              f"swaps {live['swaps']}), {len(refused)} refused for "
+              f"regression, {st['rollbacks']} rollbacks; freshness p50 "
+              f"{fresh['p50']:.3f} s / p99 {fresh['p99']:.3f} s over "
+              f"{st['freshness_events']} events; mean ms by span: "
+              + ", ".join(f"{k.split('.')[1]} {means[k]:.3f} (x{counts[k]})"
+                          if means[k] is not None else
+                          f"{k.split('.')[1]} none" for k in PIPE_SPANS))
+        print(f"[pipeline] run 1: worker trained {st['trained_rows']} rows, "
+              f"{st['trained_rows'] / live['wall']:.0f} rows/s over the "
+              f"run's wall clock; artifacts {live['art_bytes']} B each, "
+              f"freeze {means['pipeline.freeze']:.3f} ms mean; checkpoint "
+              f"{live['ckpt_bytes']} B, {means['pipeline.checkpoint']:.3f} "
+              f"ms mean ({st['checkpoints_written']} written); /predict: "
+              f"{len(lat)} answered, p50 {percentile_ms(lat, 50):.4f} / "
+              f"p99 {percentile_ms(lat, 99):.4f} ms, "
+              f"{len(tr['failed'])} failed, {tr['not_serving']} 404s before "
+              f"the first publish, versions served "
+              f"{sorted(tr['versions'], key=int)}; serving's new allocator "
+              f"segments during the run {live['segments']} (per device: the "
+              f"trainer's segments count there too); peak device memory "
+              f"{live['peak'] / 2 ** 20:.1f} MiB")
+        assert len(published) >= 3, f"pipeline: {len(published)} publishes"
+        assert len(hot_swaps) >= 2, f"pipeline: {len(hot_swaps)} hot swaps"
+        assert any(d.get("trained_through_event") == flip_end
+                   for d in refused), \
+            f"pipeline: the flip window was not refused: {decisions}"
+        assert not tr["failed"], f"pipeline: failed requests {tr['failed'][:3]}"
+        assert lat, "pipeline: no /predict answered"
+        assert st["freshness_events"] == st["events"] \
+            == PIPE_BATCHES * PIPE_BATCH
+
+        st2, fired, fallbacks, manifest, secs2 = pipe_run_faults(seed, dev,
+                                                                 tmp)
+        trained = sum(PIPE_BATCH for i in range(PIPE_FAULT_BATCHES)
+                      if i % 8 != 1)
+        print(f"[pipeline] run 2 (faults {fired}, {PIPE_FAULT_BATCHES} "
+              f"batches, a checkpoint every {PIPE_FAULT_CKPT} events): "
+              f"{secs2:.3f} s; restarts {st2['restarts']} "
+              f"({st2['restart_causes']}), replayed batches "
+              f"{st2['replayed_batches']}, .prev fallbacks {fallbacks}; "
+              f"final checkpoint block_step {manifest['block_step']}, step "
+              f"{manifest['step']} (an uninterrupted run: {trained}), "
+              f"publishes {st2['publishes']}")
+        assert fired == ["corrupt", "crash_mid_write", "transient_step"]
+        assert st2["fatal"] is None and st2["restarts"] == 2
+        assert fallbacks >= 1, "pipeline: the .prev fallback never fired"
+        assert manifest["block_step"] == PIPE_FAULT_BATCHES
+        assert manifest["step"] == trained
+        assert manifest["events"] == PIPE_FAULT_BATCHES * PIPE_BATCH
+
+        card, ca, c_secs = pipe_run_parity(seed, dev, tmp, "card")
+        cpu, pa, p_secs = pipe_run_parity(seed, torch.device("cpu"), tmp,
+                                          "cpu")
+
+    def lineage(rep):
+        return [(d["version"], d["published"], d["reason"])
+                for d in rep["decisions"]]
+
+    err = {k: float(np.max(np.abs(ca[k] - pa[k]))) for k in ("weights",
+                                                             "covars")}
+    print(f"[pipeline] run 3 ({PIPE_PARITY_BATCHES} batches, "
+          f"{PIPE_PARITY_BATCHES * PIPE_BATCH} events): card {c_secs:.3f} "
+          f"s, CPU {p_secs:.3f} s; decisions card {lineage(card)}, CPU "
+          f"{lineage(cpu)}; final w / cov largest |diff| {err['weights']:.3g}"
+          f" / {err['covars']:.3g} (rtol {RTOL:g} / atol {ATOL:g}), touched "
+          f"equal")
+    assert lineage(card) == lineage(cpu), "pipeline: card decisions != CPU"
+    for k in ("weights", "covars"):
+        np.testing.assert_allclose(ca[k], pa[k], rtol=RTOL, atol=ATOL,
+                                   err_msg=f"pipeline run 3 {k}")
+    np.testing.assert_array_equal(ca["touched"], pa["touched"])
+    assert int(ca["step"]) == int(pa["step"])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3460,6 +3827,14 @@ def main(argv=None) -> int:
     print(f"[trees] phase took {time.perf_counter() - t_trees:.1f} s; kernel "
           f"launches during it: {dict(LAUNCHES)} (the trees reach no "
           f"pallas_call in the JAX package and run plain torch ops here)")
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+    t_pipe = time.perf_counter()
+    phase_pipeline(args.seed, dev, smi)
+    print(f"[pipeline] phase took {time.perf_counter() - t_pipe:.1f} s; "
+          f"kernel launches during it: {dict(LAUNCHES)} (the pipeline "
+          f"trains through make_train_step in minibatch mode and reaches no "
+          f"pallas_call in the JAX package)")
     source = "hivemall_tpu_torch/kernels/csrc/linear_scan.cu"
     replaces = "hivemall_tpu/kernels/linear_scan.py:44"
     kernels = [

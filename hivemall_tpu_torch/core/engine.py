@@ -319,6 +319,23 @@ def make_train_fn(
     return scan_step if mode == "scan" else minibatch_step
 
 
+def make_train_step(
+    rule: Rule,
+    hyper: dict,
+    mode: str = "minibatch",
+    mini_batch_average: bool = True,
+    device: DeviceLike = None,
+):
+    """The single-replica step: `make_train_fn` on ``device`` (None: the
+    CUDA device, or raise). The JAX package jits the step here and donates
+    the state passed in; eager torch has nothing to compile, and the
+    port's steps consume the state they are given (the module docstring),
+    the stand-in for that donation."""
+    return make_train_fn(rule, hyper, mode=mode,
+                         mini_batch_average=mini_batch_average,
+                         device=device)
+
+
 def make_epoch(step_fn):
     """Whole-epoch driver: a loop of `step_fn` over a stack of staged blocks.
 

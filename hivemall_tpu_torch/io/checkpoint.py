@@ -11,6 +11,9 @@ between the two packages in both directions:
   sparse codec blob (utils/codec.encode_sparse_model).
 - `save_linear_state` / `load_linear_state` — the full training state
   (slots, globals, step counter) for mid-training resume.
+- `save_elastic` / `load_elastic` — the self-verifying single-file
+  checkpoint with an embedded manifest and a payload digest, an atomic
+  write and a ``.prev`` fallback (the continuous pipeline's checkpoints).
 
 bf16 at rest, without ml_dtypes: a bf16 table is stored widened to f32
 (value-exact) with its dtype NAME recorded, or — in quantized artifacts —
@@ -20,6 +23,10 @@ names are the JAX package's strings ("float32", "bfloat16", "int8").
 
 from __future__ import annotations
 
+import hashlib
+import json
+import os
+import warnings
 from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
@@ -258,3 +265,131 @@ def load_linear_state(path: str, device: DeviceLike = None) -> LinearState:
     # closed (fd leak otherwise)
     with np.load(path) as z:
         return unpack_linear_state({k: z[k] for k in z.files}, device)
+
+
+# --- elastic checkpoints -----------------------------------------------------
+# One self-contained npz per checkpoint: the payload arrays plus an embedded
+# JSON manifest and a sha256 digest over the payload bytes — the JAX
+# package's format, so either package loads the other's files. Written as
+# tmp, then the previous checkpoint rotated to `path.prev`, then tmp
+# renamed into place: a crash at ANY point leaves at least one valid
+# checkpoint on disk, and the loader verifies the digest and falls back
+# (loudly) to `.prev` when the newest file is truncated or corrupt.
+
+ELASTIC_FORMAT_VERSION = 1
+MANIFEST_KEY = "__manifest__"
+PREV_SUFFIX = ".prev"
+
+
+class CheckpointCorrupt(RuntimeError):
+    """The checkpoint file exists but cannot be trusted: unreadable zip
+    (truncation), missing manifest, or payload digest mismatch."""
+
+
+class NotElasticCheckpoint(CheckpointCorrupt):
+    """A readable npz with no embedded manifest — a save_linear_state
+    checkpoint, not a rotted elastic one. The loader raises it instead of
+    falling back."""
+
+
+def elastic_digest(arrays: Mapping[str, np.ndarray]) -> str:
+    """sha256 over the payload: sorted (name, dtype, shape, raw bytes).
+    The manifest carries this digest, so it cannot cover itself — the
+    loader recomputes over the arrays and compares."""
+    h = hashlib.sha256()
+    for name in sorted(arrays):
+        if name == MANIFEST_KEY:
+            continue
+        a = np.ascontiguousarray(np.asarray(arrays[name]))
+        h.update(name.encode())
+        h.update(str(a.dtype.str).encode())
+        h.update(str(a.shape).encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def crash_point(tag: str, path: str) -> None:
+    """No-op hook on the checkpoint write path — the monkeypatch target of
+    the fault harness (runtime/faults.py), which simulates a crash between
+    the payload write and the atomic rename. Tags: ``elastic.after_write``
+    (tmp exists, nothing rotated), ``elastic.before_rename`` (previous
+    checkpoint already rotated to .prev, new one not yet in place)."""
+
+
+def checkpoint_written(path: str) -> None:
+    """No-op hook fired after a successful write and rename — the fault
+    harness's seat for truncating or corrupting the file after the fact."""
+
+
+def save_elastic(path: str, arrays: Dict[str, np.ndarray],
+                 manifest: dict) -> dict:
+    """Atomically persist an elastic checkpoint: payload ``arrays`` (host
+    numpy arrays, e.g. `pack_linear_state`) plus ``manifest`` (digest and
+    format_version are stamped here). On success the previous checkpoint
+    survives as ``path + '.prev'``. Returns the stamped manifest."""
+    manifest = dict(manifest)
+    manifest["format_version"] = ELASTIC_FORMAT_VERSION
+    manifest["digest"] = elastic_digest(arrays)
+    # the .npz suffix keeps np.savez from renaming the temp file
+    tmp = path + ".tmp.npz"
+    np.savez_compressed(
+        tmp, **arrays,
+        **{MANIFEST_KEY: np.asarray(json.dumps(manifest))})
+    crash_point("elastic.after_write", path)
+    if os.path.exists(path):
+        os.replace(path, path + PREV_SUFFIX)
+    crash_point("elastic.before_rename", path)
+    os.replace(tmp, path)
+    checkpoint_written(path)
+    return manifest
+
+
+def _load_elastic_one(path: str):
+    """Read and verify ONE checkpoint file. Raises CheckpointCorrupt on any
+    integrity failure (truncated zip, missing or unparsable manifest,
+    digest mismatch) and FileNotFoundError when absent."""
+    if not os.path.exists(path):
+        raise FileNotFoundError(path)
+    try:
+        with np.load(path, allow_pickle=False) as z:
+            arrays = {k: z[k] for k in z.files}
+    except FileNotFoundError:
+        raise
+    except Exception as e:  # zipfile.BadZipFile, zlib.error, ValueError ...
+        raise CheckpointCorrupt(f"{path}: unreadable npz ({e})") from e
+    if MANIFEST_KEY not in arrays:
+        raise NotElasticCheckpoint(
+            f"{path}: no {MANIFEST_KEY} entry — not an elastic checkpoint")
+    try:
+        manifest = json.loads(str(arrays.pop(MANIFEST_KEY)[()]))
+    except Exception as e:
+        raise CheckpointCorrupt(f"{path}: unparsable manifest ({e})") from e
+    digest = elastic_digest(arrays)
+    if digest != manifest.get("digest"):
+        raise CheckpointCorrupt(
+            f"{path}: payload digest {digest[:12]}… does not match the "
+            f"manifest's {str(manifest.get('digest'))[:12]}…")
+    return arrays, manifest
+
+
+def load_elastic(path: str, fallback: bool = True):
+    """Load and verify the newest valid checkpoint at ``path``. When the
+    newest file is missing or corrupt and ``fallback`` is on, fall back —
+    loudly, with a RuntimeWarning naming the reason — to ``path + '.prev'``
+    instead of failing the resume. Returns ``(arrays, manifest)``: host
+    numpy arrays (`unpack_linear_state` puts a state on a device)."""
+    try:
+        return _load_elastic_one(path)
+    except (FileNotFoundError, CheckpointCorrupt) as e:
+        if not fallback or isinstance(e, NotElasticCheckpoint):
+            # a save_linear_state checkpoint is a format, not a rot: the
+            # caller decides how to read it
+            raise
+        prev = path + PREV_SUFFIX
+        if not os.path.exists(prev):
+            raise
+        warnings.warn(
+            f"elastic checkpoint {path} is unusable ({e}); falling back to "
+            f"the previous checkpoint {prev} — work since that checkpoint "
+            "will be replayed", RuntimeWarning, stacklevel=2)
+        return _load_elastic_one(prev)

@@ -28,13 +28,14 @@ through the minibatch step's own row math on one-row slices: some 25
 small launches a row on the card, launch-bound by design (a CUDA graph or
 a hand kernel is later work, ROADMAP Queue 2 #4).
 
-**Initial P and Q differ from the JAX package's.** JAX draws them from
-``jax.random`` with ``PRNGKey(seed)``, a stream torch cannot reproduce.
-The port draws P, then Q, from one ``torch.Generator`` seeded with
-``-seed``, on the CPU, and copies them to the device (the port's FM makes
-the same choice) — so a port run on the card and one on the CPU start
-from the same tables. `mf_state_from_numpy` carries a JAX state across
-when both packages must start from one state.
+**Initial P and Q are the JAX package's.** JAX splits ``PRNGKey(seed)``
+in two and draws P from the first half and Q from the second
+(``uniform`` in [0, maxval) for ``rankinit="random"``, ``normal`` times
+``min_init_stddev`` for "gaussian"). The port makes the same draw on the
+host with ``utils/jax_prng`` (numpy threefry, equal to JAX's bits) and
+copies the tables to the device, as FM's V is drawn — so a port run on
+the card, one on the CPU and a JAX run start from the same tables.
+`mf_state_from_numpy` still carries any JAX state across.
 
 `step` is a host int (as in FMState). Steps update the state's tensors in
 place and return the new state: treat the state passed in as consumed
@@ -55,6 +56,7 @@ from ..core.state import _numpy
 from ..device import DeviceLike, resolve_device
 from ..ops.convergence import ConversionState
 from ..ops.eta import EtaEstimator, get_eta
+from ..utils import jax_prng
 from ..utils.options import Options
 
 
@@ -128,22 +130,23 @@ class BPRHyper:
 
 def init_mf_state(num_users: int, num_items: int, hyper,
                   device: DeviceLike = None) -> MFState:
-    """A fresh model on ``device``: P then Q drawn on the CPU from
-    ``torch.Generator().manual_seed(hyper.seed)`` (uniform in [0, maxval)
-    for ``rankinit="random"``, N(0, min_init_stddev^2) for "gaussian"; see
-    the module docstring), biases 0, mu at ``hyper.mu``, AdaGrad
-    accumulators 0 when ``hyper.adagrad`` and None otherwise."""
+    """A fresh model on ``device``: P and Q drawn on the host as JAX draws
+    them, from the two halves of ``split(PRNGKey(hyper.seed))`` (uniform
+    in [0, maxval) for ``rankinit="random"``, N(0, 1) times
+    ``min_init_stddev`` for "gaussian"; see the module docstring), biases
+    0, mu at ``hyper.mu``, AdaGrad accumulators 0 when ``hyper.adagrad``
+    and None otherwise."""
     dev = resolve_device(device)
     k = hyper.factor
-    gen = torch.Generator().manual_seed(hyper.seed)
+    ku, ki = jax_prng.split(hyper.seed)
     if hyper.rankinit == "gaussian":
-        P = torch.randn((num_users, k), generator=gen) \
-            * hyper.min_init_stddev
-        Q = torch.randn((num_items, k), generator=gen) \
-            * hyper.min_init_stddev
+        std = np.float32(hyper.min_init_stddev)
+        P = jax_prng.normal(ku, (num_users, k)) * std
+        Q = jax_prng.normal(ki, (num_items, k)) * std
     else:  # 'random' uniform in [0, maxval) (ref: Rating.rand init)
-        P = torch.rand((num_users, k), generator=gen) * hyper.maxval
-        Q = torch.rand((num_items, k), generator=gen) * hyper.maxval
+        P = jax_prng.uniform(ku, (num_users, k), 0.0, hyper.maxval)
+        Q = jax_prng.uniform(ki, (num_items, k), 0.0, hyper.maxval)
+    P, Q = torch.from_numpy(P), torch.from_numpy(Q)
 
     def zeros(*shape, dtype=torch.float32):
         return torch.zeros(shape, dtype=dtype, device=dev)

@@ -1,12 +1,13 @@
 """Histogram-based decision-tree growth (classification + regression) — the
 port of `hivemall_tpu/models/trees/grow.py`.
 
-One tree level = ONE scatter-add (``index_add_``) building per-(node,
-feature, bin) histograms + one split evaluation over the whole frontier +
-one routing step, on the device; the host walks the (tiny) frontier
-bookkeeping and reads each level's split decisions in ONE device-to-host
-copy (``SYNCS["grow"]`` counts them). The JAX package's functions are plain
-XLA (no Pallas kernel), so these are plain torch ops.
+One tree level = ONE scatter-add in lane order (on the card a stable
+sort of the lanes by bin and a sequential sum per bin) building
+per-(node, feature, bin) histograms + one split evaluation over the
+whole frontier + one routing step, on the device; the host walks the
+(tiny) frontier bookkeeping and reads each level's split decisions in ONE
+device-to-host copy (``SYNCS["grow"]`` counts them). The JAX package's
+functions are plain XLA (no Pallas kernel), so these are plain torch ops.
 
 Split criteria: GINI or ENTROPY for classification (the reference's -rule
 option, RandomForestClassifierUDTF.java:130), variance reduction for
@@ -16,10 +17,10 @@ threshold (bin <= v), mirroring the reference's NOMINAL/NUMERIC split types.
 Where the port differs in form, never in result:
 
 - **Dropped lanes.** JAX drops the lanes of settled rows (``assign < 0``)
-  with ``mode="drop"`` at an index past the table; ``index_add_`` raises on
-  such an index, so a settled row's slot becomes a sink slot past the
-  frontier whose histogram block is cut off after the scatter. No index is
-  ever clamped into a live bin.
+  with ``mode="drop"`` at an index past the table; here a settled row's
+  slot becomes a sink slot past the frontier, whose lanes sort after the
+  last bin and are never summed. No index is ever clamped into a live
+  bin.
 - **Hoisting.** A histogram lane's offset inside its slot's ``[F, B(, C)]``
   block, and its broadcast weight (and target terms), do not change from
   level to level: the growers build them once per tree (per forest for the
@@ -40,19 +41,20 @@ Where the port differs in form, never in result:
   classification gain's multiply-adds into fused multiply-adds (``Σ p²``,
   ``imp_l * n_l + imp_r * n_r`` and ``imp_p * n_p - child``); the port
   computes those in float64 and rounds once to float32 (``_fma``), the
-  same value on the CPU and the card, so gini gains equal JAX's bit for
-  bit. Entropy's ``log2`` is XLA's own approximation, which torch's is
-  not, so entropy gains may differ from JAX's in the last bits.
+  same value on the CPU and the card. Entropy's ``log2`` is evaluated as
+  ``jnp.log2`` lowers on the CPU: XLA's own ``log`` (Cephes logf, its
+  multiply-adds fused; ``_xla_log``) times the float32 reciprocal of
+  ``log(2)``. So gini and entropy gains both equal JAX's bit for bit.
 - **The walk** (``predict_forest_binned``) takes ``min(depth of the stacked
   trees, max_depth)`` steps instead of ``max_depth``: a row at a leaf stays
   there, so the answer is the same with fewer launches, and a tree deeper
   than ``max_depth`` still stops at an internal node, as in JAX.
 
-Exactness: classification histograms sum integer bootstrap weights, exact
-in f32 below 2^24 in any order, so the card grows the CPU's trees node for
-node. Regression histograms (and GBT residuals) sum floats: CUDA's
-``index_add_`` adds in atomic order, which may change from run to run, and
-a near-tie can then flip a split.
+Exactness: every histogram bin adds its lanes in lane order
+(``_scatter_hist``; on the card through ``_ordered_hist``), the order of
+the CPU's ``index_add_`` and of XLA's CPU scatter. So the card grows the
+CPU's trees node for node, float targets and GBT residuals included, and
+two card runs grow the same trees.
 
 ``row_shard=`` (the JAX package's row-sharded growth,
 ``parallel/forest_shard.py``) is a later slice of the port and raises by
@@ -69,6 +71,8 @@ import torch
 import torch.nn.functional as TF
 
 from ...device import DeviceLike, resolve_device
+from ...utils.jax_prng import _LOG_P, _LOG_Q1, _LOG_Q2
+from ...utils.jax_prng import _xla_log as _np_xla_log
 
 NEG = -1e30
 
@@ -158,14 +162,38 @@ def _scatter_hist(offsets, slot, n_slots: int, block: int, values):
     ``slot * block + offset``; a negative slot (a settled row) goes to a
     sink slot past the table, cut off after. ``slot`` is [N] or [G, N]
     (already offset by tree), ``offsets`` [N, F]. Returns
-    [len(values), n_slots * block] f32."""
+    [len(values), n_slots * block] f32.
+
+    Every bin adds its lanes in lane order, from 0.0, one add at a time —
+    the order of XLA's CPU scatter — on both devices. The CPU's
+    ``index_add_`` adds in that order by itself; CUDA's adds in atomic
+    order, so on the card `_ordered_hist` sums instead. Float histograms
+    are then the same on every run and on both devices, with no float
+    atomics and no process-wide flag."""
     slot = torch.where(slot >= 0, slot, n_slots).long()
     flat = (slot[..., None] * block + offsets).reshape(-1)
+    if flat.device.type != "cpu":
+        return _ordered_hist(flat, values, n_slots * block)
     out = torch.zeros((len(values), (n_slots + 1) * block),
-                      dtype=torch.float32, device=offsets.device)
+                      dtype=torch.float32)
     for k, v in enumerate(values):
         out[k].index_add_(0, flat, v)
     return out[:, :n_slots * block]
+
+
+def _ordered_hist(flat, values, size: int) -> torch.Tensor:
+    """[len(values), size] sums of each lane vector at ``flat``, lanes at
+    or past ``size`` dropped, each bin adding its lanes in lane order from
+    0.0: a stable sort groups the lanes by bin without reordering them,
+    and ``segment_reduce`` over a ``[lanes, 1]`` column runs one
+    sequential loop per bin (on CUDA, a thread a bin)."""
+    order = torch.argsort(flat, stable=True)
+    bounds = torch.searchsorted(flat[order], torch.arange(
+        size + 1, device=flat.device))
+    return torch.stack([
+        torch.segment_reduce(v[order][:, None], "sum", offsets=bounds,
+                             axis=0, unsafe=True, initial=0.0)[:, 0]
+        for v in values])
 
 
 def _reg_stats(sums, n_slots: int, F: int, B: int) -> torch.Tensor:
@@ -271,14 +299,44 @@ def _fma(a, b, c):
     return (a.double() * b.double() + c.double()).float()
 
 
+def _xla_log(x: torch.Tensor) -> torch.Tensor:
+    """float32 natural log as XLA's CPU code computes it: the torch form of
+    ``utils/jax_prng._xla_log`` (Cephes logf: frexp, one sqrt(1/2) fold, a
+    degree-8 polynomial whose multiply-adds are fused)."""
+    x = torch.clamp(x, min=1.17549435e-38)
+    m, e = torch.frexp(x)
+    e = e.float()
+    fold = m < 0.707106781186547524
+    t = m - 1.0
+    e = e - fold.float()
+    t = t + torch.where(fold, m, torch.zeros_like(m))
+    t2 = t * t
+    t3 = t2 * t
+    c = [torch.tensor(v, dtype=torch.float32) for v in _LOG_P]
+    y = _fma(_fma(c[0], t, c[1]), t, c[2])
+    y1 = _fma(_fma(c[3], t, c[4]), t, c[5])
+    y2 = _fma(_fma(c[6], t, c[7]), t, c[8])
+    y = _fma(y, t3, y1)
+    y = _fma(y, t3, y2)
+    y = _fma(y, t3, e * _LOG_Q1)
+    t = _fma(t2, torch.tensor(-0.5), t)
+    t = t + y
+    return _fma(e, torch.tensor(_LOG_Q2), t)
+
+
+# jnp.log2(x) on the CPU: log(x) / log(2), the division by a constant
+# folded into a multiply by its float32 reciprocal
+_INV_LN2 = float(np.float32(1.0) / _np_xla_log(np.float32(2.0)))
+
+
 def _impurity_parts(counts, rule: str):
     """counts [..., C] -> (impurity, n); impurity * n is additive over
     parent and children."""
     n = _ordered_sum(counts)
     p = counts / torch.clamp(n, min=1e-12)[..., None]
     if rule == "entropy":
-        return -_ordered_sum(torch.where(
-            p > 0, p * torch.log2(torch.clamp(p, min=1e-12)), 0.0)), n
+        log2 = _xla_log(torch.clamp(p, min=1e-12)) * _INV_LN2
+        return -_ordered_sum(torch.where(p > 0, p * log2, 0.0)), n
     sq = p[..., 0] * p[..., 0]  # Σ p² as XLA's fused multiply-add chain
     for c in range(1, p.shape[-1]):
         sq = _fma(p[..., c], p[..., c], sq)

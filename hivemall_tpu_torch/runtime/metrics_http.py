@@ -12,33 +12,29 @@ exposition are the JAX package's (`hivemall_tpu/runtime/metrics_http.py`):
 - `GET /healthz`  — liveness (200 + json with process/device info, read
   from torch);
 - `GET /trace?n=` — the last n committed traces from the process tracer
-  (runtime/tracing.py) as Chrome trace_event JSON (ui.perfetto.dev).
+  (runtime/tracing.py) as Chrome trace_event JSON (ui.perfetto.dev);
+- `GET /slo`      — every registered objective's multi-window burn rates,
+  ok/warn/page state and recent transitions (runtime/slo.py);
+- `GET /debug/bundle?n=` — the flight-recorder snapshot in one strictly
+  JSON document (runtime/debug_bundle.py); on the serving port it
+  includes every deployed model's describe().
 
-`GET /slo` and `GET /debug/bundle` answer 404 like any unknown route, with
-a body that names the later slice of the port they belong to.
-
-serving/server.py's handler extends this one on the serving port.
+serving/server.py's handler extends this one on the serving port;
+`serve_metrics(port)` starts the bare endpoint on a daemon thread.
 """
 
 from __future__ import annotations
 
 import json
 import re
-from http.server import BaseHTTPRequestHandler
+import threading
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlparse
 
 from .metrics import REGISTRY
 from .tracing import TRACER
 
 _NAME_OK = re.compile(r"[^a-zA-Z0-9_:]")
-
-# routes of the JAX package's endpoint whose subsystems are later slices of
-# the port: answered as unknown routes, naming what is missing
-LATER_SLICE_ROUTES = {
-    "/slo": "the SLO engine (runtime/slo.py)",
-    "/debug/bundle": "the flight recorder (runtime/debug_bundle.py)",
-}
-
 
 def _prom_name(key: str) -> str:
     """Metric keys like "train.rows_processed" -> prometheus-legal names."""
@@ -125,15 +121,34 @@ class _Handler(BaseHTTPRequestHandler):
             body = json.dumps(TRACER.chrome_trace(n=n)).encode()
             self.send_response(200)
             self.send_header("Content-Type", "application/json")
+        elif path == "/slo":
+            from .slo import ENGINE
+
+            body = json.dumps(ENGINE.status()).encode()
+            self.send_response(200)
+            self.send_header("Content-Type", "application/json")
+        elif path == "/debug/bundle":
+            from .debug_bundle import build_bundle
+
+            qs = parse_qs(urlparse(self.path).query)
+            try:
+                n = int(qs.get("n", ["50"])[0])
+            except ValueError:
+                n = 50
+            # a serving server carries its registry (serving/server.serve);
+            # the bare metrics endpoint has none and the models section
+            # stays empty
+            body = json.dumps(build_bundle(
+                registry=getattr(self.server, "registry", None),
+                n_traces=n)).encode()
+            self.send_response(200)
+            self.send_header("Content-Type", "application/json")
         elif path == "/healthz":
             body = json.dumps({"status": "ok", **device_info()}).encode()
             self.send_response(200)
             self.send_header("Content-Type", "application/json")
         else:
-            what = LATER_SLICE_ROUTES.get(path)
-            body = (b"not found\n" if what is None else
-                    f"not found: {path} is {what}, a later slice of the torch "
-                    f"port (hivemall_tpu_torch)\n".encode())
+            body = b"not found\n"
             self.send_response(404)
             self.send_header("Content-Type", "text/plain")
         self.send_header("Content-Length", str(len(body)))
@@ -142,3 +157,15 @@ class _Handler(BaseHTTPRequestHandler):
 
     def log_message(self, fmt, *args):  # silence per-request stderr noise
         pass
+
+
+def serve_metrics(port: int = 0, host: str = "127.0.0.1"
+                  ) -> ThreadingHTTPServer:
+    """Start the scrape endpoint on a daemon thread; returns the server
+    (``server.server_address[1]`` is the bound port — pass port=0 for an
+    ephemeral one). Call ``server.shutdown()`` to stop."""
+    server = ThreadingHTTPServer((host, port), _Handler)
+    t = threading.Thread(target=server.serve_forever, daemon=True,
+                         name="hivemall-tpu-metrics")
+    t.start()
+    return server

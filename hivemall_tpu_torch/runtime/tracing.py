@@ -428,6 +428,22 @@ class Tracer:
             self._seq = 0
             self.dropped = 0
 
+    def slowest(self, k: int = 5, n: Optional[int] = None) -> List[dict]:
+        """Top-k slowest committed traces with their per-stage totals (the
+        flight recorder's "where did the p99 go" section)."""
+        ranked = sorted(self.traces(n), key=lambda t: -t["duration_ms"])[:k]
+        out = []
+        for t in ranked:
+            stages: Dict[str, float] = {}
+            for s in t["spans"]:
+                stages[s["name"]] = stages.get(s["name"], 0.0) \
+                    + s["dur_us"] / 1e3
+            out.append({"trace_id": t["trace_id"], "root": t["root"],
+                        "duration_ms": round(t["duration_ms"], 3),
+                        "stages_ms": {k_: round(v, 3)
+                                      for k_, v in sorted(stages.items())}})
+        return out
+
     def stage_breakdown(self, n: Optional[int] = None) -> Dict[str, dict]:
         """Aggregate per-stage time across committed traces:
         {stage: {count, total_ms, mean_ms, max_ms}}."""

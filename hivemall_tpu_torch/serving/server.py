@@ -25,15 +25,15 @@ HTTP surface (layered on runtime/metrics_http.py — same process, one port):
   (400 otherwise). Same priority/deadline/traceparent contract and error
   mapping as /predict, through the model's SEPARATE retrieval batcher;
 - ``GET /models``    registry listing (name, version, family, dtype,
-  table bytes, admission and placement state);
+  table bytes, admission and placement state, and the publisher's
+  lineage: the gate decisions a continuous pipeline deployed it with);
 - ``GET /healthz``   overload-aware: reports ``degraded`` (still 200 —
   alive, shedding predictably) when any model's queue passes the depth
-  threshold; device fields from torch;
-- ``GET /metrics`` / ``GET /trace?n=`` — inherited from metrics_http.
-
-``GET /slo`` (the SLO engine) and ``GET /debug/bundle`` (the flight
-recorder) are later slices of the port: they answer as the JAX server
-answers an unknown route (404), with a body naming the slice.
+  threshold or an SLO pages (runtime/slo.py; the ``slo`` block); device
+  fields from torch;
+- ``GET /metrics`` / ``GET /trace?n=`` / ``GET /slo`` /
+  ``GET /debug/bundle?n=`` — inherited from metrics_http (the bundle
+  describes this server's registry).
 """
 
 from __future__ import annotations
@@ -61,7 +61,8 @@ class ModelEntry:
     """One deployed model version: engine + its batching front."""
 
     def __init__(self, name: str, version: str, engine: ServingEngine,
-                 batcher: DynamicBatcher, retrieval_engine=None,
+                 batcher: DynamicBatcher,
+                 lineage: Optional[list] = None, retrieval_engine=None,
                  retrieval_batcher: Optional[DynamicBatcher] = None) -> None:
         self.name = name
         self.version = version
@@ -74,6 +75,12 @@ class ModelEntry:
         self.retrieval_engine = retrieval_engine
         self.retrieval_batcher = retrieval_batcher
         self.deployed_unix = time.time()
+        # version lineage: the publisher's recent gate decisions (publish /
+        # refusal / rollback records, pipeline/loop.py) surfaced on
+        # /models, so "why is v7 serving and where did v6 go" is
+        # answerable from the serving endpoint alone. Immutable after
+        # deploy.
+        self.lineage = list(lineage or [])
 
     def close(self) -> None:
         """Drain and close this version's batchers."""
@@ -102,6 +109,9 @@ class ModelEntry:
             "admission": self.batcher.overload_state(),
             # the score cache is a later slice of the port
             "cache": {"enabled": False},
+            # publisher lineage: recent gate decisions for this model's
+            # version sequence (empty for hand-deployed models)
+            "lineage": [dict(d) for d in self.lineage],
             # the top-K surface: catalog size, block/K geometry, index.
             # {"enabled": False} = /topk answers 400 for this model
             "retrieval": {"enabled": True,
@@ -163,6 +173,7 @@ class ModelRegistry:
 
     def deploy(self, name: str, source, version: Optional[str] = None,
                batcher_overrides: Optional[dict] = None,
+               lineage: Optional[list] = None,
                score_cache_bytes: Optional[int] = None,
                retrieval: Optional[dict] = None,
                **engine_overrides) -> ModelEntry:
@@ -176,6 +187,9 @@ class ModelRegistry:
         top-K surface for this model — MF/FM only — on the registry's
         device, warmed, behind its OWN DynamicBatcher (``POST /topk``);
         None (default) means /topk answers 400 for this model.
+        ``lineage`` attaches the publisher's gate-decision records to the
+        entry (surfaced on /models; the continuous pipeline passes its
+        recent publish / refusal / rollback history here).
         ``score_cache_bytes`` is a later slice of the port and raises."""
         from .artifact import Artifact, load as load_artifact
 
@@ -227,7 +241,7 @@ class ModelRegistry:
                                           "max_batch": r_engine.max_batch})
         batcher = DynamicBatcher(engine.predict, name=name, **bkw)
         entry = ModelEntry(name, str(version), engine, batcher,
-                           retrieval_engine=r_engine,
+                           lineage=lineage, retrieval_engine=r_engine,
                            retrieval_batcher=r_batcher)
         with self._lock:
             old = self._entries.get(name)
@@ -380,7 +394,17 @@ class _ServingHandler(metrics_http._Handler):
             self._send_json(200, {"models": self.server.registry.list_models()})
             return
         if path == "/healthz":
-            self._send_json(200, self.server.registry.health())
+            # queue depth is the instantaneous signal; the SLO engine's
+            # burn state is the over-time one — a paging objective
+            # degrades health even while the queue looks shallow
+            from ..runtime.slo import ENGINE
+
+            info = self.server.registry.health()
+            slo_block = ENGINE.health_block()
+            info["slo"] = slo_block
+            if slo_block["paging"]:
+                info["status"] = "degraded"
+            self._send_json(200, info)
             return
         super().do_GET()
 
@@ -648,9 +672,9 @@ def serve(registry: ModelRegistry, port: int = 0, host: str = "127.0.0.1",
           ) -> ThreadingHTTPServer:
     """Start the serving endpoint on a daemon thread (stdlib only);
     ``server.server_address[1]`` is the bound port. The same server
-    answers /predict, /models, /metrics, /healthz and /trace, and scores
-    on the registry's device (/topk too, for models deployed with
-    ``retrieval=``). Stop it with ``server.shutdown()`` and
+    answers /predict, /models, /metrics, /healthz, /trace, /slo and
+    /debug/bundle, and scores on the registry's device (/topk too, for
+    models deployed with ``retrieval=``). Stop it with ``server.shutdown()`` and
     ``server.server_close()``, then ``registry.shutdown()``.
 
     ``max_concurrent_requests`` bounds in-flight /predict handlers: past

@@ -2,9 +2,11 @@
 
 ``normal(seed, shape)`` equals ``jax.random.normal(jax.random.PRNGKey(seed),
 shape, jnp.float32)`` as JAX 0.9 computes it on the CPU with its default
-settings (threefry2x32, ``jax_threefry_partitionable`` on). The JAX
+settings (threefry2x32, ``jax_threefry_partitionable`` on); ``split``,
+``uniform`` and ``normal`` also take a key that ``split`` made. The JAX
 package draws its FM and FFM factor tables this way (``init_fm_state``,
-``init_ffm_state``), and an FFM model blob stores only the V rows that
+``init_ffm_state``) and MF's P and Q from the two halves of a split
+(``init_mf_state``), and an FFM model blob stores only the V rows that
 differ from that draw, so the port needs the same numbers to read and
 write those blobs and to start a model where the JAX package starts it.
 
@@ -34,7 +36,7 @@ multiply-add leaves) over 3 x 2^22 draws.
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Sequence, Union
+from typing import List, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -68,14 +70,45 @@ _LOG_Q2 = 0.693359375
 _F = np.float32
 
 
-def threefry_bits(seed: int, shape: Union[int, Sequence[int]]) -> np.ndarray:
-    """uint32 ``jax.random.bits(PRNGKey(seed), shape)``: one word per
-    element, element i hashing the counter pair (i >> 32, i & 0xFFFFFFFF)."""
-    shape = (shape,) if isinstance(shape, (int, np.integer)) else tuple(shape)
+Key = Tuple[int, int]
+SeedOrKey = Union[int, Key]
+
+
+def prng_key(seed: int) -> Key:
+    """``jax.random.PRNGKey(seed)`` as its two uint32 words."""
+    s = int(seed)
+    return ((s >> 32) & _M32, s & _M32)
+
+
+def _key(seed: SeedOrKey) -> Key:
+    """An integer seed's key, or a key (two words) as given."""
+    if isinstance(seed, tuple):
+        return (int(seed[0]) & _M32, int(seed[1]) & _M32)
+    return prng_key(seed)
+
+
+def split(key: SeedOrKey, num: int = 2) -> List[Key]:
+    """``jax.random.split(key, num)`` with ``jax_threefry_partitionable``
+    on (``_threefry_split_foldlike``): new key i is the threefry2x32 hash
+    of the counter pair (i >> 32, i & 0xFFFFFFFF) under ``key``, both
+    output words kept. ``key`` may be an integer seed (its PRNGKey)."""
+    k1, k2 = _key(key)
+    i = np.arange(num, dtype=np.uint64)
+    x0, x1 = _threefry2x32(np.uint32(k1), np.uint32(k2),
+                           (i >> np.uint64(32)).astype(np.uint32),
+                           (i & np.uint64(_M32)).astype(np.uint32))
+    return [(int(a), int(b)) for a, b in zip(x0, x1)]
+
+
+def threefry_bits(seed: SeedOrKey,
+                  shape: Union[int, Sequence[int]]) -> np.ndarray:
+    """uint32 ``jax.random.bits(key, shape)`` for ``key`` an integer seed's
+    PRNGKey or a key from `split`: one word per element, element i hashing
+    the counter pair (i >> 32, i & 0xFFFFFFFF)."""
+    shape = _shape(shape)
     n = int(np.prod(shape, dtype=np.int64))
     out = np.empty(n, np.uint32)
-    s = int(seed)
-    k1, k2 = np.uint32((s >> 32) & _M32), np.uint32(s & _M32)
+    k1, k2 = (np.uint32(w) for w in _key(seed))
     for lo in range(0, n, _CHUNK):
         i = np.arange(lo, min(lo + _CHUNK, n), dtype=np.uint64)
         x0, x1 = _threefry2x32(k1, k2, (i >> np.uint64(32)).astype(np.uint32),
@@ -101,10 +134,16 @@ def _threefry2x32(k1, k2, x0, x1):
     return x0, x1
 
 
-def uniform(seed: int, shape, minval: float, maxval: float) -> np.ndarray:
-    """float32 ``jax.random.uniform(PRNGKey(seed), shape, float32, minval,
-    maxval)``."""
-    return _uniform_from_bits(threefry_bits(seed, shape), minval, maxval)
+def uniform(seed: SeedOrKey, shape, minval: float,
+            maxval: float) -> np.ndarray:
+    """float32 ``jax.random.uniform(key, shape, float32, minval, maxval)``
+    (``seed``: an integer seed or a key from `split`), a fresh array each
+    call (the last draws are kept, `_cached`)."""
+    shape = _shape(shape)
+    return _cached(("uniform", _key(seed), shape, float(minval),
+                    float(maxval)),
+                   lambda: _uniform_from_bits(threefry_bits(seed, shape),
+                                              minval, maxval))
 
 
 def _uniform_from_bits(bits, minval, maxval):
@@ -174,29 +213,41 @@ def erf_inv(x: np.ndarray) -> np.ndarray:
 
 
 _CACHE: "OrderedDict[tuple, np.ndarray]" = OrderedDict()
-_CACHE_ENTRIES = 2  # an FM's and an FFM's table of the same run
+# FM's and FFM's V, MF's P and Q of the same run
+_CACHE_ENTRIES = 4
 
 
 def clear_cache() -> None:
-    """Forget the draws `normal` keeps."""
+    """Forget the draws `normal` and `uniform` keep."""
     _CACHE.clear()
 
 
-def normal(seed: int, shape: Union[int, Sequence[int]]) -> np.ndarray:
-    """float32 ``jax.random.normal(jax.random.PRNGKey(seed), shape)``, a
-    fresh array each call. The last two draws are kept (a 2^22 x 4 table
-    takes seconds to draw on the host, and a model's init, blob write and
-    blob read each need it), so a repeat costs one copy."""
-    shape = (shape,) if isinstance(shape, (int, np.integer)) else tuple(shape)
-    key = (int(seed), shape)
+def _cached(key: tuple, draw) -> np.ndarray:
+    """A fresh copy of the draw ``key`` names: the last _CACHE_ENTRIES
+    draws are kept (a 2^22 x 4 table takes seconds to draw on the host,
+    and a model's init, blob write and blob read each need it), so a
+    repeat costs one copy."""
     if key in _CACHE:
         _CACHE.move_to_end(key)
         return _CACHE[key].copy()
-    out = _draw_normal(seed, shape)
+    out = draw()
     _CACHE[key] = out
     while len(_CACHE) > _CACHE_ENTRIES:
         _CACHE.popitem(last=False)
     return out.copy()
+
+
+def _shape(shape) -> tuple:
+    return (shape,) if isinstance(shape, (int, np.integer)) else tuple(shape)
+
+
+def normal(seed: SeedOrKey, shape: Union[int, Sequence[int]]) -> np.ndarray:
+    """float32 ``jax.random.normal(key, shape)`` (``seed``: an integer
+    seed's PRNGKey or a key from `split`), a fresh array each call (the
+    last draws are kept, `_cached`)."""
+    shape = _shape(shape)
+    return _cached(("normal", _key(seed), shape),
+                   lambda: _draw_normal(seed, shape))
 
 
 def _draw_normal(seed, shape):

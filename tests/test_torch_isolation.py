@@ -41,6 +41,41 @@ def test_no_forbidden_import_in_sources():
     assert not bad, bad
 
 
+# the subpackages of the continuous-training slice, each with the modules
+# it must hold (numpy copies and host logic included: the port keeps its
+# own copy of every reference module it needs)
+SLICE_MODULES = {
+    "pipeline": ("__init__", "gate", "holdout", "loop"),
+    "dataset": ("__init__", "lr_datagen"),
+    "evaluation": ("__init__", "metrics"),
+    "ftvec": ("__init__", "amplify"),
+    "tools": ("__init__", "math"),
+    "runtime": ("faults", "timeseries", "slo", "debug_bundle"),
+}
+
+
+@pytest.mark.parametrize("sub", sorted(SLICE_MODULES))
+def test_slice_subpackages_import_no_jax(sub):
+    """Each subpackage's modules exist, name nothing forbidden, and import
+    in a fresh interpreter without loading jax or the JAX package."""
+    paths = [PKG / sub / f"{m}.py" for m in SLICE_MODULES[sub]]
+    assert all(p.exists() for p in paths), paths
+    assert set(paths) <= set(_port_sources())
+    mods = [f"hivemall_tpu_torch.{sub}" if m == "__init__"
+            else f"hivemall_tpu_torch.{sub}.{m}" for m in SLICE_MODULES[sub]]
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r}]\n"
+        "sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300,
+                          env={**os.environ, "PYTHONPATH": str(ROOT)})
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_importing_every_module_loads_no_jax():
     mods = [".".join(p.relative_to(ROOT).with_suffix("").parts)
             for p in PKG.rglob("*.py")]
@@ -86,6 +121,16 @@ def test_default_device_without_cuda_raises():
                     train_gradient_tree_boosting_classifier):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             trainer(X, [0, 1] * 4, "-trees 1")
+    from hivemall_tpu_torch.pipeline import ContinuousPipeline, PipelineConfig
+    from hivemall_tpu_torch.serving.server import ModelRegistry
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ModelRegistry()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ContinuousPipeline(ModelRegistry(device="cpu"), lambda i: None,
+                           PipelineConfig(artifact_root=str(ROOT / "_none"),
+                                          dims=16, rule=None))
+    assert not (ROOT / "_none").exists()
     with pytest.raises(RuntimeError):
         resolve_device()
     assert resolve_device("cpu") == torch.device("cpu")

@@ -93,3 +93,44 @@ def test_init_tables_equal_jax():
     for name in ("w", "z", "n", "v_gg", "touched"):
         np.testing.assert_array_equal(getattr(ts, name).numpy(),
                                       np.asarray(getattr(js, name)))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_split_equals_jax(seed):
+    """split(PRNGKey(seed), num) with jax_threefry_partitionable on, and a
+    split of a split key (both words kept)."""
+    for num in (2, 3, 5):
+        want = np.asarray(jax.random.key_data(jax.random.split(
+            jax.random.PRNGKey(seed), num)))
+        assert np.asarray(P.split(seed, num), np.uint32).tolist() \
+            == want.tolist()
+    k = P.split(seed)[1]
+    want = np.asarray(jax.random.split(jax.random.split(
+        jax.random.PRNGKey(seed))[1]))
+    assert np.asarray(P.split(k), np.uint32).tolist() == want.tolist()
+    np.testing.assert_array_equal(
+        P.threefry_bits(k, (9,)),
+        np.asarray(jax.random.bits(jax.random.split(
+            jax.random.PRNGKey(seed))[1], (9,), jnp.uint32)))
+
+
+@pytest.mark.parametrize("rankinit", ["random", "gaussian"])
+def test_init_mf_state_equals_jax(rankinit):
+    """init_mf_state's P and Q are JAX's draw from the two halves of
+    split(PRNGKey(seed)), with the reference's maxval / min_init_stddev
+    scaling: the uniform bit for bit, the normal within ULP_BOUND."""
+    from hivemall_tpu.models import mf as JM
+    from hivemall_tpu_torch.models import mf as TM
+
+    for seed, k, maxval, std in ((31, 10, 1.0, 0.1), (5, 16, 0.5, 0.25)):
+        js = JM.init_mf_state(1000, 3001, JM.MFHyper(
+            factor=k, rankinit=rankinit, maxval=maxval,
+            min_init_stddev=std, seed=seed))
+        ts = TM.init_mf_state(1000, 3001, TM.MFHyper(
+            factor=k, rankinit=rankinit, maxval=maxval,
+            min_init_stddev=std, seed=seed), device="cpu")
+        for got, want in ((ts.P, js.P), (ts.Q, js.Q)):
+            got, want = got.numpy(), np.asarray(want)
+            assert got.shape == want.shape and got.dtype == np.float32
+            bound = 0 if rankinit == "random" else ULP_BOUND
+            assert int(ulps(got, want).max()) <= bound

@@ -1,11 +1,11 @@
 """The port's matrix factorization (hivemall_tpu_torch/models/mf.py) against
 the JAX package's (hivemall_tpu/models/mf.py) on the CPU (`device="cpu"`).
 
-The same numpy inputs go to both packages, and each run starts from one
-state carried across with `mf_state_from_numpy`: the port draws its initial
-P and Q from a torch generator, which cannot reproduce JAX's PRNG stream, so
-a trainer comparison replaces the port's `init_mf_state` with one that
-returns JAX's initial state. Tolerances: the scan at rtol 1e-5 / atol 1e-6,
+The same numpy inputs go to both packages. Step tests start both from one
+state carried across with `mf_state_from_numpy`; trainer comparisons start
+both packages from the seed, since the port's `init_mf_state` draws JAX's
+P and Q (utils/jax_prng.py: uniform bit for bit, gaussian within 1 ulp).
+Tolerances: the scan at rtol 1e-5 / atol 1e-6,
 the minibatch at rtol 2e-5 / atol 1e-6 (the reference's minibatch
 tolerance, tests/test_batch_update.py:177-183); `touched` and `step` exact.
 None of the JAX functions used here is red on this tree (tests/test_mf.py
@@ -143,21 +143,6 @@ def rating_rows(n=400, n_users=30, n_items=90, seed=0):
     return u, i, j, r
 
 
-@pytest.fixture
-def jax_init(monkeypatch):
-    """Make the port's trainers start from JAX's initial state."""
-    def init(num_users, num_items, hyper, device=None):
-        jh = JM.MFHyper(factor=hyper.factor, rankinit=hyper.rankinit,
-                        maxval=hyper.maxval,
-                        min_init_stddev=hyper.min_init_stddev,
-                        seed=hyper.seed, mu=hyper.mu, adagrad=hyper.adagrad)
-        return TM.mf_state_from_numpy(
-            jax_mf_numpy(JM.init_mf_state(num_users, num_items, jh)),
-            device)
-
-    monkeypatch.setattr(TM, "init_mf_state", init)
-
-
 TRAIN_CASES = [
     ("sgd", "-factor 4 -iter 3 -disable_cv"),
     ("sgd", "-factor 4 -mini_batch 64 -iter 3 -disable_cv"),
@@ -175,7 +160,7 @@ TRAIN_CASES = [
 
 
 @pytest.mark.parametrize("kind,opts", TRAIN_CASES)
-def test_trainers_match_jax(kind, opts, jax_init):
+def test_trainers_match_jax(kind, opts):
     u, i, j, r = rating_rows()
     if kind == "bpr":
         jm = JM.train_bprmf(u, i, j, opts)
@@ -190,7 +175,7 @@ def test_trainers_match_jax(kind, opts, jax_init):
     assert tm.use_bias == jm.use_bias
 
 
-def test_convergence_stop_matches_jax(jax_init):
+def test_convergence_stop_matches_jax():
     """With the convergence check on, both packages stop after the same
     epoch (step counts the rows of every epoch run)."""
     u, i, j, r = rating_rows()
@@ -244,12 +229,15 @@ def test_init_layout_and_seed(rankinit):
     assert not st.P_gg.any() and not st.Bu.any() and not st.Bi.any()
     assert st.touched_u.dtype == torch.int8 and not st.touched_i.any()
     assert float(st.mu) == 2.5 and st.step == 0
-    # P then Q from one CPU generator seeded with -seed
-    gen = torch.Generator().manual_seed(9)
-    draw = torch.rand if rankinit == "random" else torch.randn
-    scale = 0.5 if rankinit == "random" else 0.1
-    assert torch.equal(st.P, draw((40, 6), generator=gen) * scale)
-    assert torch.equal(st.Q, draw((70, 6), generator=gen) * scale)
+    # P and Q are JAX's draw from the two halves of split(PRNGKey(9))
+    js = jax_mf_numpy(JM.init_mf_state(40, 70, JM.MFHyper(
+        factor=6, rankinit=rankinit, maxval=0.5, seed=9)))
+    for got, want in ((st.P, js["P"]), (st.Q, js["Q"])):
+        if rankinit == "random":  # the uniform is bit-exact
+            np.testing.assert_array_equal(got.numpy(), want)
+        else:
+            np.testing.assert_allclose(got.numpy(), want, rtol=2 ** -23,
+                                       atol=0)
     if rankinit == "random":
         assert float(st.P.min()) >= 0.0 and float(st.P.max()) < 0.5
     again = TM.init_mf_state(40, 70, hyper, device="cpu")

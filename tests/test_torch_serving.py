@@ -439,15 +439,18 @@ def test_http_error_codes_and_later_slice_routes(stack, model):
         _post(port, {"queries": [[1]]}, path="/topk")
     assert e.value.code == 400
     assert "retrieval" in json.loads(e.value.read())["error"]
-    for path in ("/slo", "/debug/bundle"):
-        with pytest.raises(urllib.error.HTTPError) as e:
-            _get(port, path)
-        assert e.value.code == 404 and b"later slice" in e.value.read()
+    # the routes of the SLO engine and the flight recorder have landed
+    slo = json.loads(_get(port, "/slo"))
+    assert set(slo) >= {"worst_state", "slos"}
+    bundle = json.loads(_get(port, "/debug/bundle?n=2"))
+    assert [m["name"] for m in bundle["models"]] == ["ctr"]
+    assert bundle["models"][0]["lineage"] == []
     with pytest.raises(urllib.error.HTTPError) as e:
         _get(port, "/nowhere")
     assert e.value.code == 404
     health = json.loads(_get(port, "/healthz"))
     assert health["status"] == "ok" and "ctr" in health["models"]
+    assert health["slo"]["paging"] == []
     assert health["local_devices"] == torch.cuda.device_count()
     trace = json.loads(_get(port, "/trace?n=5"))
     assert "traceEvents" in trace

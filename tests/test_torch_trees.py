@@ -3,10 +3,10 @@ package's (hivemall_tpu/models/trees/) on the CPU (`device="cpu"`).
 
 The same numpy inputs go to both packages; the JAX functions are plain XLA
 (no Pallas). Tolerances: binning, histograms on integer weights and
-targets, routing, the walk, gini split gains and every tree's structure
-(feature, threshold_bin, nominal, left, right, leaf_dist) are exact;
-entropy gains, regression gains, leaf values and importances at rtol
-1e-6; GBT decision scores at rtol 1e-5 / atol 1e-6. The port sums in the
+targets, routing, the walk, gini and entropy split gains and every
+tree's structure (feature, threshold_bin, nominal, left, right,
+leaf_dist) are exact; regression gains, leaf values and importances at
+rtol 1e-6; GBT decision scores at rtol 1e-5 / atol 1e-6. The port sums in the
 JAX package's CPU order (grow.py's docstring), so float targets and GBT
 residuals grow the same trees too. None of the JAX functions used here is
 red on this tree (tests/test_trees.py passes)."""
@@ -117,6 +117,34 @@ def test_hist_regression_matches_jax(S):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("n_values,N,B,S", [(1, 3000, 16, 6),
+                                              (3, 3000, 16, 6),
+                                              (3, 20000, 4, 1),
+                                              (1, 500, 64, 40)])
+def test_ordered_hist_equals_index_add_bit_for_bit(n_values, N, B, S):
+    """The card's histogram (a stable sort by bin, a sequential sum per
+    bin, `_ordered_hist`) equals the CPU's index_add_, to the bit: float
+    lane values over nine decades with colliding bins, long bins (S = 1,
+    4 bins) and empty ones, and settled (negative-slot) rows."""
+    rng = np.random.RandomState(11)
+    F = 5
+    offsets = _t(np.arange(F)[None, :] * B
+                 + rng.randint(0, B, (N, F))).long()
+    slot = _t(rng.randint(-1, S, N)).long()
+    values = [_t(rng.randn(N * F).astype(np.float32) * 10.0 ** rng.randint(
+        -4, 5, N * F).astype(np.float32)) for _ in range(n_values)]
+    want = TG._scatter_hist(offsets, slot, S, F * B, values)
+    sink = torch.where(slot >= 0, slot, S)
+    flat = (sink[:, None] * (F * B) + offsets).reshape(-1)
+    got = TG._ordered_hist(flat, values, S * F * B)
+    assert got.shape == want.shape == (n_values, S * F * B)
+    assert torch.equal(got, want)
+    for k, v in enumerate(values):  # and _scatter_hist is index_add_
+        ref = torch.zeros((S + 1) * F * B)
+        ref.index_add_(0, flat, v)
+        assert torch.equal(want[k], ref[:S * F * B])
+
+
 @pytest.mark.parametrize("kind", ["cls", "reg"])
 def test_hist_forest_matches_jax(kind):
     X, y, yr = tree_data()
@@ -163,10 +191,8 @@ def test_best_split_classification_matches_jax(rule, nominal):
         _t(hist), _t(mask), _t(feat_ok), rule, 1.0)]
     np.testing.assert_array_equal(got[1], want[1])  # feature
     np.testing.assert_array_equal(got[2], want[2])  # bin
-    if rule == "gini":  # XLA's rounding, fused multiply-adds included
-        np.testing.assert_array_equal(got[0], want[0])
-    else:  # torch's log2 is not XLA's approximation
-        np.testing.assert_allclose(got[0], want[0], rtol=GAIN_RTOL)
+    # XLA's rounding, fused multiply-adds and (entropy) its log2 included
+    np.testing.assert_array_equal(got[0], want[0])
     np.testing.assert_array_equal(got[3], want[3])  # node counts
 
 
