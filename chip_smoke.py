@@ -49,6 +49,21 @@ Phases (any failure exits non-zero; nothing is caught):
              deployed as ctr v1 behind serve(), 4 clients x 16 POST
              /predict of 64 string rows, a hot swap to int8 v2 mid-run,
              zero failed requests.
+7b. cache — main's -pallas model deployed as ctr (f32 v1) in a
+             ModelRegistry behind serve() under the JAX package's pinned
+             skew workload (scripts/bench_serving.py --skew): 8 keep-alive
+             clients, 2,500 POST /predict of 4 string rows drawn Zipf(1.2)
+             over the bench's 8,000-row universe (at D = 2^22), a hot swap
+             to the int8 artifact as v2 once a quarter has answered, on one
+             seeded sequence three times: score cache off, 64 MiB and an
+             evicting 128 KiB. Each run: 0 failed requests; every answer within rtol
+             1e-6 / atol 1e-7 of its version's engine run uncached; every
+             request sent after the swap answered by v2; all answers of one
+             (version, row) the same float32 bits (a cached value is its
+             leader's); resident bytes, read every 5 ms, within the budget.
+             Prints p50 / p99, the hit ratio, the requests answered from the
+             cache (sent minus admitted to the batcher), coalesced and
+             evicted rows, resident bytes against the budget.
 8. fm      — train_fm(..., "-c -dims 4194304 -factor 5 -mini_batch 4096")
              on main's 262,144 rows: seconds and rows/s, host staging timed
              apart, holdout accuracy/logloss (> 0.55), model_rows; the card
@@ -107,6 +122,14 @@ Phases (any failure exits non-zero; nothing is caught):
              served as /predict pairs against model.predict (f32, rtol 1e-6
              / atol 1e-7), the CPU engine (bf16) and numpy on the
              dequantized tables (int8), p50 / p99, 0 allocator segments.
+11b. knn   — item-to-item neighbours over train_mf_sgd's item factors
+             (131,072 x 16 f32): euclid_distance_batch and
+             cosine_distance_batch of 1,024 item rows against all items on
+             the card (one matmul each, TF32 refused), by CUDA events beside
+             the byte bound (the 536,870,912-byte output written once plus
+             the inputs at 3.35 TB/s); 64 rows within the float32 rounding
+             bound of a float64 numpy computation (knn_tolerance), and card
+             == the CPU port within twice it.
 12. topk   — RetrievalEngine per MF precision over the 131,072 items (k 16,
              block_items 4096, max_batch 8): warmup, p50 / p99 for batches
              of 1 and 8 with queries/s and items scored/s and 0 allocator
@@ -124,16 +147,16 @@ Phases (any failure exits non-zero; nothing is caught):
              staging apart, whether its tables stay finite) and
              train_multiclass_pa1 -c 0.001 (holdout accuracy beside
              chance); card == CPU on one 4,096-row block for all nine rules
-             and on the exact scan's first 2,048 rows (AROW, CW); the AROW
+             and on the exact scan's first 1,024 rows (AROW, CW); the AROW
              step eager / as a CUDA graph / device ops / byte bound; the
              PA1 model frozen at f32 / bf16 / int8 and served (labels ==
              predict, scores == the CPU engine / numpy, p50 / p99, 0
              allocator segments) and over HTTP beside main's model.
 14. ffm    — FFM at the JAX package's bench shape (2^20 features, 2^22 V
-             rows, k = 4, 64 fields, 32 tokens, 131,072 rows): train_ffm
-             -mini_batch 4096 unchunked and -row_chunk 512 (seconds,
-             rows/s, parse and V draw apart, holdout logloss beside the
-             constant's); card == CPU on one -w0 block (both tilings,
+             rows, k = 4, 64 fields, 32 tokens; 65,536 rows, cut from
+             131,072 for time): train_ffm -mini_batch 4096 unchunked and -row_chunk 512 on the first
+             32,768 rows (seconds, rows/s, parse and V draw apart, holdout
+             logloss beside the constant's); card == CPU on one -w0 block (both tilings,
              packed V) and the scan's first 1,024 rows; per tiling the
              step's peak memory, eager / graph time, device ops and byte
              bound; the f32 blob artifact (bytes, freeze / load seconds),
@@ -178,8 +201,8 @@ Phases (any failure exits non-zero; nothing is caught):
              segments, peak memory. Run 2: 32 batches under a seeded fault
              plan (crash_mid_write, corrupt, transient_step; a checkpoint
              every 4 batches): 2 restarts, the .prev fallback fired, the
-             final checkpoint at batch 32 with no lost step. Run 3: 48
-             batches on the card and on the CPU (one checkpoint, last):
+             final checkpoint at batch 32 with no lost step. Run 3: 32
+             batches (cut from 48 for time) on the card and on the CPU (one checkpoint, last):
              the same gate decisions, final w / cov at rtol 1e-4 / atol
              1e-5, touched equal. No hand kernel: the pipeline trains
              in minibatch mode and reaches no pallas_call.
@@ -1016,6 +1039,256 @@ def phase_serve(served, dev, smi):
               f"in {secs:.3f} s with a hot swap f32 v1 -> int8 v2 mid-run: "
               f"0 failed, answers by version {by_version}; /models names v2 "
               f"int8; /metrics carries serving.ctr.*")
+
+
+# the reference's pinned skew workload (scripts/bench_serving.py --skew:
+# the Zipf exponent at :2356, the full-size universe, request width,
+# concurrency, requests a trial and budget at :2466-2478)
+CACHE_ZIPF = 1.2
+CACHE_UNIVERSE = 8000  # distinct rows the Zipf mass spreads over
+CACHE_K = 4  # rows a request
+CACHE_CLIENTS = 8
+CACHE_REQUESTS = 2500  # a run; the second half waits for v2
+CACHE_BUDGETS = (("off", None), ("64 MiB", 64 << 20), ("128 KiB", 128 << 10))
+
+
+def cache_universe(seed):
+    """The bench's row universe (scripts/bench_serving.py:1872-1876) at
+    D = FULL_DIMS: 4-13 "id:value" features a row, values to 3 places."""
+    rng = np.random.RandomState(seed + 17)
+    return [[f"{rng.randint(FULL_DIMS)}:{rng.rand():.3f}"
+             for _ in range(rng.randint(4, 14))]
+            for _ in range(CACHE_UNIVERSE)]
+
+
+def cache_requests(seed):
+    """[CACHE_REQUESTS, CACHE_K] universe rows, drawn i.i.d. with p(rank r)
+    ~ r^-CACHE_ZIPF, as the bench's _zipf_probs / _zipf_stream draw them
+    (scripts/bench_serving.py:1711-1727)."""
+    p = np.arange(1, CACHE_UNIVERSE + 1, dtype=np.float64) ** -CACHE_ZIPF
+    rng = np.random.RandomState(seed + 100)
+    return rng.choice(CACHE_UNIVERSE, size=(CACHE_REQUESTS, CACHE_K),
+                      p=p / p.sum())
+
+
+def cache_run(paths, requests, rows, budget, dev):
+    """One run of the seeded traffic: a registry on ``dev`` with ``budget``
+    bytes of score cache (None: off) serves f32 as ctr v1 behind serve();
+    CACHE_CLIENTS keep-alive clients take the requests in order from one
+    queue (the bench's closed loop) and POST /predict; once a quarter have
+    answered, the int8 artifact is deployed as v2, and the second half of
+    the requests waits for it. A monitor reads the cache's resident bytes
+    every 5 ms. Returns what the run saw."""
+    import http.client
+    import threading
+    import urllib.request
+
+    from hivemall_tpu_torch.runtime.metrics import REGISTRY
+    from hivemall_tpu_torch.serving import ModelRegistry, serve
+
+    registry = ModelRegistry(max_batch=64, max_delay_ms=1.0, device=dev,
+                             score_cache_bytes=budget,
+                             engine_kwargs={"max_batch": 64,
+                                            "max_width": 32})
+    server = serve(registry, host="127.0.0.1", port=0)
+    port = server.server_address[1]
+    accepted = REGISTRY.counter("serving", "ctr.batcher.accepted")
+    out = {"answers": [], "secs": [], "errors": [], "peak": 0}
+    lock = threading.Lock()
+    queue = iter(enumerate(requests))
+    answered = [0]
+    quarter, swapped, done = (threading.Event(), threading.Event(),
+                              threading.Event())
+
+    def client():
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        try:
+            while True:
+                with lock:
+                    i, ids = next(queue, (None, None))
+                if ids is None:
+                    return
+                if i >= CACHE_REQUESTS // 2:
+                    swapped.wait(timeout=300)
+                after = swapped.is_set()  # sent after deploy(v2) returned
+                body = json.dumps({"model": "ctr",
+                                   "instances": [rows[r] for r in ids]})
+                t0 = time.perf_counter()
+                try:
+                    conn.request("POST", "/predict", body,
+                                 {"Content-Type": "application/json"})
+                    r = conn.getresponse()
+                    data = r.read()
+                    dt = time.perf_counter() - t0
+                    if r.status != 200:
+                        out["errors"].append(f"HTTP {r.status}: {data[:200]!r}")
+                    else:
+                        ans = json.loads(data)
+                        with lock:
+                            out["secs"].append(dt)
+                            out["answers"].append(
+                                (ids, ans["version"], ans["predictions"],
+                                 after))
+                except Exception as e:  # collected and asserted below
+                    out["errors"].append(repr(e))
+                    conn.close()
+                    conn = http.client.HTTPConnection("127.0.0.1", port,
+                                                      timeout=120)
+                with lock:
+                    answered[0] += 1
+                    if answered[0] >= CACHE_REQUESTS // 4:
+                        quarter.set()
+        finally:
+            conn.close()
+
+    def monitor():
+        while not done.wait(0.005):
+            entry = registry.get("ctr")
+            if entry is not None and entry.cache is not None:
+                out["peak"] = max(out["peak"],
+                                  entry.cache.stats()["resident_bytes"])
+
+    threads = [threading.Thread(target=client)
+               for _ in range(CACHE_CLIENTS)]
+    mon = threading.Thread(target=monitor)
+    try:
+        out["entries"] = [registry.deploy("ctr", paths["float32"],
+                                          version="1")]
+        base = accepted.value
+        # the cache's counters are process-wide (serving.ctr.cache.*):
+        # this run's are the change over it
+        cache = out["entries"][0].cache
+        before = cache.stats() if cache is not None else None
+        mon.start()
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        assert quarter.wait(timeout=300), "a quarter of the requests hung"
+        out["entries"].append(registry.deploy("ctr", paths["int8"],
+                                              version="2"))
+        swapped.set()
+        for t in threads:
+            t.join(timeout=300)
+            assert not t.is_alive(), "an HTTP client hung"
+        out["wall"] = time.perf_counter() - t0
+        out["admitted"] = accepted.value - base
+        done.set()
+        mon.join(timeout=60)
+        out["models"] = json.loads(urllib.request.urlopen(
+            f"http://127.0.0.1:{port}/models", timeout=60).read())["models"]
+        out["stats"] = None
+        if cache is not None:
+            st = cache.stats()
+            for key in ("hit_rows", "miss_rows", "coalesced_rows",
+                        "evicted_entries"):
+                st[key] -= before[key]
+            st["hit_ratio"] = round(
+                st["hit_rows"] / (st["hit_rows"] + st["miss_rows"]), 4)
+            out["stats"] = st
+    finally:
+        swapped.set()
+        done.set()
+        server.shutdown()
+        server.server_close()
+        registry.shutdown()
+    return out
+
+
+def cache_checks(tag, run, ref, budget):
+    """0 failed; every answer within SERVE_TOL["float32"] of its version's
+    uncached engine scores; a request sent after the swap answered by v2;
+    every answer of one (version, row) the same float32 bits; resident
+    bytes within the budget. Returns the distinct (version, row) count."""
+    assert not run["errors"], f"{tag}: failed requests {run['errors'][:3]}"
+    assert len(run["answers"]) == CACHE_REQUESTS, \
+        f"{tag}: {len(run['answers'])} answers"
+    rtol, atol = SERVE_TOL["float32"]
+    bits = {}
+    for ids, version, preds, after in run["answers"]:
+        got = np.asarray(preds, np.float32)
+        assert got.shape == ids.shape and np.all(np.isfinite(got))
+        assert version == "2" or not after, \
+            f"{tag}: a request sent after the swap answered by v{version}"
+        np.testing.assert_allclose(got, ref[version][ids], rtol=rtol,
+                                   atol=atol, err_msg=f"{tag} v{version}")
+        for r, g in zip(ids.tolist(), got.view(np.uint32).tolist()):
+            bits.setdefault((version, r), set()).add(g)
+    versions = {v for v, _ in bits}
+    assert versions == {"1", "2"}, f"{tag}: versions served {versions}"
+    split = sum(len(b) > 1 for b in bits.values())
+    assert split == 0, f"{tag}: {split} (version, row) pairs answered " \
+        f"with different float32 bits"
+    model = run["models"][0]
+    if budget is None:
+        assert model["cache"] == {"enabled": False}
+    else:
+        st = run["stats"]
+        assert model["cache"]["enabled"]
+        assert model["cache"]["budget_bytes"] == budget
+        assert run["peak"] <= budget and st["resident_bytes"] <= budget, \
+            f"{tag}: resident bytes {run['peak']} over the budget {budget}"
+        assert st["inflight_keys"] == 0
+    return len(bits)
+
+
+def phase_cache(seed, dev, smi, served):
+    """Main's -pallas model as ctr (f32 v1, int8 v2) behind serve() under
+    the reference's pinned skew workload (Zipf(1.2) over the bench's 8,000
+    rows, 4 rows a request, 8 clients), with the score cache off, at 64 MiB
+    and at an evicting 128 KiB, on one seeded request sequence."""
+    import tempfile
+
+    from hivemall_tpu_torch.serving import freeze
+
+    model = served[0]
+    universe = cache_universe(seed)
+    requests = cache_requests(seed)
+    used = np.unique(requests)
+    rows = {int(r): universe[r] for r in used}
+    print(f"[cache] card: {smi}; {CACHE_CLIENTS} clients, "
+          f"{CACHE_REQUESTS} POST /predict of {CACHE_K} rows drawn "
+          f"Zipf({CACHE_ZIPF}) over the bench's {CACHE_UNIVERSE} rows "
+          f"({len(used)} distinct; scripts/bench_serving.py --skew); hot "
+          f"swap f32 v1 -> int8 v2 after a quarter")
+    result = {}
+    with tempfile.TemporaryDirectory(prefix="hivemall_cache_") as tmp:
+        paths = {}
+        for dtype, q in (("float32", None), ("int8", "int8")):
+            paths[dtype] = f"{tmp}/ctr_{dtype}"
+            freeze(model, paths[dtype], name="ctr", quantize=q,
+                   quant_block_rows=64 if q == "int8" else None)
+        for label, budget in CACHE_BUDGETS:
+            run = cache_run(paths, requests, rows, budget, dev)
+            # each version's engine, uncached, over every requested row
+            ref = {}
+            for e in run["entries"]:
+                ref[e.version] = np.full(CACHE_UNIVERSE, np.nan, np.float32)
+                ref[e.version][used] = e.engine.predict(
+                    [universe[r] for r in used])
+            pairs = cache_checks(f"cache {label}", run, ref, budget)
+            line = (f"[cache] {label}: {CACHE_REQUESTS} requests in "
+                    f"{run['wall']:.3f} s, 0 failed, /predict p50 "
+                    f"{percentile_ms(run['secs'], 50):.4f} / p99 "
+                    f"{percentile_ms(run['secs'], 99):.4f} ms; "
+                    f"{run['admitted']} requests admitted to the batcher, "
+                    f"{CACHE_REQUESTS - run['admitted']} answered from the "
+                    f"cache; {pairs} (version, row) pairs, each answered "
+                    f"with one float32 value == its version's uncached "
+                    f"engine (rtol 1e-6, atol 1e-7)")
+            st = run["stats"]
+            if st is not None:
+                line += (f"; hit ratio {st['hit_ratio']} ({st['hit_rows']} "
+                         f"hit / {st['miss_rows']} miss rows), "
+                         f"{st['coalesced_rows']} coalesced rows, "
+                         f"{st['evicted_entries']} evicted, "
+                         f"{st['entries']} entries, resident "
+                         f"{st['resident_bytes']} B (peak {run['peak']}) of "
+                         f"{budget} B")
+            print(line)
+            result[label] = run
+    on, off = result["64 MiB"], result["off"]
+    assert off["admitted"] == CACHE_REQUESTS
+    assert on["admitted"] < off["admitted"], "the cache answered nothing"
 
 
 FM_FACTORS = 5
@@ -2198,6 +2471,111 @@ def phase_mf(seed, dev, smi, train, held):
     return model, arts
 
 
+KNN_QUERIES = 1024  # item rows asked for their neighbours
+KNN_CHECK = 64  # rows held against float64 and against the CPU port
+KNN_REPS = 20
+UNIT_ROUNDOFF = 2.0 ** -24  # float32
+
+
+def knn_tolerance(kind, a, b, d64):
+    """The float32 rounding bound of a batch distance against float64, per
+    element. euclid: |a|^2 + |b|^2 - 2 a.b in float32 from float32 inputs
+    rounds D + 3 times against terms no larger than (|a| + |b|)^2, so
+    E = (D + 3) u (|a| + |b|)^2 bounds the squared distance's error; the
+    clamp and root turn it into min(sqrt(E), E / d) plus u d for the root.
+    cosine: 1 - a^.b^ of normalized rows is off by at most (2 D + 8) u."""
+    u, D = UNIT_ROUNDOFF, a.shape[1]
+    if kind == "cosine":
+        return np.full(d64.shape, (2 * D + 8) * u)
+    na = np.linalg.norm(a.astype(np.float64), axis=1)[:, None]
+    nb = np.linalg.norm(b.astype(np.float64), axis=1)[None, :]
+    E = (D + 3) * u * (na + nb) ** 2
+    with np.errstate(divide="ignore"):
+        return np.minimum(np.sqrt(E), E / d64) + u * d64
+
+
+def knn_float64(kind, a, b):
+    """The distances in float64 numpy (the expansion, whose own rounding,
+    ~1e-16 relative, is far below the float32 bound)."""
+    a, b = a.astype(np.float64), b.astype(np.float64)
+    if kind == "cosine":
+        an = a / np.maximum(np.linalg.norm(a, axis=1, keepdims=True), 1e-12)
+        bn = b / np.maximum(np.linalg.norm(b, axis=1, keepdims=True), 1e-12)
+        return 1.0 - an @ bn.T
+    sq = (a * a).sum(1)[:, None] + (b * b).sum(1)[None, :] - 2.0 * a @ b.T
+    return np.sqrt(np.maximum(sq, 0.0))
+
+
+def phase_knn(seed, dev, smi, mf_model):
+    """Item-to-item neighbours over phase mf's train_mf_sgd item factors:
+    euclid_distance_batch and cosine_distance_batch of KNN_QUERIES item
+    rows against all of Q on the card, timed by CUDA events beside the
+    byte bound; KNN_CHECK rows against float64 and against the CPU port."""
+    import torch
+
+    from hivemall_tpu_torch.knn.distance import (cosine_distance_batch,
+                                                 euclid_distance_batch)
+
+    Q = mf_model.state.Q
+    assert Q.device.type == dev.type and Q.dtype == torch.float32
+    m, k = Q.shape
+    rng = np.random.RandomState(seed + 81)
+    rows = rng.choice(m, KNN_QUERIES, replace=False)
+    A = Q[torch.from_numpy(rows).to(dev)]
+    out_bytes = KNN_QUERIES * m * 4
+    in_bytes = (m + KNN_QUERIES) * k * 4
+    bound_ms = 1e3 * max((out_bytes + in_bytes) / HBM_BYTES_PER_S,
+                         2 * KNN_QUERIES * m * k / FP32_FLOPS)
+    a_np, q_np = A[:KNN_CHECK].cpu().numpy(), Q.cpu().numpy()
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            euclid_distance_batch(A[:2], Q[:2])
+            raise AssertionError("knn ran with TF32 on")
+        except RuntimeError as e:
+            assert "allow_tf32" in str(e)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"[knn] card: {smi}; {KNN_QUERIES} item rows x the {m} x {k} "
+          f"float32 item factors of train_mf_sgd"
+          + ("; refuses to run with TF32 on" if dev.type == "cuda" else ""))
+    for kind, fn in (("euclid", euclid_distance_batch),
+                     ("cosine", cosine_distance_batch)):
+        calls = 0
+
+        def run():
+            nonlocal calls
+            calls += 1
+            return fn(A, Q, device=dev)
+
+        d = run()
+        assert d.shape == (KNN_QUERIES, m) and d.device.type == dev.type
+        assert bool(torch.isfinite(d).all())
+        # the timings run only on the card
+        ms = cuda_ms(run, KNN_REPS) if dev.type == "cuda" else float("nan")
+        got = d[:KNN_CHECK].cpu().numpy().astype(np.float64)
+        ref = knn_float64(kind, a_np, q_np)
+        tol = knn_tolerance(kind, a_np, q_np, ref)
+        err = np.abs(got - ref)
+        assert np.all(err <= tol), \
+            f"knn {kind}: {int(np.sum(err > tol))} elements past the bound"
+        cpu = fn(a_np, q_np, device="cpu").numpy().astype(np.float64)
+        assert np.all(np.abs(got - cpu) <= 2 * tol), f"knn {kind}: card != CPU"
+        if kind == "euclid":
+            self_d = got[np.arange(KNN_CHECK), rows[:KNN_CHECK]]
+            assert np.all(self_d <= tol[np.arange(KNN_CHECK),
+                                        rows[:KNN_CHECK]])
+        print(f"[knn] {kind}_distance_batch [{KNN_QUERIES}, {k}] x [{m}, "
+              f"{k}]: {ms:.4f} ms by CUDA events (mean of {KNN_REPS}) "
+              f"against a bound of {bound_ms:.4f} ms ({out_bytes} output "
+              f"bytes + {in_bytes} input bytes at 3.35 TB/s; "
+              f"{bound_ms / ms:.3f} of it); {KNN_CHECK} rows vs float64: "
+              f"max |diff| {err.max():.3g}, within the float32 bound "
+              f"(max {tol.max():.3g}); card == CPU port within twice it; "
+              f"{calls} calls")
+        del d
+
+
 TOPK_K = 16
 TOPK_BLOCK = 4096
 TOPK_QUERIES = 64
@@ -2447,7 +2825,7 @@ MC_WIDTH = 64
 MC_ROWS = 131072
 MC_HOLDOUT = 16384
 MC_BLOCK = 4096
-MC_SCAN_ROWS = 2048
+MC_SCAN_ROWS = 1024  # cut from 2,048 for the smoke's time
 MC_PA1_C = 0.001  # the served model's aggressiveness cap
 MC_RULE_HYPER = {"mc_pa1": {"c": 1.0}, "mc_pa2": {"c": 1.0},
                  "mc_cw": {"phi": 1.0}, "mc_arow": {"r": 0.1},
@@ -2722,10 +3100,11 @@ FFM_V_BITS = 22
 FFM_K = 4
 FFM_FIELDS = 64
 FFM_WIDTH = 32
-FFM_ROWS = 131072
+FFM_ROWS = 65536  # cut from 131,072 for the smoke's time
 FFM_HOLDOUT = 16384
 FFM_BLOCK = 4096
 FFM_CHUNK = 512
+FFM_CHUNK_ROWS = 32768  # the -row_chunk train: cut from 131,072 for time
 FFM_SCAN_ROWS = 1024
 FFM_TEACHER_RANK = 2
 FFM_TEACHER_HEAD = 1024
@@ -2894,7 +3273,7 @@ def ffm_card_vs_cpu(dev, hyper, staged):
 
 def phase_ffm(seed, dev, smi, linear_model):
     """FFM at the JAX package's bench shape: train_ffm -mini_batch 4096,
-    unchunked and with -row_chunk 512 (seconds, rows/s, parse and staging
+    unchunked and with -row_chunk 512 on FFM_CHUNK_ROWS rows (seconds, rows/s, parse and staging
     apart, the V draw apart, holdout logloss beside the constant
     predictor's, the largest |V|), card == CPU on one block and on the
     scan's prefix, the step timed, then the model frozen at f32 (its
@@ -2928,8 +3307,9 @@ def phase_ffm(seed, dev, smi, linear_model):
     out = {}
     for chunk in (None, FFM_CHUNK):
         o = opts + (f" -row_chunk {chunk}" if chunk else "")
-        model, secs = timed(lambda: FF.train_ffm(rows, y, o, device=dev),
-                            dev)
+        n = FFM_CHUNK_ROWS if chunk else FFM_ROWS
+        model, secs = timed(
+            lambda: FF.train_ffm(rows[:n], y[:n], o, device=dev), dev)
         assert model.state.v.device.type == dev.type, "state not on dev"
         assert torch.isfinite(model.state.v).all() \
             and torch.isfinite(model.state.w).all(), "ffm: not finite"
@@ -2938,8 +3318,8 @@ def phase_ffm(seed, dev, smi, linear_model):
         acc, ll = log_loss_acc(p, hy01)
         feats, w, _ = model.model_rows()
         out[chunk] = (model, ll, secs)
-        print(f"[ffm] train_ffm {o}: {FFM_ROWS} rows in {secs:.3f} s = "
-              f"{FFM_ROWS / secs:.0f} rows/s; timed apart in calls of their "
+        print(f"[ffm] train_ffm {o}: {n} rows in {secs:.3f} s = "
+              f"{n / secs:.0f} rows/s; timed apart in calls of their "
               f"own, the rows' parse and staging {parse_secs:.3f} s and the "
               f"V draw on the host ({hyper.v_dims} x {FFM_K}, JAX's stream) "
               f"{draw_secs:.3f} s; holdout logloss {ll:.4f} (the constant "
@@ -3399,7 +3779,7 @@ PIPE_CKPT = 32768  # events per elastic checkpoint
 PIPE_HOLDOUT_ROWS = 16384
 PIPE_FAULT_BATCHES = 32  # run 2
 PIPE_FAULT_CKPT = 4 * 4096  # run 2: a write every 4 batches
-PIPE_PARITY_BATCHES = 48  # run 3: three freeze cycles
+PIPE_PARITY_BATCHES = 32  # run 3: two freeze cycles (cut from 48 for time)
 PIPE_CLIENTS = 4
 PIPE_REQUEST_ROWS = 64
 PIPE_SPANS = ("pipeline.train", "pipeline.freeze", "pipeline.gate",
@@ -3770,6 +4150,13 @@ def main(argv=None) -> int:
           f"{dict(LAUNCHES)} (serving runs no hand-written kernel)")
     for key in LAUNCHES:
         LAUNCHES[key] = 0
+    t_cache = time.perf_counter()
+    phase_cache(args.seed, dev, smi, served)
+    print(f"[cache] phase took {time.perf_counter() - t_cache:.1f} s; kernel "
+          f"launches during it: {dict(LAUNCHES)} (the score cache is host "
+          f"Python in both packages)")
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
     t_fm = time.perf_counter()
     fm_run, fm_model = phase_fm(args.seed, dev, smi, data, served[0])
     print(f"[fm] phase took {time.perf_counter() - t_fm:.1f} s; kernel "
@@ -3792,10 +4179,18 @@ def main(argv=None) -> int:
         LAUNCHES[key] = 0
     t_mf = time.perf_counter()
     mf_train, mf_held = mf_data(args.seed)
-    _, mf_arts = phase_mf(args.seed, dev, smi, mf_train, mf_held)
+    mf_model, mf_arts = phase_mf(args.seed, dev, smi, mf_train, mf_held)
     print(f"[mf] phase took {time.perf_counter() - t_mf:.1f} s; kernel "
           f"launches during it: {dict(LAUNCHES)} (the MF path reaches no "
           f"pallas_call in the JAX package and runs plain torch ops here)")
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+    t_knn = time.perf_counter()
+    phase_knn(args.seed, dev, smi, mf_model)
+    del mf_model
+    print(f"[knn] phase took {time.perf_counter() - t_knn:.1f} s; kernel "
+          f"launches during it: {dict(LAUNCHES)} (the batch distances are "
+          f"matmuls outside any pallas_call in the JAX package)")
     for key in LAUNCHES:
         LAUNCHES[key] = 0
     t_topk = time.perf_counter()

@@ -1,12 +1,18 @@
-"""Observability: counters, stopwatch, histograms, the allocator guard.
+"""Observability: counters, stopwatch, throughput meters, histograms, the
+allocator guard and the profiler window.
 
 Mirrors the reference's observability surface (SURVEY.md §5) under the
 JAX package's metric names (`hivemall_tpu/runtime/metrics.py`):
 - StopWatch elapsed-time logging (ref: utils/datetime/StopWatch.java)
 - Hadoop Reporter/Counters for progress + iteration counts
   (ref: UDTFWithOptions.java:59-88)
-- the MIX server's metrics registry (ref: mixserv/.../metrics/
+- the MIX server's ThroughputCounter msgs/sec sampling and metrics
+  registry (ref: mixserv/.../metrics/ThroughputCounter.java:34,
   MetricsRegistry.java), with Prometheus-shaped histograms
+
+`trace()` wraps a block in a `torch.profiler` window, so the host ops and
+the CUDA kernels it ran land in one Chrome trace (ui.perfetto.dev) — the
+port's counterpart of the JAX package's `jax.profiler.trace` window.
 
 `alloc_segment_guard` is the port's counterpart of the JAX package's
 `recompile_guard`. Eager torch compiles nothing, so the cold-path cost it
@@ -17,9 +23,11 @@ serving engine must add none in its steady state.
 
 from __future__ import annotations
 
+import contextlib
+import os
 import threading
 import time
-from typing import Dict, Optional
+from typing import Dict, Iterator, Optional
 
 import torch
 
@@ -51,6 +59,26 @@ class Counter:
     def increment(self, n: int = 1) -> None:
         with self._lock:
             self.value += n
+
+
+class ThroughputCounter:
+    """Events/sec sampled over a sliding window (ThroughputCounter analog)."""
+
+    def __init__(self, window_sec: float = 5.0) -> None:
+        self.window = window_sec
+        self._events: list = []
+        self._lock = threading.Lock()
+        self.last_reads_per_sec = 0.0
+
+    def record(self, n: int = 1) -> None:
+        now = time.monotonic()
+        with self._lock:
+            self._events.append((now, n))
+            cutoff = now - self.window
+            while self._events and self._events[0][0] < cutoff:
+                self._events.pop(0)
+            span = max(1e-9, now - (self._events[0][0] if self._events else now))
+            self.last_reads_per_sec = sum(c for _, c in self._events) / max(span, 1e-9)
 
 
 class Histogram:
@@ -141,6 +169,7 @@ class MetricsRegistry:
 
     def __init__(self) -> None:
         self.counters: Dict[str, Counter] = {}
+        self.throughput: Dict[str, ThroughputCounter] = {}
         self.gauges: Dict[str, float] = {}
         self.histograms: Dict[str, Histogram] = {}
         # registration and snapshot share one lock: the HTTP scrape thread
@@ -153,6 +182,12 @@ class MetricsRegistry:
             if key not in self.counters:
                 self.counters[key] = Counter(group, name)
             return self.counters[key]
+
+    def meter(self, name: str) -> ThroughputCounter:
+        with self._lock:
+            if name not in self.throughput:
+                self.throughput[name] = ThroughputCounter()
+            return self.throughput[name]
 
     def histogram(self, name: str, buckets=None) -> Histogram:
         with self._lock:
@@ -171,6 +206,8 @@ class MetricsRegistry:
             out: Dict[str, float] = dict(self.gauges)
             for key, c in self.counters.items():
                 out[key] = float(c.value)
+            for name, t in self.throughput.items():
+                out[f"{name}.per_sec"] = t.last_reads_per_sec
             hists = list(self.histograms.items())
         # histogram locks are taken outside the registry lock (fixed order:
         # registry -> histogram; nothing takes them in reverse)
@@ -186,10 +223,13 @@ class MetricsRegistry:
         with self._lock:
             counters = {k: float(c.value) for k, c in self.counters.items()}
             gauges = dict(self.gauges)
+            meters = {f"{n}.per_sec": t.last_reads_per_sec
+                      for n, t in self.throughput.items()}
             hists = list(self.histograms.items())
         return {
             "counters": counters,
             "gauges": gauges,
+            "meters": meters,
             "histograms": {n: {**h.snapshot(), "exemplars": h.exemplars()}
                            for n, h in hists},
         }
@@ -260,3 +300,26 @@ class alloc_segment_guard:
                 f"alloc_segment_guard({self.name!r}): {self.segments} new "
                 f"caching-allocator segment(s) on {self.device} in a section "
                 f"expected steady — a shape the warmup did not cover")
+
+
+@contextlib.contextmanager
+def trace(name: str, log_dir: Optional[str] = None) -> Iterator[None]:
+    """Always record the block's wall time as the gauge ``{name}.seconds``;
+    with ``log_dir``, run the block under a ``torch.profiler`` window (host
+    ops, and the CUDA kernels when a card is present) and write its Chrome
+    trace to ``log_dir/{name}.<pid>.<ns>.pt.trace.json``."""
+    sw = StopWatch(name)
+    if log_dir:
+        from torch.profiler import ProfilerActivity, profile
+
+        os.makedirs(log_dir, exist_ok=True)
+        acts = [ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            acts.append(ProfilerActivity.CUDA)
+        with profile(activities=acts) as prof:
+            yield
+        prof.export_chrome_trace(os.path.join(
+            log_dir, f"{name}.{os.getpid()}.{time.time_ns()}.pt.trace.json"))
+    else:
+        yield
+    REGISTRY.set_gauge(f"{name}.seconds", sw.elapsed())

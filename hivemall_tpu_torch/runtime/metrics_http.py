@@ -6,7 +6,7 @@ the same registry as an HTTP scrape endpoint instead; the routes and the
 exposition are the JAX package's (`hivemall_tpu/runtime/metrics_http.py`):
 
 - `GET /metrics`  — Prometheus text exposition of the process-wide
-  `runtime.metrics.REGISTRY` (counters, gauges, histograms);
+  `runtime.metrics.REGISTRY` (counters, gauges, meters, histograms);
   `?exemplars=1` appends OpenMetrics-style exemplars to histogram bucket
   lines (`# {trace_id="..."} value ts`) linking buckets to traces;
 - `GET /healthz`  — liveness (200 + json with process/device info, read
@@ -49,7 +49,8 @@ def _fmt_le(ub: float) -> str:
 
 def render_prometheus(exemplars: bool = False) -> str:
     """Prometheus text exposition of the process registry with `# HELP` /
-    `# TYPE` metadata and true metric kinds (counter / gauge / histogram).
+    `# TYPE` metadata and true metric kinds (counter / gauge / histogram;
+    meters surface as gauges).
 
     ``exemplars=True`` appends OpenMetrics-style exemplars to histogram
     bucket lines for buckets that carry one. Off by default: the 0.0.4 text
@@ -70,6 +71,10 @@ def render_prometheus(exemplars: bool = False) -> str:
         name = f"hivemall_tpu_{_prom_name(key)}"
         head(name, "gauge", f"gauge {key}")
         lines.append(f"{name} {float(snap['gauges'][key])}")
+    for key in sorted(snap["meters"]):
+        name = f"hivemall_tpu_{_prom_name(key)}"
+        head(name, "gauge", f"sliding-window throughput {key}")
+        lines.append(f"{name} {float(snap['meters'][key])}")
     for key in sorted(snap["histograms"]):
         h = snap["histograms"][key]
         name = f"hivemall_tpu_{_prom_name(key)}"

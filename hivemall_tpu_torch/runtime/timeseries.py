@@ -167,7 +167,7 @@ class TimeSeriesRing:
 
     @staticmethod
     def _value(snap: dict, key: str) -> Optional[float]:
-        for kind in ("counters", "gauges"):  # the port keeps no meters
+        for kind in ("counters", "gauges", "meters"):
             if key in snap[kind]:
                 return float(snap[kind][key])
         # histogram scalar fields address as "<name>.count" / "<name>.sum"

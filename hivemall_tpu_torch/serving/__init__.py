@@ -9,6 +9,7 @@ catalogs behind POST /topk.
     freeze(model, "artifacts/ctr/1")
     registry = ModelRegistry()            # the CUDA device; device="cpu" asks
     registry.deploy("ctr", "artifacts/ctr/1")
+    # or ModelRegistry(score_cache_bytes=64 << 20): the hot-row score cache
     server = serve(registry, port=8080)
 
     registry.deploy("rec", "artifacts/mf/1", retrieval={"k": 16})
@@ -19,6 +20,7 @@ from .admission import (AIMDController, DeadlineExpired, PRIORITY_NAMES,
                         QueueFull, ShedLowPriority, priority_class)
 from .artifact import Artifact, family_of, freeze, load
 from .batcher import BatcherClosed, DynamicBatcher
+from .cache import ScoreCache
 from .engine import Servable, ServingEngine, make_servable
 from .placement import ModelExceedsDeviceBudget, Placement, SingleDevice
 from .retrieval import RetrievalEngine, SRPIndex, build_srp_index
@@ -26,7 +28,7 @@ from .server import ModelEntry, ModelRegistry, serve
 
 __all__ = [
     "Artifact", "family_of", "freeze", "load",
-    "DynamicBatcher", "QueueFull", "BatcherClosed",
+    "DynamicBatcher", "QueueFull", "BatcherClosed", "ScoreCache",
     "AIMDController", "DeadlineExpired", "ShedLowPriority",
     "PRIORITY_NAMES", "priority_class",
     "Servable", "ServingEngine", "make_servable",

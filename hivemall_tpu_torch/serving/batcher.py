@@ -2,9 +2,7 @@
 windows, deadline-aware shedding — without unbounded queues.
 
 Host-only Python, ported from the JAX package's `serving/batcher.py` and
-wired to the port's metrics and tracing. The hot-row score cache
-(``cache=``, serving/cache.py there) is a later slice of the port and
-raises by name.
+wired to the port's metrics, tracing and score cache.
 
 One request at a time under-fills the device (a [8, K] gather-dot costs the
 same launches as [512, K]); the batcher merges concurrent requests into one
@@ -40,6 +38,16 @@ the primitives):
   OR the anchor request's window elapses OR a member's deadline arrives;
 - every request gets a `concurrent.futures.Future`; a worker failure
   fails the affected requests, never the process;
+- **hot-row cache + coalescing** (optional — ``cache=`` a
+  serving/cache.py ScoreCache): consulted BEFORE the admission lock, so
+  a request whose rows are all cached (version-exact keys) resolves
+  without consuming queue capacity, class quota, or a batch slot, and a
+  request fully covered by cache + in-flight leaders shares those
+  leaders' computation. Anything else flows unchanged. Note one
+  deliberate asymmetry: a CLOSED (draining) batcher still serves cache
+  hits — the entry was resolved before the swap, and its answer is
+  labeled with the version it was admitted under, exactly like a request
+  that beat the swap by a millisecond.
 
 The admission decision is ONE lock acquisition: quota check, shed
 selection, queue append and every counter update happen under ``_cv`` with
@@ -124,12 +132,21 @@ class DynamicBatcher:
                  priority_quota_fracs: Optional[Sequence[float]] = None,
                  starvation_limit: int = 8,
                  express_high: bool = False,
-                 cache=None) -> None:
-        if cache is not None:
-            raise ValueError(
-                "cache=: the hot-row score cache (serving/cache.py) is a "
-                "later slice of the torch port (hivemall_tpu_torch)")
+                 cache=None, cache_version: str = "",
+                 row_key_fn=None) -> None:
         self.predict_fn = predict_fn
+        # the hot-row score cache front (serving/cache.py): consulted in
+        # submit() BEFORE the admission lock, so a fully-cached or fully-
+        # coalesced request resolves without consuming queue capacity,
+        # class quota, or a batch slot. The cache object is shared across
+        # this model's versions (ModelRegistry owns it); cache_version is
+        # THIS batcher's version — captured at admission into every key,
+        # which is the whole hot-swap invalidation story. row_key_fn is
+        # the engine's canonical per-row key derivation (None per request
+        # = not cacheable, flows unchanged).
+        self._cache = cache
+        self._cache_version = str(cache_version)
+        self._row_key_fn = row_key_fn if cache is not None else None
         self.max_batch = int(max_batch)
         self.max_delay = float(max_delay_ms) / 1000.0
         self.max_queue_rows = int(max_queue_rows)
@@ -221,7 +238,13 @@ class DynamicBatcher:
         Over-quota admission raises `QueueFull` (reason "quota"); an
         accepted request later evicted for higher-priority work fails
         with `ShedLowPriority` (reason "shed"). Both carry
-        ``retry_after_s`` from the live drain-rate estimate."""
+        ``retry_after_s`` from the live drain-rate estimate.
+
+        With a cache attached, a fully-covered request resolves without
+        queueing; a COALESCED request inherits its leader's fate wholesale
+        (queue position, effective deadline, failure mode — see
+        serving/cache.py), its own ``priority``/``deadline_ms`` validated
+        but not separately enforced."""
         cls = priority_class(priority)
         if deadline_ms is not None:
             deadline_ms = float(deadline_ms)
@@ -246,6 +269,53 @@ class DynamicBatcher:
             owns = span.recording
         p = _Pending(list(instances), span, owns, cls, deadline_ms)
         k = len(p.instances)
+        # the hot-row cache front, BEFORE the admission lock: a fully
+        # cached request resolves right here (no queue capacity, no class
+        # quota, no batch slot) and a request fully covered by cache +
+        # in-flight leaders attaches to those leaders' Futures
+        # (serving/cache.py). Any uncovered row -> the request flows
+        # unchanged below, leading its new keys; its Future's outcome
+        # settles the cache (populate on success, fail followers with the
+        # same reason on shed/expiry/engine error).
+        token = None
+        if self._cache is not None and self._row_key_fn is not None:
+            keys = self._row_key_fn(p.instances)
+            if keys is not None:
+                plan = self._cache.admit(self._cache_version, keys,
+                                         p.future)
+                if plan.kind == "hit":
+                    if span.recording:
+                        span.event("cache.hit", rows=plan.hit_rows,
+                                   version=self._cache_version)
+                    if owns:
+                        p.future.add_done_callback(
+                            lambda f, s=span: TRACER.end(s))
+                    # outside every lock: set_result runs done-callbacks
+                    # synchronously
+                    p.future.set_result(plan.values)
+                    return p.future
+                if plan.kind == "coalesced":
+                    if span.recording:
+                        span.event("cache.coalesced",
+                                   rows=plan.coalesced_rows,
+                                   hit_rows=plan.hit_rows,
+                                   version=self._cache_version)
+                    if owns:
+                        p.future.add_done_callback(
+                            lambda f, s=span: TRACER.end(s))
+                    return p.future  # the cache settles it with the leaders
+                if plan.kind == "refused":
+                    # a row of this request was quota-refused within the
+                    # negative TTL: repeat the refusal synchronously from
+                    # the cache front — no admission lock, no shed scan.
+                    # The owned span is abandoned un-ended on purpose,
+                    # like every rejected submit (503s don't fill the
+                    # ring).
+                    if span.recording:
+                        span.event("cache.negative",
+                                   version=self._cache_version)
+                    raise plan.error
+                token = plan.token
         evicted: List[_Pending] = []
         err: Optional[Exception] = None
         ra = None
@@ -299,7 +369,28 @@ class DynamicBatcher:
                     f"priority request shed for higher-priority work",
                     retry_after_s=ra))
         if err is not None:
+            # a refused leader registered nothing (leadership is taken by
+            # lead() below, only on success), so no follower can be
+            # stranded on an admission error — the refusal stays
+            # synchronous, where registry.submit's swap-retry can see it
+            if token is not None and isinstance(err, QueueFull):
+                # quota refusal of a lead request: its new keys enter the
+                # short-TTL negative cache, so the hot row stops
+                # re-entering admission until capacity can have recovered
+                # (a closed batcher is NOT cached — the registry's
+                # swap-retry must see BatcherClosed fresh every time)
+                self._cache.note_refusal(token, err)
             raise err
+        if token is not None:
+            # NOW the request is queued: take leadership of its new keys,
+            # then let its outcome settle the cache — success populates
+            # and resolves followers; shed / expiry / engine error /
+            # drop-on-close fails them with the same reason. settle runs
+            # as a done-callback, outside _cv like every other
+            # set_result/set_exception site.
+            self._cache.lead(token)
+            p.future.add_done_callback(
+                lambda f, t=token: self._cache.settle(t, f))
         if owns:
             p.future.add_done_callback(lambda f, s=span: TRACER.end(s))
         return p.future

@@ -250,7 +250,8 @@ class _SparseRowServable(_Servable):
         in row order — the JAX package's keys, so a string row and its
         pre-parsed twin share one key. Rows wider than ``width_cap`` make
         the WHOLE request uncacheable (None): truncation lives in staging.
-        The score cache that reads them is a later slice of the port."""
+        Unparseable rows too: the parse error re-surfaces on the predict
+        path with its real message."""
         from hashlib import blake2b
 
         if _is_preparsed(instances):
@@ -276,7 +277,7 @@ class _SparseRowServable(_Servable):
 
             try:
                 idx_rows, val_rows = _stage_rows(instances, self.dims)
-            except (TypeError, ValueError):  # malformed: fails in predict
+            except Exception:  # None = uncacheable; predict re-raises it
                 return None
         keys = []
         for idx, val in zip(idx_rows, val_rows):
@@ -530,6 +531,40 @@ class _FFMServable(_Servable):
 
     def dummy_instance(self, width):
         return [f"{k % 8}:{k}:1.0" for k in range(width)]
+
+    def row_keys(self, instances, width_cap: int):
+        """blake2b-128 over the canonical (field, id, value) triples — ids
+        mod num_features, fields normalized as staging does (negative -> 0,
+        mod num_fields), values f32 — so a string row and a differently
+        written equivalent share one key. Rows wider than ``width_cap``
+        make the request uncacheable (truncation lives in staging);
+        unparseable rows too: the parse error re-surfaces on the predict
+        path with its real message."""
+        from hashlib import blake2b
+
+        from ..utils.feature import FMFeature
+
+        hy = self.hyper
+        keys = []
+        try:
+            for row in instances:
+                if len(row) > width_cap:
+                    return None
+                idx = np.empty(len(row), np.int64)
+                fld = np.empty(len(row), np.int64)
+                val = np.empty(len(row), np.float32)
+                for c, f in enumerate(row):
+                    p = FMFeature.parse(f, num_features=hy.num_features,
+                                        num_fields=hy.num_fields)
+                    idx[c] = p.index % hy.num_features
+                    fld[c] = (p.field if p.field >= 0 else 0) % hy.num_fields
+                    val[c] = p.value
+                keys.append(blake2b(
+                    idx.tobytes() + fld.tobytes() + val.tobytes(),
+                    digest_size=16).digest())
+        except Exception:  # None = uncacheable; predict re-raises it
+            return None
+        return keys
 
 
 class _PairServable(_Servable):
@@ -1073,8 +1108,12 @@ class ServingEngine:
     def row_keys(self, instances):
         """Per-row canonical cache keys for this request, or None when it
         is not cacheable (over-wide rows, malformed input — which then
-        fails through the normal predict path)."""
-        return self.servable.row_keys(instances, self.max_width)
+        fails through the normal predict path). The hot-row score cache
+        keys ``(model_version, row_key)`` on these (serving/cache.py)."""
+        try:
+            return self.servable.row_keys(instances, self.max_width)
+        except Exception:  # None = uncacheable; predict re-raises it
+            return None
 
     def predict(self, instances: Sequence):
         """Score a request of any size (chunks above max_batch). Each

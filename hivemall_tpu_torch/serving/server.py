@@ -62,12 +62,17 @@ class ModelEntry:
 
     def __init__(self, name: str, version: str, engine: ServingEngine,
                  batcher: DynamicBatcher,
-                 lineage: Optional[list] = None, retrieval_engine=None,
+                 lineage: Optional[list] = None, cache=None,
+                 retrieval_engine=None,
                  retrieval_batcher: Optional[DynamicBatcher] = None) -> None:
         self.name = name
         self.version = version
         self.engine = engine
         self.batcher = batcher
+        # the hot-row score cache this entry's batcher fronts with —
+        # owned by the REGISTRY and shared across this name's versions
+        # (the version lives in the key; serving/cache.py). None = off.
+        self.cache = cache
         # the top-K retrieval surface (serving/retrieval.py): present only
         # when deploy() was given ``retrieval=`` options and the family is
         # MF/FM. Its batcher is separate from the pointwise one, so a /topk
@@ -107,8 +112,10 @@ class ModelEntry:
             # fractions, live AIMD window, drain-rate estimate and
             # shed/expiry/quota-reject counters
             "admission": self.batcher.overload_state(),
-            # the score cache is a later slice of the port
-            "cache": {"enabled": False},
+            # the hot-row cache surface: budget, resident bytes, hit/miss/
+            # coalesced/evicted counters and the live hit ratio
+            "cache": self.cache.stats() if self.cache is not None
+            else {"enabled": False},
             # publisher lineage: recent gate decisions for this model's
             # version sequence (empty for hand-deployed models)
             "lineage": [dict(d) for d in self.lineage],
@@ -146,14 +153,17 @@ class ModelRegistry:
                  degraded_depth_fraction: float = 0.75,
                  score_cache_bytes: Optional[int] = None,
                  device: DeviceLike = None) -> None:
-        if score_cache_bytes:
-            raise ValueError(
-                "score_cache_bytes: the hot-row score cache "
-                "(serving/cache.py) is a later slice of the torch port "
-                "(hivemall_tpu_torch)")
         self.device = resolve_device(device)
         self._entries: Dict[str, ModelEntry] = {}
         self._lock = threading.Lock()
+        # hot-row score caches, one per model NAME, shared across that
+        # name's versions (the version is in every key, so a hot-swap
+        # invalidates atomically and old-version entries age out of the
+        # byte budget — serving/cache.py). ``score_cache_bytes`` is the
+        # registry-wide default budget; None/0 leaves caching OFF, a
+        # deploy can override per model.
+        self._caches: Dict[str, object] = {}
+        self.score_cache_bytes = score_cache_bytes
         self.max_batch = max_batch
         self.max_delay_ms = max_delay_ms
         self.max_queue_rows = max_queue_rows
@@ -190,13 +200,14 @@ class ModelRegistry:
         ``lineage`` attaches the publisher's gate-decision records to the
         entry (surfaced on /models; the continuous pipeline passes its
         recent publish / refusal / rollback history here).
-        ``score_cache_bytes`` is a later slice of the port and raises."""
+        ``score_cache_bytes`` overrides the registry's hot-row cache
+        budget for this model (None inherits the registry default — or,
+        failing that, whatever cache an earlier deploy enabled for this
+        name; an explicit 0 disables); the cache OBJECT persists across
+        this name's versions — swap invalidation is the version key, not
+        a flush."""
         from .artifact import Artifact, load as load_artifact
 
-        if score_cache_bytes:
-            raise ValueError(
-                "score_cache_bytes: the hot-row score cache is a later "
-                "slice of the torch port (hivemall_tpu_torch)")
         if isinstance(source, str):
             source = load_artifact(source)
         if version is None and isinstance(source, Artifact):
@@ -222,6 +233,27 @@ class ModelRegistry:
                    starvation_limit=self.starvation_limit,
                    express_high=self.express_high)
         bkw.update(batcher_overrides or {})
+        cache_bytes = self.score_cache_bytes if score_cache_bytes is None \
+            else score_cache_bytes
+        cache = None
+        if cache_bytes:
+            from .cache import ScoreCache
+
+            with self._lock:
+                cache = self._caches.get(name)
+                if cache is None or cache.max_bytes != int(cache_bytes):
+                    cache = ScoreCache(int(cache_bytes), name=name)
+                    self._caches[name] = cache
+        elif score_cache_bytes is not None:
+            with self._lock:  # explicit 0: caching OFF for this name
+                self._caches.pop(name, None)
+        else:
+            # no override and no registry default: a cache an earlier
+            # deploy enabled for this name SURVIVES the redeploy — the
+            # object persisting across versions is the hot-swap story
+            # (old-version entries age out of the byte budget)
+            with self._lock:
+                cache = self._caches.get(name)
         r_engine = r_batcher = None
         if retrieval is not None:
             from .retrieval import RetrievalEngine
@@ -234,14 +266,18 @@ class ModelRegistry:
             if self.warmup:
                 r_engine.warmup()
             # no score cache / row keys: a top-K row is (query, k, probe)
-            # and its result a ranking, not a score
+            # and its result a ranking, not a score — the hot-row cache's
+            # single-score contract doesn't apply
             r_batcher = DynamicBatcher(r_engine.topk_batch,
                                        name=f"{name}.topk",
                                        **{**bkw,
                                           "max_batch": r_engine.max_batch})
-        batcher = DynamicBatcher(engine.predict, name=name, **bkw)
+        batcher = DynamicBatcher(engine.predict, name=name, cache=cache,
+                                 cache_version=str(version),
+                                 row_key_fn=engine.row_keys, **bkw)
         entry = ModelEntry(name, str(version), engine, batcher,
-                           lineage=lineage, retrieval_engine=r_engine,
+                           lineage=lineage, cache=cache,
+                           retrieval_engine=r_engine,
                            retrieval_batcher=r_batcher)
         with self._lock:
             old = self._entries.get(name)
@@ -349,6 +385,7 @@ class ModelRegistry:
     def undeploy(self, name: str) -> bool:
         with self._lock:
             entry = self._entries.pop(name, None)
+            self._caches.pop(name, None)
         if entry is None:
             return False
         entry.close()
@@ -363,6 +400,7 @@ class ModelRegistry:
         with self._lock:
             entries = list(self._entries.values())
             self._entries = {}
+            self._caches = {}
         for e in entries:
             e.close()
 
@@ -375,6 +413,10 @@ class _ServingHandler(metrics_http._Handler):
     # persistent connections: every response carries Content-Length, so
     # keep-alive is safe
     protocol_version = "HTTP/1.1"
+    # the headers and the body leave in two writes; with Nagle on, the
+    # body waits for the client's delayed ACK of the headers (~40 ms on
+    # Linux) on every keep-alive response
+    disable_nagle_algorithm = True
 
     predict_timeout = 30.0
 

@@ -41,8 +41,8 @@ def test_no_forbidden_import_in_sources():
     assert not bad, bad
 
 
-# the subpackages of the continuous-training slice, each with the modules
-# it must hold (numpy copies and host logic included: the port keeps its
+# the subpackages of the continuous-training and kNN slices, each with the
+# modules it must hold (numpy copies and host logic included: the port keeps its
 # own copy of every reference module it needs)
 SLICE_MODULES = {
     "pipeline": ("__init__", "gate", "holdout", "loop"),
@@ -51,6 +51,7 @@ SLICE_MODULES = {
     "ftvec": ("__init__", "amplify"),
     "tools": ("__init__", "math"),
     "runtime": ("faults", "timeseries", "slo", "debug_bundle"),
+    "knn": ("__init__", "distance", "lsh", "similarity"),
 }
 
 

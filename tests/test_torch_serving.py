@@ -31,7 +31,8 @@ from hivemall_tpu_torch.runtime.metrics import (REGISTRY, Histogram,
 from hivemall_tpu_torch.runtime.tracing import TRACER, Tracer
 from hivemall_tpu_torch.serving import (BatcherClosed, DynamicBatcher,
                                         ModelRegistry, QueueFull,
-                                        ServingEngine, freeze, load, serve)
+                                        ScoreCache, ServingEngine, freeze,
+                                        load, serve)
 
 from torch_cases import ATOL, RTOL
 
@@ -340,8 +341,24 @@ def test_batcher_engine_round_trip_and_cache_refused(model):
         np.testing.assert_array_equal(got, model.predict(ROWS[:32]))
     finally:
         b.close()
-    with pytest.raises(ValueError, match="later slice"):
-        DynamicBatcher(eng.predict, name="tb_cache", cache=object())
+    # the score cache in front: the repeat is served from the cache, bit
+    # for bit; a zero byte budget is refused
+    cache = ScoreCache(1 << 20, name="tb_cache")
+    b = DynamicBatcher(eng.predict, name="tb_cache", max_batch=32,
+                       max_delay_ms=2.0, cache=cache, cache_version="1",
+                       row_key_fn=eng.row_keys)
+    try:
+        first = b.submit(ROWS[:4]).result(timeout=TIMEOUT)
+        again = b.submit(ROWS[:4]).result(timeout=TIMEOUT)
+        assert [float(x) for x in again] == [float(x) for x in first]
+        np.testing.assert_array_equal(np.asarray(first, np.float32),
+                                      model.predict(ROWS[:4]))
+        st = cache.stats()
+        assert (st["hit_rows"], st["miss_rows"]) == (4, 4)
+    finally:
+        b.close()
+    with pytest.raises(ValueError, match="max_bytes"):
+        ScoreCache(0, name="tb_cache_zero")
 
 
 # --- the HTTP server (mirrors tests/test_serving_server.py) --------------
@@ -454,3 +471,43 @@ def test_http_error_codes_and_later_slice_routes(stack, model):
     assert health["local_devices"] == torch.cuda.device_count()
     trace = json.loads(_get(port, "/trace?n=5"))
     assert "traceEvents" in trace
+
+
+def test_keep_alive_responses_do_not_wait_for_delayed_acks(stack, model,
+                                                           monkeypatch):
+    """On one persistent connection the headers and the body of each
+    response leave in two writes; with Nagle's algorithm on, the body
+    waits for the client's delayed ACK (~40 ms on Linux) every time. The
+    handler turns it off on every accepted socket, and the median round
+    trip stays below that stall."""
+    import http.client
+    import socket
+
+    from hivemall_tpu_torch.serving import server as srv
+
+    nodelay = []
+    setup = srv._ServingHandler.setup
+
+    def recording_setup(self):
+        setup(self)
+        nodelay.append(self.connection.getsockopt(socket.IPPROTO_TCP,
+                                                  socket.TCP_NODELAY))
+
+    monkeypatch.setattr(srv._ServingHandler, "setup", recording_setup)
+    registry, port = stack
+    registry.deploy("ctr", model, version="1")
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=TIMEOUT)
+    secs = []
+    try:
+        for _ in range(32):
+            body = json.dumps({"model": "ctr", "instances": ROWS[:1]})
+            t0 = time.perf_counter()
+            conn.request("POST", "/predict", body,
+                         {"Content-Type": "application/json"})
+            r = conn.getresponse()
+            assert r.status == 200 and json.loads(r.read())["predictions"]
+            secs.append(time.perf_counter() - t0)
+    finally:
+        conn.close()
+    assert nodelay and all(nodelay), nodelay
+    assert float(np.median(secs)) < 0.035, secs
