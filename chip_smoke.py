@@ -147,22 +147,24 @@ Phases (any failure exits non-zero; nothing is caught):
              staging apart, whether its tables stay finite) and
              train_multiclass_pa1 -c 0.001 (holdout accuracy beside
              chance); card == CPU on one 4,096-row block for all nine rules
-             and on the exact scan's first 1,024 rows (AROW, CW); the AROW
+             and on the exact scan's first 512 rows (AROW, CW); the AROW
              step eager / as a CUDA graph / device ops / byte bound; the
              PA1 model frozen at f32 / bf16 / int8 and served (labels ==
              predict, scores == the CPU engine / numpy, p50 / p99, 0
              allocator segments) and over HTTP beside main's model.
 14. ffm    — FFM at the JAX package's bench shape (2^20 features, 2^22 V
-             rows, k = 4, 64 fields, 32 tokens; 65,536 rows, cut from
-             131,072 for time): train_ffm -mini_batch 4096 unchunked and -row_chunk 512 on the first
-             32,768 rows (seconds, rows/s, parse and V draw apart, holdout
+             rows, k = 4, 64 fields, 32 tokens; 32,768 rows, cut from
+             131,072 for time): train_ffm -mini_batch 4096 unchunked and
+             -row_chunk 512 on the first 16,384 rows (seconds, rows/s,
+             parse and V draw apart, holdout
              logloss beside the constant's); card == CPU on one -w0 block (both tilings,
-             packed V) and the scan's first 1,024 rows; per tiling the
+             packed V) and the scan's first 512 rows; per tiling the
              step's peak memory, eager / graph time, device ops and byte
              bound; the f32 blob artifact (bytes, freeze / load seconds),
              served == predict, and HTTP beside main's model. Phase fm also
              prints the host seconds of its V draw (JAX's stream).
-15. trees  — train_randomforest_classifier -trees 32 at the JAX package's
+15. trees  — train_randomforest_classifier -trees 16 (the bench's 32,
+             cut for time) at the JAX package's
              forest bench shape (20,000 x 20 uniform rows, the
              XOR-or label of scripts/bench_forest.py) on the card and on the
              CPU: node for node on every tree, OOB errors and opscode text
@@ -174,7 +176,7 @@ Phases (any failure exits non-zero; nothing is caught):
              the two card runs bit-equal (checked: the histograms add each
              bin's lanes in a fixed order); train_randomforest_regr -trees 8 on
              integer-valued targets card == CPU node for node; then -trees
-             32 on rows of the UCI Covertype data set's shape (581,012 x 54:
+             16 on rows of the UCI Covertype data set's shape (581,012 x 54:
              10 Q + 44 one-hot C columns, 7 classes, drawn from --seed):
              fit seconds with the host binning timed apart, trees/s and
              row-trees/s, holdout accuracy on 65,536 rows beside the OOB
@@ -206,6 +208,32 @@ Phases (any failure exits non-zero; nothing is caught):
              the same gate decisions, final w / cov at rtol 1e-4 / atol
              1e-5, touched equal. No hand kernel: the pipeline trains
              in minibatch mode and reaches no pallas_call.
+17. parallel — data-parallel and feature-sharded training
+             (hivemall_tpu_torch/parallel/) on main's first 16 blocks
+             (AROW, D = 2^22, K = 32, B = 4,096; labels +-1). (a) A world
+             of one under NCCL in this process: MixTrainer (argminKLD,
+             mix_every 8) and ShardedTrainer (minibatch) against the
+             single-device step. (b) A world of two over gloo, both ranks
+             spawned on the one card (NCCL refuses two ranks on one
+             device): MixTrainer, 8 blocks a replica and one mix, against
+             the argminKLD of the replicas trained alone computed in plain
+             torch on the card; ShardedTrainer, 2 stripes of 2^21, 8
+             minibatch blocks and a 256-row scan prefix, against the
+             single-device model; Sharded2DTrainer at 1 x 2 (against the
+             single-device model) and 2 x 1 (against MixTrainer);
+             FMShardedTrainer (k = 5, 2 blocks from a warm state),
+             MCShardedTrainer (AROW at mc's shape, one block from a warm
+             state, the features of near-tie rows left out; 2 timed
+             blocks) and FFMShardedTrainer (ffm's shape, one block,
+             unchunked and -row_chunk 512) against their single-device
+             steps; train_gbt_data_parallel on the bench GBT's rows (4
+             rounds): card == the same ranks on the CPU, and against the
+             single-device GBT predictions agree on 98% of rows. All at
+             rtol 1e-4 / atol 1e-5, integer leaves exact. Per trainer:
+             step ms (CUDA events), rows/s, collectives and bytes a step,
+             ms a step inside them, peak memory per rank; the mixed
+             model's holdout logloss beside the single-device one. No hand
+             kernel: hivemall_tpu/parallel reaches no pallas_call.
 Prints a kernels JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 """
@@ -2825,7 +2853,7 @@ MC_WIDTH = 64
 MC_ROWS = 131072
 MC_HOLDOUT = 16384
 MC_BLOCK = 4096
-MC_SCAN_ROWS = 1024  # cut from 2,048 for the smoke's time
+MC_SCAN_ROWS = 512  # cut from 2,048 for the smoke's time
 MC_PA1_C = 0.001  # the served model's aggressiveness cap
 MC_RULE_HYPER = {"mc_pa1": {"c": 1.0}, "mc_pa2": {"c": 1.0},
                  "mc_cw": {"phi": 1.0}, "mc_arow": {"r": 0.1},
@@ -3100,12 +3128,12 @@ FFM_V_BITS = 22
 FFM_K = 4
 FFM_FIELDS = 64
 FFM_WIDTH = 32
-FFM_ROWS = 65536  # cut from 131,072 for the smoke's time
+FFM_ROWS = 32768  # cut from 131,072 for the smoke's time
 FFM_HOLDOUT = 16384
 FFM_BLOCK = 4096
 FFM_CHUNK = 512
-FFM_CHUNK_ROWS = 32768  # the -row_chunk train: cut from 131,072 for time
-FFM_SCAN_ROWS = 1024
+FFM_CHUNK_ROWS = 16384  # the -row_chunk train: cut from 131,072 for time
+FFM_SCAN_ROWS = 512  # cut from 1,024 for the smoke's time
 FFM_TEACHER_RANK = 2
 FFM_TEACHER_HEAD = 1024
 FFM_LAT_REQUESTS = 20
@@ -3386,7 +3414,7 @@ def phase_ffm(seed, dev, smi, linear_model):
 
 TREE_ROWS = 20000  # the JAX package's forest bench shape (bench_forest.py)
 TREE_FEATURES = 20
-TREE_TREES = 32
+TREE_TREES = 16  # cut from the bench's 32 for the smoke's time
 GBT_ROWS = 50000  # ... and its GBT bench shape
 GBT_OPTS = "-trees 16 -iters 16 -depth 6 -seed 3"
 GBT_TOL = (1e-5, 1e-6)
@@ -3397,7 +3425,7 @@ COVER_WILDERNESS = 4
 COVER_SOIL = 40
 COVER_CLASSES = 7
 COVER_HOLDOUT = 1 << 16
-COVER_TREES = 32
+COVER_TREES = 16  # cut from 32 for the smoke's time
 COVER_S = 512  # the widest frontier at the default 512 leaves
 TREE_LAT_REQUESTS = 100
 
@@ -4112,6 +4140,615 @@ def phase_pipeline(seed, dev, smi):
     assert int(ca["step"]) == int(pa["step"])
 
 
+PAR_BLOCK = 4096  # rows a block: the main path's -mini_batch 4096
+PAR_BLOCKS = 16  # main's first 16 blocks (65,536 rows): 8 a rank at world 2
+PAR_MIX_EVERY = 8
+PAR_SCAN_ROWS = 256  # the sharded scan's prefix: one all_reduce a row
+PAR_FM_BLOCKS = 2
+PAR_MC_BLOCKS = 2
+PAR_FFM_ROWS = 4096  # one FFM block, unchunked and -row_chunk 512
+PAR_GBT_OPTS = "-trees 4 -iters 4 -depth 6 -seed 3"
+PAR_TIMEOUT = 400  # seconds the world of two may take
+
+
+def par_config(dev):
+    """The sizes the spawned ranks run at (they import this module afresh,
+    so a CPU rehearsal's smaller sizes travel as arguments)."""
+    return {"device": str(dev), "dims": FULL_DIMS, "block": PAR_BLOCK,
+            "blocks": PAR_BLOCKS, "mix_every": PAR_MIX_EVERY,
+            "scan_rows": PAR_SCAN_ROWS, "fm_blocks": PAR_FM_BLOCKS,
+            "mc_blocks": PAR_MC_BLOCKS, "mc_dims": MC_DIMS,
+            "mc_labels": MC_LABELS, "mc_width": MC_WIDTH,
+            "ffm_rows": PAR_FFM_ROWS, "ffm_chunk": FFM_CHUNK,
+            "ffm_feature_bits": FFM_FEATURE_BITS, "ffm_v_bits": FFM_V_BITS,
+            "gbt_rows": GBT_ROWS, "gbt_opts": PAR_GBT_OPTS,
+            "features": TREE_FEATURES}
+
+
+def par_clock(dev):
+    """(start, stop): stop() returns ms since start(), by CUDA events on the
+    card and the host clock on the CPU."""
+    import torch
+
+    if dev.type == "cuda":
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+
+        def stop():
+            b.record()
+            b.synchronize()
+            return a.elapsed_time(b)
+
+        return a.record, stop
+    t = []
+    return (lambda: t.append(time.perf_counter()),
+            lambda: (time.perf_counter() - t[-1]) * 1e3)
+
+
+def par_run(mesh, dev, fn, steps, rows):
+    """Run ``fn()`` (``steps`` train steps over ``rows`` rows) with the
+    mesh's collectives timed; returns (fn's result, a report dict)."""
+    import torch
+
+    sync(dev)
+    base = 0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+    mesh.stats.reset()
+    mesh.stats.timed = True
+    start, stop = par_clock(dev)
+    start()
+    out = fn()
+    ms = stop()
+    mesh.stats.timed = False
+    state = out[0] if isinstance(out, tuple) else out
+    return out, {
+        "step_ms": ms / steps, "rows_per_s": rows / (ms / 1e3),
+        "collectives_per_step": mesh.stats.calls / steps,
+        "bytes_per_step": mesh.stats.bytes / steps,
+        "collective_ms_per_step": mesh.stats.ms() / steps,
+        "peak_mib": (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 20
+        if dev.type == "cuda" else None,
+        "state_mib": par_state_mib(state)}
+
+
+def par_state_mib(state):
+    """MiB of the tensors a trained state holds on this rank (a replica's
+    whole tables, a stripe's share of them); None for a fitted model
+    whose trees live on the host."""
+    import dataclasses
+
+    import torch
+
+    if not dataclasses.is_dataclass(state):
+        return None
+    total = 0
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
+        for t in (v.values() if isinstance(v, dict) else [v]):
+            if torch.is_tensor(t):
+                total += t.numel() * t.element_size()
+    return total / 2 ** 20 if total else None
+
+
+def par_line(tag, r, extra=""):
+    peak = "not measured (CPU)" if r["peak_mib"] is None \
+        else f"{r['peak_mib']:.1f} MiB above the state"
+    if r["state_mib"] is not None:
+        peak += f", state {r['state_mib']:.1f} MiB"
+    print(f"[parallel] {tag}: step {r['step_ms']:.3f} ms, "
+          f"{r['rows_per_s']:.0f} rows/s, {r['collectives_per_step']:.2f} "
+          f"collectives / {r['bytes_per_step']:.0f} bytes a step, "
+          f"{r['collective_ms_per_step']:.3f} ms a step inside them, peak "
+          f"{peak}{extra}", flush=True)
+
+
+def par_close(tag, got, want, ints=()):
+    """Float fields within the card rule (RTOL / ATOL), ``ints`` exact;
+    returns max |err|."""
+    err = 0.0
+    for k, a in want.items():
+        b = np.asarray(got[k])
+        if k in ints:
+            assert np.array_equal(b, a), f"{tag}: {k}"
+            continue
+        np.testing.assert_allclose(b, a, rtol=RTOL, atol=ATOL,
+                                   err_msg=f"{tag}: {k}")
+        err = max(err, float(np.max(np.abs(b - a))) if a.size else 0.0)
+    return err
+
+
+def par_linear_fields(st):
+    from hivemall_tpu_torch.core.state import linear_state_to_numpy
+
+    h = linear_state_to_numpy(st)
+    return {"weights": h["weights"], "covars": h["covars"],
+            "touched": h["touched"]}
+
+
+def par_holdout_ll(w, held):
+    h_idx, h_val, h_y = held
+    return log_loss_acc((np.asarray(w)[h_idx] * h_val).sum(axis=1), h_y)[1]
+
+
+def par_blocks(cfg, idx, val, y):
+    """The first cfg["blocks"] blocks of main's rows, labels as +-1."""
+    n, b = cfg["blocks"], cfg["block"]
+    shape = (n, b) + idx.shape[1:]
+    return (idx[:n * b].reshape(shape), val[:n * b].reshape(shape),
+            np.where(y[:n * b] > 0, 1.0, -1.0).astype(np.float32)
+            .reshape(n, b))
+
+
+def par_train_alone(rule, hyper, dims, dev, blocks, mode="minibatch",
+                    track=False, state=None):
+    from hivemall_tpu_torch.core.engine import DELTA_SLOT, make_train_fn
+    from hivemall_tpu_torch.core.state import init_linear_state
+
+    fn = make_train_fn(rule, hyper, mode=mode, track_deltas=track,
+                       device=dev)
+    st = state or init_linear_state(
+        dims, use_covariance=rule.use_covariance,
+        slot_names=(DELTA_SLOT,) if track else (), device=dev)
+    for i in range(blocks[0].shape[0]):
+        st, _ = fn(st, *(b[i] for b in blocks))
+    return st
+
+
+def par_warm_up(mesh, dev, blocks):
+    """One block of the engine's minibatch step and one small all_reduce,
+    so the timed runs pay neither first-use kernel setup nor the
+    communicator's creation (NCCL builds it at the first collective)."""
+    import torch
+
+    from hivemall_tpu_torch.models.classifier import AROW
+    from hivemall_tpu_torch.parallel.mesh import psum
+
+    par_train_alone(AROW, {"r": 0.1}, 1 << 10, dev,
+                    tuple(a[:1] for a in blocks))
+    psum(torch.ones(4, device=dev), mesh, mesh.axis_names[0])
+    sync(dev)
+
+
+def par_bound_ms(blocks, dims, mix_every=None):
+    """The AROW step's byte bound, ms a block at HBM_BYTES_PER_S: each
+    block's ids, values and labels read, each distinct live feature's
+    float32 weight and covariance and int8 touched entries read and
+    written once; with ``mix_every``, also each live feature's float32
+    delta count (the mix trainer tracks it every step), and each mix's
+    weights, covariances and delta counts read and written once, spread
+    over its blocks."""
+    n = blocks[0].shape[0]
+    per_feature = (3 if mix_every else 2) * 4 + 1
+    total = 0
+    for i in range(n):
+        idx = blocks[0][i]
+        b, k = idx.shape
+        uniq = np.unique(idx[(idx >= 0) & (idx < dims)]).size
+        total += b * k * 8 + b * 8 + uniq * per_feature * 2
+    if mix_every:
+        total += (n // mix_every) * 3 * dims * 4 * 2
+    return total / n / HBM_BYTES_PER_S * 1e3, total // n
+
+
+def par_world_one(cfg, dev, blocks, held):
+    """World size 1 in this process (NCCL on the card): MixTrainer
+    (argminKLD, mix_every 8) and ShardedTrainer (minibatch) over main's
+    blocks at full width, each held against the single-device trainer."""
+    import torch.distributed as dist
+
+    from hivemall_tpu_torch.models.classifier import AROW
+    from hivemall_tpu_torch.parallel import (MixConfig, MixTrainer,
+                                             ShardedTrainer, make_mesh)
+    from hivemall_tpu_torch.parallel.mesh import init_distributed
+
+    init_distributed("nccl" if dev.type == "cuda" else "gloo", dev)
+    try:
+        backend = dist.get_backend()
+        mesh = make_mesh(device=dev)
+        par_warm_up(mesh, dev, blocks)
+        dims, n = cfg["dims"], blocks[0].shape[0]
+        rows = n * cfg["block"]
+        ref = par_train_alone(AROW, {"r": 0.1}, dims, dev, blocks)
+        want = par_linear_fields(ref)
+        ref_ll = par_holdout_ll(want["weights"], held)
+        tr = MixTrainer(AROW, {"r": 0.1}, dims, mesh,
+                        MixConfig(mix_every=cfg["mix_every"]))
+        st = tr.init()
+        (st, _), rep = par_run(mesh, dev, lambda: tr.step(st, *blocks), n,
+                               rows)
+        got = par_linear_fields(tr.final_state(st))
+        err = par_close("world 1 mix", got, want, ints=("touched",))
+        par_line(f"world 1 ({backend}) MixTrainer argmin_kld mix_every "
+                 f"{cfg['mix_every']}, {n} blocks of {cfg['block']} at "
+                 f"D = {dims}", rep,
+                 f"; == single-device (max |err| {err:.3g}); holdout "
+                 f"logloss {par_holdout_ll(got['weights'], held):.4f} "
+                 f"(single-device {ref_ll:.4f}); step byte bound "
+                 "%.6f ms (%d B)" % par_bound_ms(blocks, dims,
+                                                 cfg["mix_every"]))
+        tr = ShardedTrainer(AROW, {"r": 0.1}, dims, mesh)
+        st = tr.init()
+
+        def steps():
+            s = st
+            for i in range(n):
+                s, _ = tr.step(s, *(b[i] for b in blocks))
+            return s
+
+        st, rep = par_run(mesh, dev, steps, n, rows)
+        err = par_close("world 1 sharded", par_linear_fields(
+            tr.final_state(st)), want, ints=("touched",))
+        par_line(f"world 1 ({backend}) ShardedTrainer minibatch, 1 stripe "
+                 f"of {tr.stripe}", rep,
+                 f"; == single-device (max |err| {err:.3g}); step byte "
+                 "bound %.6f ms (%d B)" % par_bound_ms(blocks, dims))
+    finally:
+        dist.destroy_process_group()
+
+
+def par_fm(cfg, dev, mesh, rank, blocks):
+    """FMShardedTrainer at k = 5, 2 stripes of D/2, from one warm state,
+    against the single-device FM step."""
+    from hivemall_tpu_torch.models.fm import (FMHyper, fm_state_from_numpy,
+                                              fm_state_to_numpy,
+                                              make_fm_step)
+    from hivemall_tpu_torch.parallel import FMShardedTrainer
+
+    dims, hyper = cfg["dims"], FMHyper(factors=FM_FACTORS,
+                                       classification=True)
+    rng = np.random.RandomState(7)
+    v = np.zeros((dims, hyper.padded_factors), np.float32)
+    v[:, :FM_FACTORS] = 0.1 * rng.randn(dims, FM_FACTORS)
+    kp = hyper.padded_factors
+    warm = {"w0": np.float32(0.0), "w": np.zeros(dims, np.float32), "v": v,
+            "lambda_w0": np.float32(hyper.lambda0),
+            "lambda_w": np.float32(hyper.lambda0),
+            "lambda_v": np.array([hyper.lambda0] * FM_FACTORS
+                                 + [0.0] * (kp - FM_FACTORS), np.float32),
+            "touched": np.zeros(dims, np.int8), "step": 0}
+    n = cfg["fm_blocks"]
+    tr = FMShardedTrainer(hyper, dims, mesh)
+    st = tr.init(from_state=warm)
+
+    def steps():
+        s = st
+        for i in range(n):
+            s, _ = tr.step(s, *(b[i] for b in blocks))
+        return s
+
+    st, rep = par_run(mesh, dev, steps, n, n * cfg["block"])
+    got = fm_state_to_numpy(tr.final_state(st))
+    if rank == 0:
+        step = make_fm_step(hyper, device=dev)
+        ref = fm_state_from_numpy(warm, device=dev)
+        for i in range(n):
+            ref, _ = step(ref, blocks[0][i], blocks[1][i], blocks[2][i],
+                          np.zeros(cfg["block"], np.float32))
+        want = fm_state_to_numpy(ref)
+        err = par_close("fm sharded", got, {k: want[k] for k in (
+            "w0", "w", "v", "touched")}, ints=("touched",))
+        par_line(f"FMShardedTrainer k = {FM_FACTORS}, 2 stripes of "
+                 f"{tr.stripe}", rep,
+                 f"; == single-device (max |err| {err:.3g})")
+
+
+def par_mc(cfg, dev, mesh, rank):
+    """MCShardedTrainer (AROW) at the mc phase's shape, 2 stripes, from one
+    warm random state: one block against the single-device step, then
+    cfg["mc_blocks"] timed blocks. The missed label is an argmax over
+    per-label scores that the stripes sum in another order, so a row
+    whose top two other labels (or whose margin and the hinge) lie within
+    rounding of each other may take the other branch: the features of
+    such near-tie rows are counted and left out of the comparison, every
+    other entry within RTOL / ATOL, touched exact."""
+    import torch
+
+    from hivemall_tpu_torch.models.multiclass import (
+        MC_AROW, _mc_scores, make_mc_train_step, mc_state_from_numpy,
+        mc_state_to_numpy)
+    from hivemall_tpu_torch.parallel import MCShardedTrainer
+
+    rng = np.random.RandomState(41)
+    n, b, L, D = cfg["mc_blocks"], cfg["block"], cfg["mc_labels"], \
+        cfg["mc_dims"]
+    idx = workload_ids(rng, (n + 1, b, cfg["mc_width"]), D).astype(np.int64)
+    val = np.ones(idx.shape, np.float32)
+    lab = rng.randint(0, L, (n + 1, b)).astype(np.int64)
+    gen = np.random.default_rng(42)
+    warm = {"weights": 0.1 * gen.standard_normal((L, D), np.float32),
+            "covars": gen.uniform(0.5, 1.5, (L, D)).astype(np.float32),
+            "touched": np.zeros((L, D), np.int8), "step": 0}
+    tr = MCShardedTrainer(MC_AROW, {"r": 0.1}, L, D, mesh)
+    st = tr.init()
+    lo = mesh.index("workers") * tr.stripe
+    for name in ("weights", "covars"):
+        getattr(st, name).copy_(torch.from_numpy(
+            warm[name][:, lo:lo + tr.stripe]))
+    st, _ = tr.step(st, idx[0], val[0], lab[0])
+    got = mc_state_to_numpy(tr.final_state(st))
+
+    def steps():
+        s = st
+        for i in range(1, n + 1):
+            s, _ = tr.step(s, idx[i], val[i], lab[i])
+        return s
+
+    st, rep = par_run(mesh, dev, steps, n, n * b)
+    if rank != 0:
+        return
+    ref = mc_state_from_numpy(warm, device=dev)
+    scores = _mc_scores(ref.weights, idx[0], val[0]).cpu().numpy()  # [B, L]
+    rows = np.arange(b)
+    correct = scores[rows, lab[0]]
+    scores[rows, lab[0]] = -np.inf
+    top2 = np.sort(scores, axis=1)[:, -2:]
+    tie = 1e-4 * (1.0 + np.abs(top2[:, 1]) + np.abs(correct))
+    near = (top2[:, 1] - top2[:, 0] <= tie) | (
+        np.abs(1.0 - (correct - top2[:, 1])) <= tie)
+    masked = np.unique(idx[0][near])
+    keep = np.ones(D, bool)
+    keep[masked] = False
+    ref, _ = make_mc_train_step(MC_AROW, {"r": 0.1}, "minibatch",
+                                device=dev)(ref, idx[0], val[0], lab[0])
+    want = mc_state_to_numpy(ref)
+    assert np.all(np.isfinite(want["weights"])), "mc: non-finite"
+    err = par_close("mc sharded", {k: got[k][:, keep] for k in (
+        "weights", "covars", "touched")}, {k: want[k][:, keep] for k in (
+            "weights", "covars", "touched")}, ints=("touched",))
+    par_line(f"MCShardedTrainer AROW L = {L}, 2 stripes of {tr.stripe}",
+             rep, f"; one block from a warm state == single-device (max "
+             f"|err| {err:.3g}) outside the {masked.size} features of "
+             f"{int(near.sum())} near-tie rows")
+
+
+def par_ffm(cfg, dev, mesh, rank):
+    """FFMShardedTrainer at the ffm phase's shape from one warm state,
+    unchunked and -row_chunk, against the single-device FFM step."""
+    from hivemall_tpu_torch.models.ffm import (FFMHyper, ffm_state_from_numpy,
+                                               ffm_state_to_numpy,
+                                               make_ffm_step)
+    from hivemall_tpu_torch.parallel import FFMShardedTrainer
+
+    nf, dv = 1 << cfg["ffm_feature_bits"], 1 << cfg["ffm_v_bits"]
+    hyper = FFMHyper(factors=FFM_K, num_features=nf, v_dims=dv,
+                     num_fields=FFM_FIELDS)
+    rng = np.random.RandomState(51)
+    b = cfg["ffm_rows"]
+    idx = workload_ids(rng, (b, FFM_WIDTH), nf).astype(np.int64)
+    fld = rng.randint(0, FFM_FIELDS, nf)[idx]
+    val = np.ones(idx.shape, np.float32)
+    lab = np.where(rng.rand(b) < 0.5, 1.0, -1.0).astype(np.float32)
+    warm = {"w0": np.float32(0.0), "w": np.zeros(nf, np.float32),
+            "z": np.zeros(nf, np.float32), "n": np.zeros(nf, np.float32),
+            "v": (0.1 * rng.randn(dv, FFM_K)).astype(np.float32),
+            "v_gg": np.zeros(dv, np.float32),
+            "touched": np.zeros(nf, np.int8), "step": 0}
+    want = None
+    if rank == 0:
+        ref, _ = make_ffm_step(hyper, "minibatch", device=dev)(
+            ffm_state_from_numpy(warm, device=dev), idx, val, fld, lab)
+        want = ffm_state_to_numpy(ref)
+    for chunk in (None, cfg["ffm_chunk"]):
+        tr = FFMShardedTrainer(hyper, mesh, row_chunk=chunk)
+        st = tr.init(from_state=warm)
+        (st, _), rep = par_run(mesh, dev,
+                               lambda: tr.step(st, idx, val, fld, lab), 1, b)
+        got = ffm_state_to_numpy(tr.final_state(st))
+        if rank == 0:
+            err = par_close(f"ffm sharded chunk {chunk}", got, {
+                k: want[k] for k in ("w", "z", "n", "v", "v_gg", "touched")},
+                ints=("touched",))
+            par_line(f"FFMShardedTrainer row_chunk {chunk}, stripes of "
+                     f"{tr.stripe_w} / {tr.stripe_v}", rep,
+                     f"; == single-device (max |err| {err:.3g})")
+
+
+def par_gbt(cfg, dev, mesh, rank):
+    """train_gbt_data_parallel on the bench GBT's rows (a few rounds). The
+    ranks' partial histograms add in lane order on the card and on the
+    CPU alike (models/trees/grow.py), so the same two ranks growing on the
+    CPU must give the card's trees: decision scores within GBT_TOL, trees
+    counted node for node. Against the single-device trainer the partials'
+    sum is another float order, and a near-tie split gain may go the
+    other way in a later level, as in the JAX package's data-parallel
+    GBT: predictions must agree on 98% of the rows and training accuracy
+    within 0.02 (the rules of its tests/test_forest_shard.py)."""
+    from hivemall_tpu_torch.models.trees import (
+        train_gradient_tree_boosting_classifier)
+    from hivemall_tpu_torch.parallel import make_mesh
+    from hivemall_tpu_torch.parallel.forest_shard import (
+        train_gbt_data_parallel)
+
+    X, y = bench_rows(np.random.RandomState(33), cfg["gbt_rows"],
+                      cfg["features"])
+    opts = cfg["gbt_opts"]
+    n_trees = int(opts.split()[1])
+    got, rep = par_run(mesh, dev, lambda: train_gbt_data_parallel(
+        X, y, opts, mesh), n_trees, cfg["gbt_rows"] * n_trees)
+    host = train_gbt_data_parallel(X, y, opts, make_mesh(device="cpu"))
+    if rank != 0:
+        return
+    d_got = got.decision_function(X)
+    d_host = host.decision_function(X)
+    np.testing.assert_allclose(d_got, d_host, rtol=GBT_TOL[0],
+                               atol=GBT_TOL[1],
+                               err_msg="gbt data-parallel: card vs CPU")
+    same = sum(same_trees(a, b) for a, b in zip(got.trees, host.trees))
+    start, stop = par_clock(dev)
+    start()
+    want = train_gradient_tree_boosting_classifier(X, y, opts, device=dev)
+    alone_ms = stop() / n_trees
+    p_got, p_want = got.predict(X), want.predict(X)
+    agree = float(np.mean(p_got == p_want))
+    acc_got, acc_want = float(np.mean(p_got == y)), float(np.mean(p_want == y))
+    assert agree > 0.98, f"gbt data-parallel: agrees on {agree:.4f} of rows"
+    assert abs(acc_got - acc_want) < 0.02, (acc_got, acc_want)
+    d_want = want.decision_function(X)
+    par_line(f"train_gbt_data_parallel {opts} on {cfg['gbt_rows']} x "
+             f"{cfg['features']} (a step = a tree)", rep,
+             f"; single device {alone_ms:.3f} ms a tree (run after it); "
+             f"card == the same 2 ranks on the CPU (max |err| "
+             f"{float(np.max(np.abs(d_got - d_host))):.3g}, {same} of "
+             f"{n_trees} trees node for node); against single-device: "
+             f"predictions agree on {agree:.4f} of rows, accuracy "
+             f"{acc_got:.4f} / {acc_want:.4f}, max |decision diff| "
+             f"{float(np.max(np.abs(d_got - d_want))):.3g}")
+
+
+def parallel_rank(rank, n, tmp, cfg):
+    """One rank of phase parallel's world of two (gloo; both ranks on the
+    one card): every trainer of the slice, held as the docstring says."""
+    import os
+
+    import torch
+
+    from hivemall_tpu_torch.core.engine import DELTA_SLOT
+    from hivemall_tpu_torch.models.classifier import AROW
+    from hivemall_tpu_torch.parallel import (MixConfig, MixTrainer,
+                                             Sharded2DTrainer, ShardedTrainer,
+                                             make_mesh, make_mesh_2d)
+    from hivemall_tpu_torch.parallel.mesh import all_gather_host
+
+    dev = torch.device(cfg["device"])
+    with np.load(os.path.join(tmp, "data.npz")) as z:
+        d = {k: z[k] for k in z.files}
+    blocks = (d["idx"], d["val"], d["lab"])
+    held = (d["h_idx"], d["h_val"], d["h_y"])
+    dims, k, b = cfg["dims"], cfg["blocks"] // n, cfg["block"]
+    mine = tuple(a[rank * k:(rank + 1) * k] for a in blocks)
+    first = tuple(a[:k] for a in blocks)
+    mesh = make_mesh(device=dev)
+    par_warm_up(mesh, dev, blocks)
+
+    # MixTrainer over 2 replicas vs the manual argminKLD of the replicas
+    # trained alone (plain torch on the card)
+    tr = MixTrainer(AROW, {"r": 0.1}, dims, mesh,
+                    MixConfig(mix_every=k))
+    st = tr.init()
+    (st, _), rep = par_run(mesh, dev, lambda: tr.step(st, *mine), k, k * b)
+    alone = par_train_alone(AROW, {"r": 0.1}, dims, dev, mine, track=True)
+
+    def both(x):
+        return torch.from_numpy(all_gather_host(x, mesh, "workers")).to(dev)
+
+    w, cov, dl = (both(alone.weights), both(alone.covars),
+                  both(alone.slots[DELTA_SLOT]))
+    total, inv = dl.sum(0), 1.0 / cov
+    manual = {"weights": torch.where(total > 0, (w * inv).sum(0) / inv.sum(0),
+                                     alone.weights),
+              "covars": torch.where(total > 0, 1.0 / inv.sum(0),
+                                    alone.covars)}
+    err = par_close("mix vs manual", {k_: v.cpu().numpy() for k_, v in (
+        ("weights", st.weights), ("covars", st.covars))},
+        {k_: v.cpu().numpy() for k_, v in manual.items()})
+    mixed = par_linear_fields(tr.final_state(st))
+    ref = par_train_alone(AROW, {"r": 0.1}, dims, dev, blocks) \
+        if rank == 0 else None
+    peaks = all_gather_host(float(rep["peak_mib"] or 0.0), mesh, "workers")
+    if rank == 0:
+        par_line(f"world 2 (gloo, both ranks on one card) MixTrainer "
+                 f"argmin_kld, {k} blocks a replica, one mix", rep,
+                 f" (rank peaks {peaks.round(1).tolist()} MiB); == manual "
+                 f"argminKLD of the replicas trained alone (max |err| "
+                 f"{err:.3g}); holdout logloss "
+                 f"{par_holdout_ll(mixed['weights'], held):.4f} "
+                 f"(single-device on both replicas' rows "
+                 f"{par_holdout_ll(par_linear_fields(ref)['weights'], held):.4f})")
+
+    # ShardedTrainer: 2 stripes, minibatch, then a scan prefix
+    want = None
+    if rank == 0:
+        ref = par_train_alone(AROW, {"r": 0.1}, dims, dev, first)
+        ref = par_train_alone(AROW, {"r": 0.1}, dims, dev, tuple(
+            a[0, :cfg["scan_rows"]][None] for a in blocks), mode="scan",
+            state=ref)
+        want = par_linear_fields(ref)
+    tr = ShardedTrainer(AROW, {"r": 0.1}, dims, mesh)
+    scan = ShardedTrainer(AROW, {"r": 0.1}, dims, mesh, mode="scan")
+    st = tr.init()
+
+    def steps():
+        s = st
+        for i in range(k):
+            s, _ = tr.step(s, *(a[i] for a in first))
+        return s
+
+    st, rep = par_run(mesh, dev, steps, k, k * b)
+    srows = cfg["scan_rows"]
+    st, rep_scan = par_run(mesh, dev, lambda: scan.step(
+        st, *(a[0, :srows] for a in blocks))[0], srows, srows)
+    got = par_linear_fields(tr.final_state(st))
+    peaks = all_gather_host(float(rep["peak_mib"] or 0.0), mesh, "workers")
+    if rank == 0:
+        err = par_close("sharded", got, want, ints=("touched",))
+        par_line(f"world 2 ShardedTrainer minibatch, 2 stripes of "
+                 f"{tr.stripe}", rep,
+                 f" (rank peaks {peaks.round(1).tolist()} MiB)")
+        par_line(f"world 2 ShardedTrainer scan prefix of {srows} rows (a "
+                 f"step = a row)", rep_scan,
+                 f"; both == single-device (max |err| {err:.3g})")
+
+    # Sharded2DTrainer at 1 x 2 (== single-device) and 2 x 1 (== MixTrainer)
+    for r_, s_ in ((1, 2), (2, 1)):
+        mesh2 = make_mesh_2d(r_, s_, device=dev)
+        try:
+            t2 = Sharded2DTrainer(AROW, {"r": 0.1}, dims, mesh2,
+                                  config=MixConfig(mix_every=k))
+            data = first if r_ == 1 else mine
+            (st2, _), rep = par_run(mesh2, dev, lambda: t2.step(
+                t2.init(), *data), k, k * b * r_)
+            got = par_linear_fields(t2.final_state(st2))
+        finally:
+            mesh2.destroy()
+        if rank == 0:
+            base = par_linear_fields(par_train_alone(
+                AROW, {"r": 0.1}, dims, dev, first)) if r_ == 1 else mixed
+            err = par_close(f"2d {r_}x{s_}", got, base, ints=("touched",))
+            par_line(f"world 2 Sharded2DTrainer {r_} x {s_}", rep,
+                     f"; == {'single-device' if r_ == 1 else 'MixTrainer'} "
+                     f"(max |err| {err:.3g})")
+
+    par_fm(cfg, dev, mesh, rank, blocks)
+    par_mc(cfg, dev, mesh, rank)
+    par_ffm(cfg, dev, mesh, rank)
+    par_gbt(cfg, dev, mesh, rank)
+
+
+def phase_parallel(seed, dev, smi, data):
+    """Data-parallel and feature-sharded training (hivemall_tpu_torch/
+    parallel/): (a) a world of one in this process (NCCL on the card), (b)
+    a spawned world of two over gloo with both ranks on the one card."""
+    import os
+    import shutil
+    import tempfile
+
+    import chip_smoke
+    from hivemall_tpu_torch.parallel.mesh import spawn
+
+    _, (idx, val, y), (h_idx, h_val, h_y) = data
+    cfg = par_config(dev)
+    blocks = par_blocks(cfg, idx, val, y)
+    held = (h_idx, h_val, h_y)
+    print(f"[parallel] card: {smi}")
+    t0 = time.perf_counter()
+    par_world_one(cfg, dev, blocks, held)
+    t1 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="hivemall_parallel_")
+    try:
+        np.savez(os.path.join(tmp, "data.npz"), idx=blocks[0],
+                 val=blocks[1], lab=blocks[2], h_idx=h_idx, h_val=h_val,
+                 h_y=h_y)
+        spawn(chip_smoke.parallel_rank, 2, (tmp, cfg),
+              init_file=os.path.join(tmp, "rendezvous"), backend="gloo",
+              device=cfg["device"], timeout=PAR_TIMEOUT)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[parallel] world 1 took {t1 - t0:.1f} s, world 2 (spawn "
+          f"included) {time.perf_counter() - t1:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4230,6 +4867,14 @@ def main(argv=None) -> int:
           f"kernel launches during it: {dict(LAUNCHES)} (the pipeline "
           f"trains through make_train_step in minibatch mode and reaches no "
           f"pallas_call in the JAX package)")
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+    t_par = time.perf_counter()
+    phase_parallel(args.seed, dev, smi, data)
+    print(f"[parallel] phase took {time.perf_counter() - t_par:.1f} s; "
+          f"kernel launches during it: {dict(LAUNCHES)} (hivemall_tpu/"
+          f"parallel reaches no pallas_call: its collectives are XLA psums "
+          f"and its steps the engine's XLA ops, plain torch here)")
     source = "hivemall_tpu_torch/kernels/csrc/linear_scan.cu"
     replaces = "hivemall_tpu/kernels/linear_scan.py:44"
     kernels = [

@@ -41,7 +41,9 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from .collectives import psum
 from .state import LinearState
+from .striping import translate_to_stripe
 
 
 @dataclass
@@ -90,6 +92,13 @@ class Rule:
     pre_row: Optional[Callable] = None
     pre_batch: Optional[Callable] = None
     is_regression: bool = False
+    # How each optimizer slot merges across data-parallel replicas when a
+    # mixed model collapses to one (parallel/mix.py merge_slot_arrays):
+    # "sum" for additive per-example statistics (AdaGrad accumulators: the
+    # replicas saw disjoint shards), "mean" for decayed ones (AdaDelta).
+    # Unlisted slots default to "mean" over the replicas that touched the
+    # feature.
+    slot_merge: Tuple[Tuple[str, str], ...] = ()
 
 
 DELTA_SLOT = "__delta_upd"  # per-feature update count since the last mix
@@ -183,6 +192,18 @@ def make_train_fn(
     (reference's -mini_batch semantics). With `track_deltas`,
     state.slots[DELTA_SLOT] accumulates per-feature update counts.
     Inputs may be numpy arrays or tensors; they are moved to `device`.
+
+    `feature_shard=(mesh, axis, stripe)` runs the same step on this rank's
+    [stripe] slice of the model (parallel/sharded_train.py), the training
+    analog of the reference's feature-sharded parameter store (ref:
+    mix/client/MixRequestRouter.java:56-60): global ids translate to the
+    stripe (core/striping.py; lanes this rank does not own are dead and
+    their values 0), each row's score / sq_norm / variance partials are
+    summed over the mesh axis in ONE all_reduce (a [3] tensor a row in
+    scan mode, [3, B] a block in minibatch mode; [2] / [2, B] without a
+    covariance), and scatters land in the
+    local stripe only. Exact up to the order of that sum: every rule's
+    lane update is a function of (global row scalars, lane-local state).
     """
     if mode not in ("scan", "minibatch"):
         raise ValueError(f"unknown mode {mode!r}")
@@ -192,17 +213,32 @@ def make_train_fn(
         raise ValueError("update_backend='mxu' (the sorted-window gather/"
                          "scatter, ops/mxu_scatter.py) is a later slice of "
                          "the torch port; use the default backend")
-    if feature_shard is not None:
-        raise ValueError("feature_shard (model-striped training, "
-                         "parallel/sharded_train.py) is a later slice of the "
-                         "torch port")
     dev = resolve_device(device)
     use_cov = rule.use_covariance
+    n_partials = 3 if use_cov else 2
 
     def inputs(indices, values, labels):
-        return (_to_device(indices, torch.int64, dev),
-                _to_device(values, torch.float32, dev),
-                _to_device(labels, torch.float32, dev))
+        idx = _to_device(indices, torch.int64, dev)
+        val = _to_device(values, torch.float32, dev)
+        if feature_shard is not None:
+            mesh, axis, stripe = feature_shard
+            idx, val = translate_to_stripe(idx, val, mesh.index(axis),
+                                           stripe)
+        return idx, val, _to_device(labels, torch.float32, dev)
+
+    def global_scalars(ctx: RowContext) -> RowContext:
+        """Sharded: the row partials summed over the shard axis (one
+        collective); unsharded: as they are."""
+        if feature_shard is None:
+            return ctx
+        mesh, axis, _ = feature_shard
+        parts = torch.stack([ctx.score, ctx.sq_norm, ctx.variance]
+                            [:n_partials])
+        parts = psum(parts, mesh, axis)
+        ctx.score, ctx.sq_norm = parts[0], parts[1]
+        if use_cov:
+            ctx.variance = parts[2]
+        return ctx
 
     def scan_step(state: LinearState, indices, values, labels):
         indices, values, labels = inputs(indices, values, labels)
@@ -219,7 +255,7 @@ def make_train_fn(
             ctx, live, sidx = row_context((weights, covars, slots),
                                           indices[b], values[b], y, tf,
                                           use_cov, gl)
-            out = rule.update(ctx, hyper)
+            out = rule.update(global_scalars(ctx), hyper)
             lidx = sidx[live]
             # rule math runs in f32; bf16 tables take the delta cast to
             # their storage dtype
@@ -261,7 +297,7 @@ def make_train_fn(
         ctx, live, sidx = row_context(
             (state.weights, state.covars, state.slots), indices, values,
             labels, ts, use_cov, gl)
-        outs = rule.update(ctx, hyper)
+        outs = rule.update(global_scalars(ctx), hyper)
         lane_upd = outs.updated.float()[:, None] * torch.ones_like(values)
         # dead lanes land in the scratch tables' extra last entry
         sink = torch.where(live, indices, torch.full_like(indices, d)) \

@@ -242,6 +242,7 @@ ADAGRAD_RDA = Rule(
     _adagrad_rda_update,
     slot_names=("sum_grad", "sum_sqgrad"),
     derive_w=_adagrad_rda_derive_w,
+    slot_merge=(("sum_grad", "sum"), ("sum_sqgrad", "sum")),
 )
 
 

@@ -56,10 +56,12 @@ import torch
 from ..core.batch import pad_to_bucket
 from ..core.engine import _to_device, live_lanes
 from ..core.state import _numpy
+from ..core.striping import translate_to_stripe
 from ..device import DeviceLike, resolve_device
 from ..ops.convergence import ConversionState
 from ..ops.eta import EtaEstimator, get_eta
 from ..ops.scatter import scatter_rows_flat
+from ..core.collectives import psum
 from ..utils.feature import FMFeature
 from ..utils.options import Options
 from .base import later_slice
@@ -215,6 +217,45 @@ def _row_predict(st: FFMState, idx, val, fields, hyper: FFMHyper, Vg=None,
     return p, keys, Vg, xx
 
 
+def sharded_ffm_gather(st: FFMState, idx, val, fields, hyper: FFMHyper,
+                       mesh, axis: str, stripe_w: int, stripe_v: int):
+    """The ONE copy of the feature-sharded FFM row gather + prediction,
+    shared by the sharded train step and sharded scoring (FFMShardedTrainer
+    .make_predict). Rows [B, K] with GLOBAL ids. Each rank gathers the
+    entries it owns of each row's [K, K, k] pair block and its AdaGrad
+    accumulators (exactly one owner per hashed key) and its linear
+    partial; ONE all_reduce sums the three, rebuilding the full block
+    everywhere. Keys hash with the full v_dims, so the sharded model is
+    the same function as the unsharded one. Returns (p, local keys [B, K,
+    K] (not owned -> ``stripe_v``), Vg, xx, gg, own)."""
+    shard = mesh.index(axis)
+    b, K = idx.shape
+    k = hyper.factors
+    lkeys = _row_pair_keys(idx, fields, hyper.v_dims) - shard * stripe_v
+    owned = (lkeys >= 0) & (lkeys < stripe_v)
+    lkeys = torch.where(owned, lkeys, torch.full_like(lkeys, stripe_v))
+    safe = torch.where(owned, lkeys, torch.zeros_like(lkeys))
+    vg = torch.where(owned[..., None], st.v[safe].float(), 0.0)
+    gg = torch.where(owned, st.v_gg[safe].float(), 0.0)
+    lin = torch.zeros(b, dtype=torch.float32, device=st.w.device)
+    if hyper.linear_coeff:
+        lidx, vmask = translate_to_stripe(idx, val, shard, stripe_w)
+        live = (lidx >= 0) & (lidx < st.w.shape[0])
+        lin = torch.sum(_linear_lanes(st.w, lidx, live) * vmask, dim=-1)
+    parts = psum(torch.cat([vg.reshape(b, -1), gg.reshape(b, -1),
+                            lin[:, None]], dim=1), mesh, axis)
+    vg = parts[:, :K * K * k].reshape(b, K, K, k)
+    gg = parts[:, K * K * k:-1].reshape(b, K, K)
+    inter = torch.sum(vg * vg.transpose(-2, -3), dim=-1)
+    xx = val[..., :, None] * val[..., None, :]
+    p = torch.sum(torch.triu(inter * xx, 1), dim=(-2, -1))
+    if hyper.linear_coeff:
+        p = p + parts[:, -1]
+    if hyper.global_bias:
+        p = p + st.w0
+    return p, lkeys, vg, xx, gg, owned.to(val.dtype)
+
+
 def _set_last_lane(table: torch.Tensor, sidx: torch.Tensor,
                    live: torch.Tensor, vals: torch.Tensor) -> None:
     """``table[sidx] = vals`` over the live lanes, IN PLACE; where a slot
@@ -253,8 +294,17 @@ def make_ffm_step(hyper: FFMHyper, mode: str = "scan",
     ``pack_v`` interleaves V and its AdaGrad accumulator into one
     [Dv, k+1] table for the block, so one row gather and one row scatter
     serve both (None: pack when B * K^2 * 8 >= Dv, the JAX package's
-    rule). ``feature_shard`` and ``update_backend="mxu"`` are later slices
-    of the port and raise."""
+    rule). ``update_backend="mxu"`` is a later slice of the port and
+    raises.
+
+    ``feature_shard=(mesh, axis, stripe_w, stripe_v)`` stripes the linear
+    tables (w / z / n / touched, [num_features]) and the pairwise tables
+    (v / v_gg, [v_dims]) across the ranks of the axis
+    (parallel/sharded_train.py FFMShardedTrainer): each row group's pair
+    blocks are owner-gathered and summed in one all_reduce
+    (`sharded_ffm_gather`; per chunk under ``row_chunk``), and updates
+    scatter back into the owned entries only. V is never packed with its
+    accumulator there."""
     if update_backend not in ("xla", "mxu"):
         raise ValueError(f"unknown update_backend {update_backend!r}")
     if update_backend == "mxu":
@@ -262,11 +312,6 @@ def make_ffm_step(hyper: FFMHyper, mode: str = "scan",
                          "scatter of the pairwise V traffic, "
                          "ops/mxu_scatter.py) is a later slice of the torch "
                          "port: ROADMAP Queue 2 #3; use the default backend")
-    if feature_shard is not None:
-        raise ValueError("feature_shard (model-striped FFM training, "
-                         "parallel/ffm_mix.py, core/striping.py) is a later "
-                         "slice of the torch port: ROADMAP Queue 1 #7, "
-                         "data-parallel and sharded training")
     if mode not in ("scan", "minibatch"):
         raise ValueError(f"unknown mode {mode!r}")
     if row_chunk is not None and mode != "minibatch":
@@ -293,15 +338,20 @@ def make_ffm_step(hyper: FFMHyper, mode: str = "scan",
     def row_updates(base: FFMState, idx, val, fld, y, ts, pk_base):
         """(g, loss, keys, dV, dgg) of rows [B, K] against ``base`` (its
         V and gg from the packed table ``pk_base`` when given)."""
-        keys = _row_pair_keys(idx, fld, hyper.v_dims)  # [B, K, K]
-        gg = None
-        if pk_base is not None:
-            pg = pk_base[keys]  # [B, K, K, k+1]
-            Vg, gg = pg[..., :-1], pg[..., -1]
+        own = None
+        if feature_shard is not None:
+            p, keys, Vg, xx, gg, own = sharded_ffm_gather(
+                base, idx, val, fld, hyper, *feature_shard)
         else:
-            Vg = base.v[keys]
-        p, _, _, xx = _row_predict(base, idx, val, fld, hyper, Vg=Vg,
-                                   keys=keys)
+            keys = _row_pair_keys(idx, fld, hyper.v_dims)  # [B, K, K]
+            gg = None
+            if pk_base is not None:
+                pg = pk_base[keys]  # [B, K, K, k+1]
+                Vg, gg = pg[..., :-1], pg[..., -1]
+            else:
+                Vg = base.v[keys]
+            p, _, _, xx = _row_predict(base, idx, val, fld, hyper, Vg=Vg,
+                                       keys=keys)
         g, loss = dloss_fn(p, y)
         K = idx.shape[-1]
         offdiag = 1.0 - torch.eye(K, device=dev)
@@ -319,6 +369,8 @@ def make_ffm_step(hyper: FFMHyper, mode: str = "scan",
         # pad lanes (value 0) get neither the gradient nor the L2 pull
         lane = (val != 0.0).to(val.dtype)
         pair_real = lane[:, :, None] * lane[:, None, :] * offdiag
+        if own is not None:  # sharded: foreign entries are not this rank's
+            pair_real = pair_real * own
         dV = dV * pair_real[..., None]
         dgg = torch.sum(gradV * gradV, dim=-1) * pair_real
         return g, loss, keys, dV, dgg
@@ -357,7 +409,15 @@ def make_ffm_step(hyper: FFMHyper, mode: str = "scan",
                               .reshape(-1, k + 1))
         else:
             scatter_rows_flat(carry.v, keys.reshape(-1), dV.reshape(-1, k))
-            carry.v_gg.index_add_(0, keys.reshape(-1), dgg.reshape(-1))
+            if feature_shard is None:
+                carry.v_gg.index_add_(0, keys.reshape(-1), dgg.reshape(-1))
+            else:  # keys not owned here are past the stripe: dropped
+                scatter_rows_flat(carry.v_gg[:, None], keys.reshape(-1),
+                                  dgg.reshape(-1, 1))
+        if feature_shard is not None:
+            mesh, axis, stripe_w, _ = feature_shard
+            idx, val = translate_to_stripe(idx, val, mesh.index(axis),
+                                           stripe_w)
         live, sidx = live_lanes(idx, carry.w.shape[0])
         if hyper.linear_coeff:
             dz, dn, w_new = w_updates(base, sidx, live, val, g, ts)
@@ -387,7 +447,9 @@ def make_ffm_step(hyper: FFMHyper, mode: str = "scan",
         is the B*K^2 scalar gg gather and scatter it folds into the V row
         ops. Pack when the block's pairwise volume dominates the table
         traffic (always at the deployment block sizes; tiny test blocks
-        stay split). ``pack_v`` overrides."""
+        stay split). ``pack_v`` overrides; sharded steps never pack."""
+        if feature_shard is not None:
+            return False
         if pack_v is not None:
             return pack_v
         return b * K * K * 8 >= state.v.shape[0]

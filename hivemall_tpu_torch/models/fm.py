@@ -48,10 +48,12 @@ from ..constants import DEFAULT_NUM_FEATURES
 from ..core.batch import iter_blocks, pad_to_bucket, shuffle_rows
 from ..core.engine import _to_device, gather, live_lanes
 from ..core.state import _numpy
+from ..core.striping import translate_to_stripe
 from ..device import DeviceLike, resolve_device
 from ..ops.convergence import ConversionState
 from ..ops.eta import EtaEstimator, get_eta
 from ..ops.scatter import scatter_rows_flat
+from ..core.collectives import psum
 from ..utils.options import Options
 from .base import FeatureRows, _stage_rows, base_options, later_slice
 
@@ -185,6 +187,39 @@ def _row_predict(w0, wg, vg, val):
     return p, sum_vfx
 
 
+def _psum_predict(w0, wg, vg, val, mesh, axis: str):
+    """`_row_predict` on a feature stripe: the three prediction partials
+    (linear [...], sumVfX [..., kp], sumV2X2 [..., kp]) of the owned lanes
+    summed over the mesh axis in ONE all_reduce, then p."""
+    kp = vg.shape[-1]
+    vx = vg * val[..., None]
+    parts = torch.cat([torch.sum(wg * val, dim=-1)[..., None],
+                       torch.sum(vx, dim=-2), torch.sum(vx * vx, dim=-2)],
+                      dim=-1)
+    parts = psum(parts, mesh, axis)
+    linear, sum_vfx = parts[..., 0], parts[..., 1:1 + kp]
+    sum_v2x2 = parts[..., 1 + kp:]
+    p = w0 + linear + 0.5 * torch.sum(sum_vfx * sum_vfx - sum_v2x2, dim=-1)
+    return p, sum_vfx
+
+
+def sharded_gather_predict(w, v, w0, idx, val, mesh, axis: str,
+                           stripe: int):
+    """The ONE copy of the feature-sharded FM gather + prediction, used by
+    the sharded train step and by sharded scoring (FMShardedTrainer.
+    make_predict), so train-time and serve-time p cannot drift: translate
+    global ids into the local [stripe] tables (core/striping.py), gather
+    the owned lanes, and sum the three prediction partials over the axis
+    in one all_reduce. idx/val are [..., K] on w's device. Returns (wg,
+    vg, vmask, lidx, p, sumVfX)."""
+    lidx, vmask = translate_to_stripe(idx, val, mesh.index(axis), stripe)
+    live, sidx = live_lanes(lidx, w.shape[0])
+    wg = gather(w, sidx, live)
+    vg = _gather_rows(v, sidx, live)
+    p, sum_vfx = _psum_predict(w0, wg, vg, vmask, mesh, axis)
+    return wg, vg, vmask, lidx, p, sum_vfx
+
+
 def _dloss_and_loss(p, y, hyper: FMHyper):
     if hyper.classification:
         # dloss = (sigmoid(p*y) - 1)*y; loss = log(1 + exp(-p*y)), which is
@@ -235,15 +270,21 @@ def make_fm_step(hyper: FMHyper, mode: str = "minibatch",
     ``pack_w`` is accepted for the JAX signature: there it selects whether
     w rides a V pad lane through one row gather and scatter, a layout the
     JAX tests pin equal to the split one. The port computes both the same
-    way (w and V as separate tables). ``feature_shard`` and
-    ``update_backend="mxu"`` are later slices of the port and raise."""
+    way (w and V as separate tables). ``update_backend="mxu"`` is a later
+    slice of the port and raises.
+
+    ``feature_shard=(mesh, axis, stripe)`` runs the same step on this
+    rank's [stripe] slice of w and V (parallel/sharded_train.py
+    FMShardedTrainer): ids translate to the stripe, each row's prediction
+    partials are summed over the axis (`sharded_gather_predict`), and the
+    lane updates, functions of (global g, global sumVfX, lane-local w /
+    V), scatter into the local stripe only. Exact up to the order of that
+    sum. adareg is refused sharded, as in JAX (its lambda updates need
+    cross-stripe sums)."""
     if mode not in ("scan", "minibatch"):
         raise ValueError(f"unknown mode {mode!r}")
-    if feature_shard is not None:
-        raise ValueError("feature_shard (model-striped FM training, "
-                         "parallel/fm_mix.py, core/striping.py) is a later "
-                         "slice of the torch port: ROADMAP Queue 1 #10, "
-                         "data-parallel and sharded training")
+    if feature_shard is not None and hyper.adareg:
+        raise ValueError("adareg is not supported with feature_shard")
     if update_backend not in ("xla", "mxu"):
         raise ValueError(f"unknown update_backend {update_backend!r}")
     if update_backend == "mxu":
@@ -256,9 +297,18 @@ def make_fm_step(hyper: FMHyper, mode: str = "minibatch",
     k = hyper.factors
 
     def inputs(indices, values, labels):
-        return (_to_device(indices, torch.int64, dev),
-                _to_device(values, torch.float32, dev),
-                _to_device(labels, torch.float32, dev))
+        idx = _to_device(indices, torch.int64, dev)
+        val = _to_device(values, torch.float32, dev)
+        if feature_shard is not None:
+            mesh, axis, stripe = feature_shard
+            idx, val = translate_to_stripe(idx, val, mesh.index(axis),
+                                           stripe)
+        return idx, val, _to_device(labels, torch.float32, dev)
+
+    def row_predict(w0, wg, vg, val):
+        if feature_shard is None:
+            return _row_predict(w0, wg, vg, val)
+        return _psum_predict(w0, wg, vg, val, *feature_shard[:2])
 
     def theta_deltas(st: FMState, eta, g, val, wg, vg, sum_vfx):
         """dw0 [...], dw [..., K], dv [..., K, kp] of rows against `st`;
@@ -318,7 +368,7 @@ def make_fm_step(hyper: FMHyper, mode: str = "minibatch",
             lv, si, val = live[b], sidx[b], values[b]
             wg = gather(st.w, si, lv)
             vg = _gather_rows(st.v, si, lv)
-            p, sum_vfx = _row_predict(st.w0, wg, vg, val)
+            p, sum_vfx = row_predict(st.w0, wg, vg, val)
             g, loss = _dloss_and_loss(p, labels[b], hyper)
             if va[b] > 0:  # theta = 0: theta's update adds exact zeros
                 if hyper.adareg:
@@ -350,7 +400,7 @@ def make_fm_step(hyper: FMHyper, mode: str = "minibatch",
         live, sidx = live_lanes(indices, d)
         wg = gather(state.w, sidx, live)
         vg = _gather_rows(state.v, sidx, live)
-        p, sum_vfx = _row_predict(state.w0, wg, vg, values)
+        p, sum_vfx = row_predict(state.w0, wg, vg, values)
         g, loss = _dloss_and_loss(p, labels, hyper)
         dw0, dw, dv = theta_deltas(state, eta, g, values, wg, vg, sum_vfx)
         theta = 1.0 - va  # [B]

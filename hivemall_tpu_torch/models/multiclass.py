@@ -45,8 +45,8 @@ it).
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
-from typing import Callable, List, Optional, Sequence
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -55,7 +55,9 @@ from ..constants import DEFAULT_NUM_FEATURES
 from ..core.batch import iter_blocks, pad_to_bucket
 from ..core.engine import _to_device, live_lanes
 from ..core.state import _numpy
+from ..core.striping import translate_to_stripe
 from ..device import DeviceLike, resolve_device
+from ..core.collectives import psum
 from ..utils.options import Options
 from .base import FeatureRows, _stage_rows, base_options
 from .classifier import _resolve_phi, _safe_div
@@ -69,6 +71,9 @@ class MulticlassState:
     covars: Optional[torch.Tensor]  # [L, D] init 1.0
     touched: torch.Tensor  # [L, D] int8
     step: int  # processed-example counter
+    # optimizer accumulators ([L, D] each), merged across replicas per
+    # MCRule.slot_merge (parallel/mc_mix.py); no current rule fills them
+    slots: Dict[str, torch.Tensor] = field(default_factory=dict)
 
     @property
     def num_labels(self) -> int:
@@ -136,6 +141,10 @@ class MCRule:
     name: str
     compute: Callable  # (m, var, sq_norm, hyper) -> (alpha, beta, loss, updated)
     cov_kind: str = "none"
+    # (slot_name, "sum"|"mean") merge kinds for a distributed final_state,
+    # the contract of core.engine.Rule.slot_merge; empty for every current
+    # rule (no multiclass rule carries accumulator slots)
+    slot_merge: Tuple[Tuple[str, str], ...] = ()
 
     @property
     def use_covariance(self) -> bool:
@@ -300,16 +309,16 @@ def make_mc_train_step(rule: MCRule, hyper: dict, mode: str = "scan",
     ``mode="scan"`` replays rows sequentially (reference-exact);
     ``"minibatch"`` reads every row against the block-start tables, then
     scatter-adds the correct and missed rows' deltas. ``labels`` are label
-    indices into the state's [L, D] rows. ``feature_shard`` (the
-    feature-sharded multiclass step) is a later slice of the port and
-    raises."""
+    indices into the state's [L, D] rows.
+
+    ``feature_shard=(mesh, axis, stripe)`` runs the same step on this
+    rank's [L, stripe] slice of the tables (parallel/sharded_train.py
+    MCShardedTrainer): ids translate to the stripe, the per-label score
+    (and variance) partials of each row are summed over the axis in one
+    all_reduce, sq_norm comes from the whole row's values, and the
+    correct / missed rows' updates scatter into the local stripe only."""
     if mode not in ("scan", "minibatch"):
         raise ValueError(f"unknown mode {mode!r}")
-    if feature_shard is not None:
-        raise ValueError("feature_shard (the model-striped multiclass step, "
-                         "parallel/mc_mix.py, core/striping.py) is a later "
-                         "slice of the torch port: ROADMAP Queue 1 #7, "
-                         "data-parallel and sharded training")
     dev = resolve_device(device)
     use_cov = rule.use_covariance
 
@@ -326,6 +335,12 @@ def make_mc_train_step(rule: MCRule, hyper: dict, mode: str = "scan",
         JAX minibatch step) — the same entries, since a missed row equal
         to the label row is marked already."""
         L, d = st.weights.shape
+        # sq_norm from the whole row's values: a global row scalar
+        sq_norm = torch.sum(val * val, dim=-1)
+        if feature_shard is not None:
+            mesh, axis, stripe = feature_shard
+            idx, val = translate_to_stripe(idx, val, mesh.index(axis),
+                                           stripe)
         live, sidx = live_lanes(idx, d)
         W = _take2(st.weights, sidx, live, 0.0)  # [L, B, K]
         scores = _lane_sum(W, val)  # [B, L]
@@ -333,7 +348,13 @@ def make_mc_train_step(rule: MCRule, hyper: dict, mode: str = "scan",
         if use_cov:
             COV = _take2(st.covars, sidx, live, 1.0)
             variances = _lane_sum(COV, val * val)
-        sq_norm = torch.sum(val * val, dim=-1)
+        if feature_shard is not None:
+            parts = psum(scores if variances is None
+                         else torch.cat([scores, variances], dim=1),
+                         mesh, axis)
+            scores = parts[:, :L]
+            if use_cov:
+                variances = parts[:, L:]
         m, var, missed, cov_a, cov_m = _margin_from_scores(
             scores, variances, COV, label, use_cov)
         alpha, beta, loss, updated = rule.compute(m, var, sq_norm, hyper)

@@ -105,7 +105,7 @@ def _adagrad_update(ctx, hyper):
 
 
 ADAGRAD_REGR = Rule("adagrad_regr", _adagrad_update, slot_names=("sum_sqgrad",),
-                    is_regression=True)
+                    is_regression=True, slot_merge=(("sum_sqgrad", "sum"),))
 
 
 def train_adagrad_regr(features: FeatureRows, targets, options: Optional[str] = None, **kw):
@@ -139,7 +139,8 @@ def _adadelta_update(ctx, hyper):
 
 
 ADADELTA_REGR = Rule("adadelta_regr", _adadelta_update,
-                     slot_names=("sum_sqgrad", "sum_sq_dx"), is_regression=True)
+                     slot_names=("sum_sqgrad", "sum_sq_dx"), is_regression=True,
+                     slot_merge=(("sum_sqgrad", "mean"), ("sum_sq_dx", "mean")))
 
 
 def train_adadelta_regr(features: FeatureRows, targets, options: Optional[str] = None, **kw):

@@ -22,8 +22,8 @@ subsamples — are drawn in exactly the JAX package's order, so one ``-seed``
 grows the same trees in both packages wherever the histogram sums are
 exact. The trained objects keep their trees as numpy TreeArrays and walk
 them on their device; ``forest_from_numpy`` / ``gbt_from_numpy`` build them
-from another package's numpy fields. ``row_shard=`` is a later slice of the
-port and raises by name.
+from another package's numpy fields. ``row_shard=(mesh, axis)`` grows the
+GBT rounds over rank-sharded rows (grow.py's module docstring).
 """
 
 from __future__ import annotations
@@ -35,11 +35,12 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ...core.collectives import all_gather_host
 from ...device import DeviceLike, resolve_device
 from ...utils.options import Options
 from .binning import BinInfo, bin_data, make_bins
 from .export import to_javascript, to_json, to_opscode
-from .grow import (TreeArrays, _on, _row_shard_later, _to_host, grow_forest,
+from .grow import (TreeArrays, _on, _to_host, grow_forest,
                    grow_tree, predict_binned, predict_forest_binned,
                    stack_trees)
 
@@ -368,11 +369,13 @@ def train_gradient_tree_boosting_classifier(X, labels, options: Optional[str] = 
     shrinkage eta, row subsampling (ref: GradientTreeBoostingClassifierUDTF.java:70-658).
     Multiclass: softmax with K trees per round.
 
-    `row_shard=` (the JAX package's data-parallel rounds) is a later slice
-    of the port and raises by name. The residuals and scores stay on the
-    host in float64, as in JAX; each tree grows on ``device``."""
-    if row_shard is not None:
-        raise _row_shard_later("train_gradient_tree_boosting_classifier")
+    `row_shard=(mesh, axis)`: every boosting round's histogram build runs
+    over the axis' ranks with one all_reduce a level (grow.py
+    _sharded_hist); parallel/forest_shard.train_gbt_data_parallel is the
+    public wrapper. Every rank passes the same rows; without ``-seed`` the
+    ranks draw one seed together, so they grow the same trees. The
+    residuals and scores stay on the host in float64, as in JAX; each
+    tree grows on ``device``."""
     cl = _forest_options(gbt=True).parse(options, "train_gradient_tree_boosting_classifier")
     dev = resolve_device(device)
     X = np.asarray(X, dtype=np.float64)
@@ -386,6 +389,8 @@ def train_gradient_tree_boosting_classifier(X, labels, options: Optional[str] = 
     Xbt = _on(Xb, torch.int32, dev)
     n_bins = max(b.n_bins for b in bins)
     seed = cl.get_int("seed", -1)
+    if seed < 0 and row_shard is not None:
+        seed = int(all_gather_host(np.random.randint(2 ** 31), *row_shard)[0])
     rng = np.random.RandomState(seed if seed >= 0 else None)
     eta = cl.get_float("eta", 0.05)
     subsample = cl.get_float("subsample", 0.7)
@@ -401,7 +406,8 @@ def train_gradient_tree_boosting_classifier(X, labels, options: Optional[str] = 
                          classification=False, max_depth=depth, min_split=min_split,
                          min_leaf=cl.get_int("min_samples_leaf", 1),
                          max_leaf_nodes=cl.get_int("leafs", 512),
-                         num_vars=num_vars, rng=rng, device=dev)
+                         num_vars=num_vars, rng=rng, row_shard=row_shard,
+                         device=dev)
 
     rounds: List[List[TreeArrays]] = []
     if K == 2:
@@ -438,7 +444,8 @@ def train_gradient_tree_boosting_classifier(X, labels, options: Optional[str] = 
             classification=False, max_depth=depth, min_split=min_split,
             min_leaf=cl.get_int("min_samples_leaf", 1),
             max_leaf_nodes=cl.get_int("leafs", 512),
-            num_vars=num_vars, rngs=round_rngs, device=dev)
+            num_vars=num_vars, rngs=round_rngs, row_shard=row_shard,
+            device=dev)
         leaf_vals = _leaf_values(round_trees, Xbt, dev)  # [K, N]
         Fx += eta * leaf_vals.T
         rounds.append(round_trees)

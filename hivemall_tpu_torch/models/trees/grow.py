@@ -56,20 +56,27 @@ the CPU's ``index_add_`` and of XLA's CPU scatter. So the card grows the
 CPU's trees node for node, float targets and GBT residuals included, and
 two card runs grow the same trees.
 
-``row_shard=`` (the JAX package's row-sharded growth,
-``parallel/forest_shard.py``) is a later slice of the port and raises by
-name.
+**Row-sharded growth** (``row_shard=(mesh, axis)``, `RowShard`): every
+rank holds all the rows and grows the same tree; each builds the partial
+histogram of its own slice of the rows (the slices of JAX's row sharding,
+rows padded to a multiple of the axis size) in the order above, and ONE
+all_reduce a level (a chunk, in a batched group) sums the partials
+(`_sharded_hist`). The split search then runs on the global histogram, so
+growth is the single-rank growth up to the order of that sum: exact for
+integer-valued histograms (classification counts), within float rounding
+for GBT residuals.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as TF
 
+from ...core.collectives import Mesh, psum
 from ...device import DeviceLike, resolve_device
 from ...utils.jax_prng import _LOG_P, _LOG_Q1, _LOG_Q2
 from ...utils.jax_prng import _xla_log as _np_xla_log
@@ -81,11 +88,9 @@ NEG = -1e30
 SYNCS = {"grow": 0, "walk": 0}
 
 
-def _row_shard_later(what: str) -> ValueError:
-    return ValueError(
-        f"{what}(row_shard=...): row-sharded growth (parallel/"
-        f"forest_shard.py) is a later slice of the torch port "
-        f"(hivemall_tpu_torch)")
+# (mesh, axis_name): histogram builds over rank-sharded rows with one
+# all_reduce; see _sharded_hist
+RowShard = Tuple[Mesh, str]
 
 
 @dataclass
@@ -194,6 +199,27 @@ def _ordered_hist(flat, values, size: int) -> torch.Tensor:
         torch.segment_reduce(v[order][:, None], "sum", offsets=bounds,
                              axis=0, unsafe=True, initial=0.0)[:, 0]
         for v in values])
+
+
+def _sharded_hist(offsets, slot, n_slots: int, block: int, values,
+                  row_shard: Optional[RowShard]):
+    """`_scatter_hist`; with ``row_shard``, of this rank's rows only (rank
+    r of n holds rows [r * ceil(N / n), (r + 1) * ceil(N / n)), JAX's
+    padded row sharding), then summed over the axis in one all_reduce.
+    The rank's lanes keep their order, so each bin of its partial adds
+    them as the unsharded build adds the same rows."""
+    if row_shard is None:
+        return _scatter_hist(offsets, slot, n_slots, block, values)
+    mesh, axis = row_shard
+    n_rows, F = offsets.shape
+    per = -(-n_rows // mesh.shape[axis])
+    lo = mesh.index(axis) * per
+    hi = min(lo + per, n_rows)
+    mine = [v.reshape(*slot.shape, F)[..., lo:hi, :].reshape(-1)
+            for v in values]
+    sums = _scatter_hist(offsets[lo:hi], slot[..., lo:hi], n_slots, block,
+                         mine)
+    return psum(sums, mesh, axis)
 
 
 def _reg_stats(sums, n_slots: int, F: int, B: int) -> torch.Tensor:
@@ -503,9 +529,9 @@ def grow_tree(
     """Level-wise growth; per-node random feature subspace of size `num_vars`
     (the reference samples numVars candidates per node, DecisionTree.java).
     Runs on ``device`` (None: the CUDA device, or a RuntimeError when there
-    is none)."""
-    if row_shard is not None:
-        raise _row_shard_later("grow_tree")
+    is none). ``row_shard=(mesh, axis)``: the histograms build over the
+    axis' ranks (module docstring); every rank passes the same rows and
+    rng and grows the same tree."""
     dev = resolve_device(device)
     rng = rng or np.random.RandomState(0)
     N, F = Xb.shape
@@ -554,7 +580,8 @@ def grow_tree(
         S_pad = _pow2(S)
         feat_ok = _on(_feature_subspace(S_pad, S, F, num_vars, rng),
                       torch.bool, dev)
-        sums = _scatter_hist(offsets, assign, S_pad, block, values)
+        sums = _sharded_hist(offsets, assign, S_pad, block, values,
+                             row_shard)
         if classification:
             gain, bf, bb, counts = _split_to_host(_best_split_classification(
                 sums[0].reshape(S_pad, F, n_bins, C), nomt, feat_ok, rule,
@@ -716,17 +743,17 @@ def grow_forest(
       search scores every split. The trees of a level are chunked so the
       histogram stays under `hist_budget_bytes` (``G`` a power of two, as
       in JAX).
-    - "auto" (default): per_tree (JAX's auto is batched only with
-      `row_shard`, a later slice of the port).
+    - "auto" (default): per_tree unless `row_shard` is set, as in JAX.
+
+    ``row_shard=(mesh, axis)``: each level's histograms build over the
+    axis' ranks with one all_reduce a chunk (module docstring).
 
     Runs on ``device`` (None: the CUDA device, or a RuntimeError when there
     is none); the binned rows and targets go to the device once."""
     if strategy not in ("auto", "batched", "per_tree"):
         raise ValueError(f"unknown strategy {strategy!r}")
-    if row_shard is not None:
-        raise _row_shard_later("grow_forest")
     if strategy == "auto":
-        strategy = "per_tree"
+        strategy = "batched" if row_shard is not None else "per_tree"
     dev = resolve_device(device)
     y = np.asarray(y)
     W = np.asarray(W)
@@ -744,7 +771,7 @@ def grow_forest(
                       n_classes=n_classes, rule=rule, max_depth=max_depth,
                       min_split=min_split, min_leaf=min_leaf,
                       max_leaf_nodes=max_leaf_nodes, num_vars=num_vars,
-                      rng=rngs[t], device=dev)
+                      rng=rngs[t], row_shard=row_shard, device=dev)
             for t in range(W.shape[0])]
     N, F = Xbt.shape
     T = W.shape[0]
@@ -792,8 +819,8 @@ def grow_forest(
 
             slots = _group_slots(a_c, S_pad)
             if classification:
-                sums = _scatter_hist(offsets, slots, g * S_pad, block,
-                                     (_lanes(W_c, F),))
+                sums = _sharded_hist(offsets, slots, g * S_pad, block,
+                                     (_lanes(W_c, F),), row_shard)
                 gain, bf, bb, counts = _split_to_host(
                     _best_split_classification(
                         sums[0].reshape(g * S_pad, F, n_bins, C), nomt,
@@ -801,8 +828,9 @@ def grow_forest(
                 node_sizes = counts.sum(-1)
             else:
                 y_c = yt[idx] if per_tree_y else yt[None, :].expand(g, N)
-                sums = _scatter_hist(offsets, slots, g * S_pad, block,
-                                     _reg_values(W_c, y_c, F, group=True))
+                sums = _sharded_hist(offsets, slots, g * S_pad, block,
+                                     _reg_values(W_c, y_c, F, group=True),
+                                     row_shard)
                 gain, bf, bb, node_sizes, means = _split_to_host(
                     _best_split_regression(
                         _reg_stats(sums, g * S_pad, F, n_bins), nomt,

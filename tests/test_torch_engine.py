@@ -159,12 +159,32 @@ def test_batch_update_matches_rule():
 
 
 def test_refused_backends_name_the_later_slice():
+    """mxu stays a later slice; feature_shard (lifted with
+    parallel/sharded_train.py) runs: one stripe of a one-rank mesh is the
+    whole model, the unsharded step's."""
     with pytest.raises(ValueError, match="later slice"):
         TE.make_train_fn(TC.AROW, {"r": 0.1}, update_backend="mxu",
                          device="cpu")
-    with pytest.raises(ValueError, match="later slice"):
-        TE.make_train_fn(TC.AROW, {"r": 0.1}, feature_shard=("m", 2),
-                         device="cpu")
+    from torch_cases import one_rank_mesh
+
+    rng = np.random.RandomState(0)
+    idx = rng.randint(0, 64, size=(8, 4))
+    val = rng.rand(8, 4).astype(np.float32)
+    lab = np.sign(rng.randn(8)).astype(np.float32)
+    for mode in ("minibatch", "scan"):
+        ref, ref_loss = TE.make_train_fn(TC.AROW, {"r": 0.1}, mode=mode,
+                                         device="cpu")(
+            init_linear_state(64, use_covariance=True, device="cpu"),
+            idx, val, lab)
+        with one_rank_mesh() as mesh:
+            got, loss = TE.make_train_fn(
+                TC.AROW, {"r": 0.1}, mode=mode,
+                feature_shard=(mesh, "workers", 64), device="cpu")(
+                init_linear_state(64, use_covariance=True, device="cpu"),
+                idx, val, lab)
+        torch.testing.assert_close(got.weights, ref.weights)
+        torch.testing.assert_close(got.covars, ref.covars)
+        torch.testing.assert_close(loss, ref_loss)
     with pytest.raises(ValueError, match="unknown mode"):
         TE.make_train_fn(TC.AROW, {"r": 0.1}, mode="bogus", device="cpu")
 

@@ -174,9 +174,14 @@ def test_train_ffm_learns_interactions():
 def test_ffm_refusals():
     _, th = ffm_hypers()
     rows, y = ffm_rows(n=8)
-    with pytest.raises(ValueError, match="feature_shard.*later slice"):
-        TFF.make_ffm_step(th, "minibatch", feature_shard=("x", 8, 8),
-                          device="cpu")
+    # feature_shard runs since parallel/sharded_train.py landed; held
+    # against JAX in tests/test_torch_parallel_families.py
+    from torch_cases import one_rank_mesh
+
+    with one_rank_mesh() as mesh:
+        TFF.make_ffm_step(th, "minibatch", device="cpu",
+                          feature_shard=(mesh, "workers", th.num_features,
+                                         th.v_dims))
     with pytest.raises(ValueError, match="mxu.*later slice"):
         TFF.make_ffm_step(th, "minibatch", update_backend="mxu",
                           device="cpu")

@@ -321,8 +321,20 @@ def test_train_fm_refuses_later_slice_flags(flag, match):
 
 def test_make_fm_step_refuses_sharding_and_mxu():
     _, th = hypers()
-    with pytest.raises(ValueError, match="later slice.*Queue 1 #10"):
-        TF.make_fm_step(th, feature_shard=("x", 2), device="cpu")
+    # feature_shard runs since parallel/sharded_train.py landed (held
+    # against JAX in tests/test_torch_parallel_families.py); with adareg it
+    # is refused, as in JAX
+    import dataclasses
+
+    from torch_cases import one_rank_mesh
+
+    with one_rank_mesh() as mesh:
+        TF.make_fm_step(th, feature_shard=(mesh, "workers", 64),
+                        device="cpu")
+        with pytest.raises(ValueError, match="adareg"):
+            TF.make_fm_step(dataclasses.replace(th, adareg=True),
+                            feature_shard=(mesh, "workers", 64),
+                            device="cpu")
     with pytest.raises(ValueError, match="later slice.*Queue 2 #3"):
         TF.make_fm_step(th, update_backend="mxu", device="cpu")
     with pytest.raises(ValueError, match="unknown update_backend"):

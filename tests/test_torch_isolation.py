@@ -52,6 +52,9 @@ SLICE_MODULES = {
     "tools": ("__init__", "math"),
     "runtime": ("faults", "timeseries", "slo", "debug_bundle"),
     "knn": ("__init__", "distance", "lsh", "similarity"),
+    "parallel": ("__init__", "mesh", "mix", "sharded", "sharded_train",
+                 "fm_mix", "ffm_mix", "mc_mix", "forest_shard"),
+    "core": ("striping", "collectives"),
 }
 
 
@@ -137,6 +140,26 @@ def test_default_device_without_cuda_raises():
     assert resolve_device("cpu") == torch.device("cpu")
 
 
+def test_spawn_without_cuda_raises_before_any_rank_starts(tmp_path,
+                                                         monkeypatch):
+    """parallel.mesh.spawn resolves its device as init_distributed does: no
+    GPU and no device named is a RuntimeError, raised before a process is
+    started."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default is taken")
+    import torch.multiprocessing as tmp
+
+    from hivemall_tpu_torch.parallel.mesh import spawn
+
+    def started(*a, **k):
+        raise AssertionError("a rank was started")
+
+    monkeypatch.setattr(tmp, "start_processes", started)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        spawn(print, 2, init_file=str(tmp_path / "rendezvous"))
+    assert not (tmp_path / "rendezvous").exists()
+
+
 def test_chip_smoke_refuses_without_cuda(tmp_path):
     """chip_smoke.py exits non-zero and prints no result line without a GPU
     (and, alone in a directory, without the package)."""
@@ -148,3 +171,13 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_parallel_carries_no_jax_compat_copy():
+    """The multi-device slice runs on torch.distributed: no copy of the JAX
+    package's runtime/jax_compat.py (its shard_map / pcast shims) in the
+    port, and no parallel module names them."""
+    assert not list(PKG.rglob("jax_compat.py"))
+    for path in sorted((PKG / "parallel").glob("*.py")):
+        text = path.read_text()
+        assert "jax_compat" not in text and "shard_map(" not in text, path

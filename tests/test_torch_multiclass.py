@@ -148,9 +148,14 @@ def test_single_label_updates_only_its_row():
 
 def test_multiclass_refusals_and_device():
     tr = mc_rules("mc_arow")[1]
-    with pytest.raises(ValueError, match="feature_shard.*later slice"):
+    # feature_shard runs since parallel/sharded_train.py landed; held
+    # against JAX in tests/test_torch_parallel_families.py
+    from torch_cases import one_rank_mesh
+
+    with one_rank_mesh() as mesh:
         TMC.make_mc_train_step(tr, {"r": 0.1}, "minibatch",
-                               feature_shard=("x", 8), device="cpu")
+                               feature_shard=(mesh, "workers", 8),
+                               device="cpu")
     with pytest.raises(ValueError, match="unknown mode"):
         TMC.make_mc_train_step(tr, {"r": 0.1}, "batch", device="cpu")
     import torch

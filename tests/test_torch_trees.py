@@ -404,19 +404,26 @@ def test_grow_forest_per_tree_targets(strategy):
 
 
 def test_row_shard_and_strategy_are_refused_by_name():
+    """row_shard runs since parallel/forest_shard.py landed (one rank's
+    rows are all of them: the unsharded trees; n ranks in
+    tests/test_torch_forest_shard.py); an unknown strategy is refused."""
+    from torch_cases import one_rank_mesh
+
     X, y, _ = tree_data(n=50)
     _, Xb, B = _binned(X)
     w = np.ones(50, np.float32)
-    with pytest.raises(ValueError, match="later slice"):
-        TG.grow_tree(Xb, y, w, np.zeros(5, bool), B, classification=True,
-                     n_classes=2, row_shard=("mesh", "data"), device=CPU)
-    with pytest.raises(ValueError, match="later slice"):
-        TG.grow_forest(Xb, y, w[None], np.zeros(5, bool), B,
-                       classification=True, n_classes=2,
-                       row_shard=("mesh", "data"), device=CPU)
-    with pytest.raises(ValueError, match="later slice"):
+    kw = dict(classification=True, n_classes=2, device=CPU)
+    with one_rank_mesh() as mesh:
+        rs = (mesh, "workers")
+        assert_trees_equal(
+            TG.grow_tree(Xb, y, w, np.zeros(5, bool), B, row_shard=rs, **kw),
+            TG.grow_tree(Xb, y, w, np.zeros(5, bool), B, **kw))
+        assert_trees_equal(
+            TG.grow_forest(Xb, y, w[None], np.zeros(5, bool), B,
+                           row_shard=rs, **kw)[0],
+            TG.grow_forest(Xb, y, w[None], np.zeros(5, bool), B, **kw)[0])
         TF.train_gradient_tree_boosting_classifier(
-            X, y, "-trees 1", row_shard=("mesh", "data"), device=CPU)
+            X, y, "-trees 1", row_shard=rs, device=CPU)
     with pytest.raises(ValueError, match="unknown strategy"):
         TG.grow_forest(Xb, y, w[None], np.zeros(5, bool), B,
                        classification=True, n_classes=2, strategy="x",

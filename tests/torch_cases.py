@@ -7,7 +7,9 @@ import jax.numpy as jnp
 import numpy as np
 
 from hivemall_tpu.core.state import init_linear_state as jax_init_state
+from hivemall_tpu.models import classifier as JCls
 from hivemall_tpu.models import fm as JFM
+from hivemall_tpu.models import regression as JReg
 from hivemall_tpu.ops import eta as JEta
 from hivemall_tpu_torch.core.state import linear_state_to_numpy
 from hivemall_tpu_torch.models import classifier as TC
@@ -490,3 +492,179 @@ def tree_data(n=400, f=5, seed=7):
     yr = (np.floor(4 * X[:, 1]) - np.floor(2 * X[:, 4 % f])).astype(
         np.float32)
     return X, y, yr
+
+
+# --- multi-rank helpers (tests/test_torch_{mix,sharded_train,
+# parallel_families,forest_shard}.py) ---------------------------------------
+
+JAX_RULES = {r.name: r for mod in (JCls, JReg) for r in vars(mod).values()
+             if isinstance(r, type(JCls.AROW))}
+RANK_TIMEOUT = 300  # seconds a spawned world may run before it is killed
+
+
+def _flat(res: dict, prefix: str = "") -> dict:
+    out = {}
+    for k, v in res.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}/"))
+        elif v is not None:
+            out[f"{prefix}{k}"] = np.asarray(v)
+    return out
+
+
+def _unflat(flat) -> dict:
+    out: dict = {}
+    for key in flat.files:
+        *path, leaf = key.split("/")
+        d = out
+        for p in path:
+            d = d.setdefault(p, {})
+        d[leaf] = flat[key]
+    return out
+
+
+def rank_scenarios(rank: int, n: int, out_dir: str, module: str,
+                   names) -> None:
+    """The spawned side of `run_ranks`: run each named scenario function of
+    ``module`` as ``fn(rank, n) -> dict`` (of numpy arrays, numbers or
+    nested dicts of them) on this rank; rank 0 saves each result as
+    ``<name>.npz`` or its traceback as ``<name>.err``. A scenario that
+    raises on every rank does not stop the next one."""
+    import importlib
+    import traceback
+    from pathlib import Path
+
+    mod = importlib.import_module(module)
+    for name in names:
+        try:
+            res = getattr(mod, name)(rank, n)
+        except Exception:  # recorded and re-raised by `scenario` below
+            if rank == 0:
+                (Path(out_dir) / f"{name}.err").write_text(
+                    traceback.format_exc())
+            continue
+        if rank == 0:
+            np.savez(Path(out_dir) / f"{name}.npz", **_flat(res or {}))
+
+
+def run_ranks(module: str, names, n: int, tmp_path,
+              timeout: float = RANK_TIMEOUT) -> dict:
+    """Run the scenarios ``names`` of test module ``module`` in ``n`` gloo
+    ranks on the CPU: spawned processes (one thread each) joined through a
+    ``file://`` rendezvous in ``tmp_path``, all killed past ``timeout``
+    seconds (hivemall_tpu_torch.parallel.mesh.spawn). Returns {name: result
+    dict, or the traceback text of a scenario that raised}."""
+    from hivemall_tpu_torch.parallel.mesh import spawn
+
+    out = tmp_path / f"world{n}"
+    out.mkdir()
+    spawn(rank_scenarios, n, (str(out), module, list(names)),
+          init_file=str(tmp_path / f"rendezvous{n}"), device="cpu",
+          threads=1,
+          timeout=timeout)
+    results = {}
+    for name in names:
+        err = out / f"{name}.err"
+        if err.exists():
+            results[name] = err.read_text()
+        else:
+            with np.load(out / f"{name}.npz") as z:
+                results[name] = _unflat(z)
+    return results
+
+
+def scenario(results: dict, name: str) -> dict:
+    """One scenario's result; its rank-0 traceback fails the test."""
+    res = results[name]
+    if isinstance(res, str):
+        raise AssertionError(f"scenario {name} raised on the ranks:\n{res}")
+    return res
+
+
+def one_rank_mesh():
+    """A context manager: a torch.distributed world of this process alone
+    (gloo, in-memory store) and its 1-D mesh on the CPU, destroyed after."""
+    import contextlib
+
+    import torch.distributed as dist
+
+    from hivemall_tpu_torch.parallel.mesh import init_distributed, make_mesh
+
+    @contextlib.contextmanager
+    def ctx():
+        init_distributed("gloo", "cpu")
+        try:
+            yield make_mesh(device="cpu")
+        finally:
+            dist.destroy_process_group()
+
+    return ctx()
+
+
+# JAX's replicated [n_dev, ...] state <-> the port's per-rank states, and
+# JAX's padded, striped state <-> the port's stripes
+
+def replicas_to_jax(per_rank):
+    """The port's per-rank host states (numpy field dicts, rank order) as
+    one JAX-layout dict with a leading [n_dev] axis on every field."""
+    def stack(vals):
+        if isinstance(vals[0], dict):
+            return {k: stack([v[k] for v in vals]) for k in vals[0]}
+        return None if vals[0] is None else np.stack(
+            [np.asarray(v) for v in vals])
+
+    return stack(list(per_rank))
+
+
+def jax_replica(host, r):
+    """Replica ``r`` of a JAX replicated host state's fields (a numpy field
+    dict with a leading [n_dev] axis)."""
+    return {k: (jax_replica(v, r) if isinstance(v, dict)
+                else None if v is None else np.asarray(v)[r])
+            for k, v in host.items()}
+
+
+def stripes_to_padded(stripes, axis: int = 0):
+    """The port's per-rank [stripe] tables (rank order) as the JAX padded
+    [stripe * n] table (a striped leaf of its state)."""
+    return np.concatenate([np.asarray(s) for s in stripes], axis=axis)
+
+
+def padded_to_stripes(table, n: int, axis: int = 0):
+    """A JAX padded [stripe * n] table cut into the port's n stripes."""
+    return np.split(np.asarray(table), n, axis=axis)
+
+
+def jax_linear_numpy(st) -> dict:
+    """A JAX LinearState (replicated or not) as numpy fields, the layout
+    of the port's linear_state_to_numpy."""
+    h = jax.device_get(st)
+    return {"weights": np.asarray(h.weights, np.float32),
+            "covars": None if h.covars is None
+            else np.asarray(h.covars, np.float32),
+            "slots": {k: np.asarray(v) for k, v in h.slots.items()},
+            "touched": np.asarray(h.touched), "step": np.asarray(h.step),
+            "globals": {k: np.asarray(v) for k, v in h.globals.items()}}
+
+
+def assert_linear_host_match(got: dict, want: dict, rtol=RTOL, atol=ATOL,
+                             slots=True):
+    """Two linear states' numpy fields: floats within rtol / atol, touched
+    and step exact (a slot is compared where both have it)."""
+    np.testing.assert_allclose(got["weights"], want["weights"], rtol=rtol,
+                               atol=atol, err_msg="weights")
+    if want["covars"] is None:
+        assert got.get("covars") is None
+    else:
+        np.testing.assert_allclose(got["covars"], want["covars"], rtol=rtol,
+                                   atol=atol, err_msg="covars")
+    np.testing.assert_array_equal(got["touched"], want["touched"])
+    np.testing.assert_array_equal(np.asarray(got["step"]).astype(np.int64),
+                                  np.asarray(want["step"]).astype(np.int64))
+    if slots:
+        for k in set(got.get("slots", {})) & set(want["slots"]):
+            np.testing.assert_allclose(got["slots"][k], want["slots"][k],
+                                       rtol=rtol, atol=atol, err_msg=k)
+    for k in want.get("globals", {}):
+        np.testing.assert_allclose(got["globals"][k], want["globals"][k],
+                                   rtol=rtol, atol=atol, err_msg=k)
