@@ -234,6 +234,37 @@ Phases (any failure exits non-zero; nothing is caught):
              ms a step inside them, peak memory per rank; the mixed
              model's holdout logloss beside the single-device one. No hand
              kernel: hivemall_tpu/parallel reaches no pallas_call.
+18. sharded — sharded and replicated serving over one process's grid of
+             devices, every stripe on the one card (serving/placement.py,
+             serving/sharded.py): main's AROW model at 2^22, phase fm's
+             FM at 2^22 (f32 and its int8 artifact) and phase mc's PA1
+             model (26 x 2^20) each under ModelSharded(2), ModelSharded(4)
+             and Replicated(2) against the single-device engine on 512
+             held-out rows (rtol 1e-5 / atol 1e-6; multiclass labels where
+             the top two scores differ by more), per-device table bytes,
+             p50 / p99 of one /predict of 1 and of 8 rows for each
+             placement of the linear model (100 requests each); FM under a
+             device_byte_budget of 0.6 x its single-device bytes refused
+             single-device and served by ModelSharded(2); phase mf's
+             catalog (f32, int8) as /predict pairs under ModelSharded(2) /
+             (4) and as top-K under them, exact and LSH-probed, against the
+             single-device RetrievalEngine (scores at rtol 1e-5 / atol
+             1e-6, ids where neighbours differ by more), one exact sweep's
+             ms each; HTTP: deploy(placement=ModelSharded(2)) of the
+             linear model and of the MF catalog with retrieval={}, POST
+             /predict and /topk == the direct engines, /models' placement
+             block. No hand kernel.
+19. recovery — run_elastic (runtime/recovery.py) with AROW r = 0.1 at D =
+             2^22, K = 32 over main's first 4 blocks of 4,096, a checkpoint
+             every 2 steps: in this process at world 1 under NCCL,
+             ShardedTrainer under a transient step fault and a crash
+             between the checkpoint's write and rename (bit-equal to the
+             uninterrupted run) and MixTrainer under a transient fault;
+             then ShardedTrainer spawned at world 2 over gloo on the one
+             card, a device loss at step 3 resuming at world 1. Each
+             against its uninterrupted run: the report (restarts, causes,
+             lost steps, checkpoints, recovery_s, devices), the exact step
+             count, holdout logloss. No hand kernel.
 Prints a kernels JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 """
@@ -1596,7 +1627,7 @@ def phase_fm(seed, dev, smi, data, linear_model):
     print(f"[fm] HTTP: 4 clients x 4 POST /predict of 64 string rows for fm "
           f"in {http_secs:.3f} s beside the linear model ctr: 0 failed, "
           f"answers == the fm f32 engine")
-    return (acc, ll, secs), model
+    return (acc, ll, secs), model, arts["int8"]
 
 
 BATCH = 2048  # -batch B of phase batch (2 chunks per 4096-row block)
@@ -3120,7 +3151,7 @@ def phase_mc(seed, dev, smi, linear_model):
     print(f"[mc] HTTP: 4 clients x 16 POST /predict of 64 string rows for "
           f"mc in {http_secs:.3f} s beside the linear model ctr: 0 failed, "
           f"every answer == the f32 engine's labels")
-    return p_acc, p_secs, timing
+    return model, (h_idx[:SHARD_ROWS], h_val[:SHARD_ROWS])
 
 
 FFM_FEATURE_BITS = 20  # the JAX package's FFM bench shape (bench_ffm.py)
@@ -4749,6 +4780,420 @@ def phase_parallel(seed, dev, smi, data):
           f"included) {time.perf_counter() - t1:.1f} s")
 
 
+SHARD_ROWS = 512  # held-out rows each sharded engine answers
+SHARD_LAT_REQUESTS = 100
+SHARD_TOL = (1e-5, 1e-6)  # tests/test_serving_sharded.py's wide-row rule
+SHARD_BUDGET = 0.6  # FM's budget, as a share of its single-device bytes
+
+
+def shard_placements(card):
+    """The sharded phase's placements: every stripe on the one card."""
+    from hivemall_tpu_torch.serving import ModelSharded, Replicated
+
+    return {"ModelSharded(2)": ModelSharded(2, devices=[card] * 2),
+            "ModelSharded(4)": ModelSharded(4, devices=[card] * 4),
+            "Replicated(2)": Replicated(2, devices=[card] * 2)}
+
+
+def shard_latency(eng, h_idx, h_val):
+    """p50 / p99 host-clock ms of one predict of 1 and of 8 rows
+    (SHARD_LAT_REQUESTS each, flat pre-parsed, ending in the scores'
+    copy to the host)."""
+    out = {}
+    for n in (1, 8):
+        secs = []
+        for r in range(SHARD_LAT_REQUESTS):
+            req = flat_rows(h_idx, h_val, (r * n) % (SHARD_ROWS - n), n)
+            t0 = time.perf_counter()
+            eng.predict(req)
+            secs.append(time.perf_counter() - t0)
+        out[n] = (percentile_ms(secs, 50), percentile_ms(secs, 99))
+    return out
+
+
+def shard_close(tag, got, want):
+    rtol, atol = SHARD_TOL
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=atol,
+                               err_msg=tag)
+    return float(np.max(np.abs(np.asarray(got) - np.asarray(want))))
+
+
+def shard_rows_family(tag, source, card, h_idx, h_val, label=False,
+                      lat=False):
+    """One family's single-device engine and its engine under every
+    placement: answers held at SHARD_TOL (labels where the top two scores
+    differ by more), per-device table bytes, and with ``lat`` the
+    latency of each."""
+    from hivemall_tpu_torch.serving import ServingEngine
+
+    geom = dict(max_batch=64, max_width=64)
+    slug = re.sub(r"\W+", "_", tag)
+    single = ServingEngine(source, name=f"smoke_sh_{slug}", device=card,
+                           **geom)
+    single.warmup()
+    req = flat_rows(h_idx, h_val, 0, SHARD_ROWS)
+    want = single.predict(req)
+    raw_want = None
+    if label:
+        raw_want = np.concatenate([single.servable.run_padded(
+            flat_rows(h_idx, h_val, s, 64), 64, 64).cpu().numpy()
+            for s in range(0, SHARD_ROWS, 64)])
+    lines = [f"single-device {single.table_bytes} B"]
+    lats = {"single-device": shard_latency(single, h_idx, h_val)} \
+        if lat else {}
+    for i, (name, placement) in enumerate(shard_placements(card).items()):
+        eng = ServingEngine(source, name=f"smoke_sh_{slug}_{i}",
+                            placement=placement, **geom)
+        eng.warmup()
+        got = eng.predict(req)
+        if label:
+            raw = np.concatenate([eng.servable.run_padded(
+                flat_rows(h_idx, h_val, s, 64), 64, 64).cpu().numpy()
+                for s in range(0, SHARD_ROWS, 64)])
+            err = shard_close(f"{tag} {name} scores", raw, raw_want)
+            top = np.sort(raw_want, axis=1)
+            clear = top[:, -1] - top[:, -2] > SHARD_TOL[1] \
+                + SHARD_TOL[0] * np.abs(top[:, -1])
+            assert all(g == w for g, w, c in zip(got, want, clear) if c), \
+                f"{tag} {name}: labels"
+        else:
+            err = shard_close(f"{tag} {name}", got, want)
+        lines.append(f"{name} {eng.per_device_table_bytes} B a device "
+                     f"(max |diff| {err:.3g})")
+        if lat:
+            lats[name] = shard_latency(eng, h_idx, h_val)
+        del eng
+    print(f"[sharded] {tag}: {SHARD_ROWS} held-out rows == the "
+          f"single-device engine (rtol {SHARD_TOL[0]:g} / atol "
+          f"{SHARD_TOL[1]:g}{', labels where the top two scores differ by more' if label else ''}); "
+          + "; ".join(lines))
+    for name, by_n in lats.items():
+        print(f"[sharded] {tag} {name}: " + "; ".join(
+            f"{n} rows p50 {p50:.4f} / p99 {p99:.4f} ms"
+            for n, (p50, p99) in by_n.items())
+            + f" ({SHARD_LAT_REQUESTS} requests each)")
+    return single
+
+
+def shard_sweep_ms(eng, b, card, reps=10):
+    """ms of one exact top-K sweep of the engine's catalog for b queries
+    (qvec / base staged from the host once a sweep), by CUDA events."""
+    import torch
+
+    cat = eng._catalog
+    f = (cat.vec[0] if isinstance(cat.vec, list) else cat.vec).shape[1]
+    q = np.random.RandomState(0).randn(b, f).astype(np.float32)
+    base = np.zeros(b, np.float32)
+    return cuda_ms(lambda: cat.run_blocks(q, base), reps) \
+        if card.type == "cuda" else float("nan")
+
+
+def shard_topk(mf_arts, mf_queries, card):
+    """The MF catalog's top-K under ModelSharded(2) / (4) against the
+    single-device engine at f32 and int8; one exact sweep's ms each."""
+    from hivemall_tpu_torch.serving import ModelSharded, RetrievalEngine
+
+    geom = dict(k=TOPK_K, block_items=TOPK_BLOCK, max_batch=8,
+                candidate_cap=2 * MF_ITEMS * 9 // 256)
+    for dtype in ("float32", "int8"):
+        art = mf_arts[dtype]
+        single = RetrievalEngine(art, name=f"smoke_sh_topk_{dtype}",
+                                 device=card, **geom)
+        single.warmup()
+        want = single.topk(mf_queries)
+        probe_want = single.topk(mf_queries, probe=True)
+        times = [f"single-device {shard_sweep_ms(single, 8, card):.4f} ms"]
+        for n in (2, 4):
+            eng = RetrievalEngine(art, name=f"smoke_sh_topk_{dtype}_{n}",
+                                  placement=ModelSharded(
+                                      n, devices=[card] * n), **geom)
+            eng.warmup()
+            same_ranking(f"topk {dtype} ModelSharded({n})",
+                         eng.topk(mf_queries), want)
+            same_ranking(f"topk {dtype} ModelSharded({n}) probed",
+                         eng.topk(mf_queries, probe=True), probe_want)
+            times.append(f"ModelSharded({n}) "
+                         f"{shard_sweep_ms(eng, 8, card):.4f} ms")
+            del eng
+        bound = 1e3 * single._catalog.table_bytes / HBM_BYTES_PER_S
+        print(f"[sharded] top-K MF {dtype} ({MF_ITEMS} items, k "
+              f"{TOPK_K}): {len(mf_queries)} queries exact and LSH-probed "
+              f"== single-device (scores rtol 1e-5 / atol 1e-6, ids where "
+              f"neighbours differ by more); one exact sweep of 8 queries: "
+              + ", ".join(times) + f" (catalog byte bound {bound:.6f} ms)")
+
+
+def shard_http(linear, mf_art, h_idx, h_val, mf_queries, card):
+    """ModelRegistry.deploy(placement=ModelSharded(2)) of the linear model
+    and of the MF artifact with retrieval={} behind serve(); 4 POST
+    /predict of 64 string rows and 4 POST /topk of 8 queries, each ==
+    the direct engine; GET /models shows both placement blocks."""
+    import json as _json
+    import urllib.request
+
+    from hivemall_tpu_torch.serving import ModelRegistry, ModelSharded, serve
+
+    reg = ModelRegistry(max_batch=64, device=card,
+                        engine_kwargs={"max_width": 64})
+    srv = serve(reg)
+    port = srv.server_address[1]
+
+    def post(path, body):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}{path}", data=_json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return _json.loads(r.read())
+
+    try:
+        t0 = time.perf_counter()
+        ctr = reg.deploy("ctr_sharded", linear, placement=ModelSharded(
+            2, devices=[card] * 2))
+        rec = reg.deploy("rec_sharded", mf_art, placement=ModelSharded(
+            2, devices=[card] * 2), retrieval=dict(
+                k=TOPK_K, block_items=TOPK_BLOCK, max_batch=8))
+        rows = string_rows(h_idx, h_val, 256)
+        for s in range(0, 256, 64):
+            got = post("/predict", {"model": "ctr_sharded",
+                                    "instances": rows[s:s + 64]})
+            np.testing.assert_array_equal(
+                np.asarray(got["predictions"], np.float32),
+                ctr.engine.predict(rows[s:s + 64]))
+        for s in range(0, 32, 8):
+            got = post("/topk", {"model": "rec_sharded",
+                                 "queries": mf_queries[s:s + 8]})
+            assert got["results"] == rec.retrieval_engine.topk(
+                mf_queries[s:s + 8]), "/topk != the direct engine"
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/models",
+                                    timeout=60) as r:
+            models = {d["name"]: d for d in _json.loads(r.read())["models"]}
+        pl = models["ctr_sharded"]["placement"]
+        assert pl["kind"] == "model_sharded" and pl["mesh_shape"] == [1, 2]
+        secs = time.perf_counter() - t0
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        reg.shutdown()
+    print(f"[sharded] HTTP: deploy(placement=ModelSharded(2)) of ctr and of "
+          f"the MF catalog (retrieval={{}}), 4 POST /predict of 64 string "
+          f"rows and 4 POST /topk of 8 queries == the direct engines, GET "
+          f"/models placement {pl['mesh_shape']} stripe "
+          f"{pl['stripe_grids']['features']['stripe']} per-device "
+          f"{pl['per_device_table_bytes']} B; {secs:.3f} s")
+
+
+def phase_sharded(seed, dev, smi, linear, held, fm_model, fm_int8, mc_model,
+                  mc_rows, mf_arts, mf_queries):
+    """Sharded and replicated serving over one process's grid of devices
+    (serving/placement.py, serving/sharded.py): every stripe on the one
+    card, so these readings are the cost of striping, not a gain from more
+    devices."""
+    import torch
+
+    from hivemall_tpu_torch.serving import (ModelExceedsDeviceBudget,
+                                            ModelSharded, ServingEngine,
+                                            SingleDevice, make_servable)
+
+    card = torch.device("cuda", torch.cuda.current_device()) \
+        if dev.type == "cuda" else dev
+    h_idx, h_val = held[0][:SHARD_ROWS], held[1][:SHARD_ROWS]
+    print(f"[sharded] card: {smi}; grids of [{card}] x 2 / x 4 (stripes "
+          f"share the card)")
+    shard_rows_family(f"linear AROW 2^{FULL_DIMS.bit_length() - 1}",
+                      linear, card, h_idx, h_val, lat=True)
+    fm_single = shard_rows_family("fm f32", fm_model, card, h_idx, h_val)
+    shard_rows_family("fm int8", fm_int8, card, h_idx, h_val)
+    shard_rows_family(f"mc {MC_LABELS} x 2^{MC_DIMS.bit_length() - 1}",
+                      mc_model, card, mc_rows[0][:SHARD_ROWS],
+                      mc_rows[1][:SHARD_ROWS], label=True)
+
+    # the model that does not fit one device's budget
+    total = fm_single.table_bytes
+    budget = int(SHARD_BUDGET * total)
+    try:
+        make_servable(fm_model, placement=SingleDevice(
+            device_byte_budget=budget), device=card)
+        raise AssertionError("fm served single-device over its budget")
+    except ModelExceedsDeviceBudget:
+        pass
+    eng = ServingEngine(fm_model, name="smoke_sh_fm_budget",
+                        placement=ModelSharded(2, devices=[card] * 2,
+                                               device_byte_budget=budget),
+                        max_batch=64, max_width=64)
+    req = flat_rows(h_idx, h_val, 0, SHARD_ROWS)
+    err = shard_close("fm under budget", eng.predict(req),
+                      fm_single.predict(req))
+    print(f"[sharded] fm f32 ({total} B single-device) under a "
+          f"device_byte_budget of {budget} B ({SHARD_BUDGET} x): refused "
+          f"single-device (ModelExceedsDeviceBudget), served by "
+          f"ModelSharded(2) at {eng.per_device_table_bytes} B a device "
+          f"(max |diff| {err:.3g})")
+    del eng, fm_single
+
+    mf_pairs_ = list(zip(mf_queries, range(len(mf_queries))))
+    for dtype in ("float32", "int8"):
+        single = ServingEngine(mf_arts[dtype], name=f"smoke_sh_mf_{dtype}",
+                               device=card, max_batch=64)
+        want = single.predict(mf_pairs_)
+        errs = []
+        for n in (2, 4):
+            eng = ServingEngine(mf_arts[dtype],
+                                name=f"smoke_sh_mf_{dtype}_{n}", max_batch=64,
+                                placement=ModelSharded(n, devices=[card] * n))
+            errs.append(f"ModelSharded({n}) {eng.per_device_table_bytes} B "
+                        f"a device (max |diff| "
+                        f"{shard_close(f'mf {dtype} {n}', eng.predict(mf_pairs_), want):.3g})")
+        print(f"[sharded] mf {dtype} /predict of {len(mf_pairs_)} pairs == "
+              f"single-device ({single.table_bytes} B): " + "; ".join(errs))
+    shard_topk(mf_arts, mf_queries, card)
+    shard_http(linear, mf_arts["float32"], h_idx, h_val, mf_queries, card)
+
+
+REC_BLOCKS = 4  # main's first 4 blocks of 4096 rows
+REC_EVERY = 2  # a checkpoint every 2 steps
+
+
+def rec_data(path, trainer, i):
+    """run_elastic's data_fn over the phase's saved blocks: block i (one
+    [1, B, K] block a step for MixTrainer, whose steps take a rank's
+    blocks)."""
+    from hivemall_tpu_torch.parallel import MixTrainer
+
+    with np.load(path) as z:
+        blk = (z["idx"][i], z["val"][i], z["lab"][i])
+    if isinstance(trainer, MixTrainer):
+        return tuple(b[None] for b in blk)
+    return blk
+
+
+def rec_make(family, dims, path, devices):
+    """run_elastic's make_trainer: AROW r=0.1 over exactly ``devices``,
+    resumed from ``path``."""
+    from hivemall_tpu_torch.models.classifier import AROW
+    from hivemall_tpu_torch.runtime.recovery import (elastic_resume,
+                                                     make_elastic_mesh)
+
+    return elastic_resume(AROW, {"r": 0.1}, dims, path,
+                          mesh=make_elastic_mesh(devices), family=family)
+
+
+def rec_line(tag, rep, secs, got, want, held, extra=""):
+    err = par_close(tag, got, want, ints=("touched",))
+    print(f"[recovery] {tag}: {secs:.2f} s; restarts {rep['restarts']}, "
+          f"causes {[(c['type'], c['step'], c['devices']) for c in rep['causes']]}, "
+          f"lost_steps {rep['lost_steps']}, checkpoints_written "
+          f"{rep['checkpoints_written']}, recovery_s {rep['recovery_s']:.4f}, "
+          f"devices {rep['initial_devices']} -> {rep['final_devices']}; "
+          f"holdout logloss {par_holdout_ll(got['weights'], held):.6f} "
+          f"(uninterrupted {par_holdout_ll(want['weights'], held):.6f}), "
+          f"max |err| {err:.3g}{extra}", flush=True)
+
+
+def phase_recovery(seed, dev, smi, data):
+    """Elastic recovery (runtime/recovery.py) at main's widths: run_elastic
+    in this process at world 1 under NCCL, then spawned at world 2 over
+    gloo on the one card, each against the uninterrupted run."""
+    import functools
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    import chip_smoke
+    from hivemall_tpu_torch.models.classifier import AROW
+    from hivemall_tpu_torch.parallel import MixTrainer, ShardedTrainer
+    from hivemall_tpu_torch.runtime import faults
+    from hivemall_tpu_torch.runtime.recovery import (make_elastic_mesh,
+                                                     run_elastic)
+
+    card = torch.device("cuda", torch.cuda.current_device()) \
+        if dev.type == "cuda" else dev
+    _, (idx, val, y), held = data
+    b, n = PAR_BLOCK, REC_BLOCKS
+    shape = (n, b) + idx.shape[1:]
+    blocks = (idx[:n * b].reshape(shape), val[:n * b].reshape(shape),
+              np.where(y[:n * b] > 0, 1.0, -1.0).astype(np.float32)
+              .reshape(n, b))
+    tmp = tempfile.mkdtemp(prefix="hivemall_recovery_")
+    # the card's index_add_ adds duplicate lanes atomically, in no fixed
+    # order: world 1's bit-equality of a resumed run and an uninterrupted
+    # one is a property of deterministic steps, so this process's steps
+    # run torch's deterministic algorithms (index_add_ as a sorted
+    # index_put_); the spawned ranks keep the default
+    was_deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        npz = os.path.join(tmp, "blocks.npz")
+        np.savez(npz, idx=blocks[0], val=blocks[1], lab=blocks[2])
+        data_fn = functools.partial(chip_smoke.rec_data, npz)
+        print(f"[recovery] card: {smi}; AROW r=0.1 at D = {FULL_DIMS}, "
+              f"{n} blocks of {b} x {idx.shape[1]}, a checkpoint every "
+              f"{REC_EVERY} steps; this process's steps under "
+              f"torch.use_deterministic_algorithms")
+        # the uninterrupted runs, in a world of one
+        mesh = make_elastic_mesh([card])
+        want = {}
+        for family, cls in (("sharded", ShardedTrainer), ("mix", MixTrainer)):
+            tr = cls(AROW, {"r": 0.1}, FULL_DIMS, mesh)
+            st = tr.init()
+            for i in range(n):
+                st, _ = tr.step(st, *data_fn(tr, i))
+            want[family] = par_linear_fields(tr.final_state(st))
+        for family, plan in (
+                ("sharded", (faults.Fault("transient_step", at_step=3),
+                             faults.Fault("crash_mid_write", at_write=2))),
+                ("mix", (faults.Fault("transient_step", at_step=1),))):
+            path = os.path.join(tmp, f"w1_{family}.npz")
+            t0 = time.perf_counter()
+            with faults.inject(faults.FaultPlan(seed, plan)) as inj:
+                tr, st, rep = run_elastic(
+                    functools.partial(chip_smoke.rec_make, family,
+                                      FULL_DIMS, path), data_fn, n, path,
+                    checkpoint_every=REC_EVERY, devices=[card])
+            secs = time.perf_counter() - t0
+            final = tr.final_state(st)
+            assert int(final.step) == n * b, f"w1 {family}: step"
+            assert len(inj.fired) == len(plan)
+            assert rep["restarts"] == len(plan) and not rep["preempted"]
+            assert rep["lost_steps"] == (3 if family == "sharded" else 1)
+            got = par_linear_fields(final)
+            extra = ""
+            if family == "sharded":  # an unchanged world: bit-equal
+                for k_ in got:
+                    assert np.array_equal(got[k_], want[family][k_]), \
+                        f"w1 sharded: {k_} not bit-equal"
+                extra = "; bit-equal to the uninterrupted run"
+            rec_line(f"world 1 ({dist.get_backend()}) {family}, faults "
+                     f"{[f.kind for f in plan]}", rep, secs, got,
+                     want[family], held, extra)
+        dist.destroy_process_group()
+
+        path = os.path.join(tmp, "w2.npz")
+        t0 = time.perf_counter()
+        with faults.inject(faults.FaultPlan(seed, (faults.Fault(
+                "device_loss", at_step=3, n_lost=1),))):
+            tr, st, rep = run_elastic(
+                functools.partial(chip_smoke.rec_make, "sharded", FULL_DIMS,
+                                  path), data_fn, n, path,
+                checkpoint_every=REC_EVERY, devices=[card] * 2)
+        secs = time.perf_counter() - t0
+        final = tr.final_state(st)
+        assert int(final.step) == n * b, "w2: step"
+        assert (rep["restarts"], rep["lost_steps"], rep["initial_devices"],
+                rep["final_devices"]) == (1, 1, 2, 1), rep
+        rec_line("world 2 (gloo, both ranks on the card) sharded, "
+                 "device_loss at step 3 -> world 1", rep, secs,
+                 par_linear_fields(final), want["sharded"], held,
+                 " (spawn and rendezvous included in recovery_s)")
+    finally:
+        torch.use_deterministic_algorithms(was_deterministic)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4795,7 +5240,8 @@ def main(argv=None) -> int:
     for key in LAUNCHES:
         LAUNCHES[key] = 0
     t_fm = time.perf_counter()
-    fm_run, fm_model = phase_fm(args.seed, dev, smi, data, served[0])
+    fm_run, fm_model, fm_int8 = phase_fm(args.seed, dev, smi, data,
+                                         served[0])
     print(f"[fm] phase took {time.perf_counter() - t_fm:.1f} s; kernel "
           f"launches during it: {dict(LAUNCHES)} (the FM path reaches no "
           f"pallas_call in the JAX package and runs plain torch ops here)")
@@ -4839,7 +5285,7 @@ def main(argv=None) -> int:
     for key in LAUNCHES:
         LAUNCHES[key] = 0
     t_mc = time.perf_counter()
-    phase_mc(args.seed, dev, smi, served[0])
+    mc_model, mc_rows = phase_mc(args.seed, dev, smi, served[0])
     print(f"[mc] phase took {time.perf_counter() - t_mc:.1f} s; kernel "
           f"launches during it: {dict(LAUNCHES)} (the multiclass path "
           f"reaches no pallas_call in the JAX package and runs plain torch "
@@ -4875,6 +5321,23 @@ def main(argv=None) -> int:
           f"kernel launches during it: {dict(LAUNCHES)} (hivemall_tpu/"
           f"parallel reaches no pallas_call: its collectives are XLA psums "
           f"and its steps the engine's XLA ops, plain torch here)")
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+    t_sh = time.perf_counter()
+    phase_sharded(args.seed, dev, smi, served[0], served[1], fm_model,
+                  fm_int8, mc_model, mc_rows, mf_arts,
+                  [int(x) for x in mf_held[0][:TOPK_QUERIES]])
+    print(f"[sharded] phase took {time.perf_counter() - t_sh:.1f} s; kernel "
+          f"launches during it: {dict(LAUNCHES)} (sharded serving reaches no "
+          f"pallas_call in the JAX package: its scorers are XLA gathers and "
+          f"psums, plain torch here)")
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+    t_rec = time.perf_counter()
+    phase_recovery(args.seed, dev, smi, data)
+    print(f"[recovery] phase took {time.perf_counter() - t_rec:.1f} s; "
+          f"kernel launches during it: {dict(LAUNCHES)} (recovery is host "
+          f"control over the trainers' plain torch steps)")
     source = "hivemall_tpu_torch/kernels/csrc/linear_scan.cu"
     replaces = "hivemall_tpu/kernels/linear_scan.py:44"
     kernels = [

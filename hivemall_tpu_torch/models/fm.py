@@ -187,36 +187,55 @@ def _row_predict(w0, wg, vg, val):
     return p, sum_vfx
 
 
-def _psum_predict(w0, wg, vg, val, mesh, axis: str):
-    """`_row_predict` on a feature stripe: the three prediction partials
-    (linear [...], sumVfX [..., kp], sumV2X2 [..., kp]) of the owned lanes
-    summed over the mesh axis in ONE all_reduce, then p."""
-    kp = vg.shape[-1]
+def fm_partials(wg, vg, val) -> torch.Tensor:
+    """The three prediction partials of gathered lanes (dead lanes 0),
+    stacked [..., 1 + 2 kp]: linear, sumVfX [kp], sumV2X2 [kp]. On a
+    feature stripe they sum over the stripes into the whole row's."""
     vx = vg * val[..., None]
-    parts = torch.cat([torch.sum(wg * val, dim=-1)[..., None],
-                       torch.sum(vx, dim=-2), torch.sum(vx * vx, dim=-2)],
-                      dim=-1)
-    parts = psum(parts, mesh, axis)
+    return torch.cat([torch.sum(wg * val, dim=-1)[..., None],
+                      torch.sum(vx, dim=-2), torch.sum(vx * vx, dim=-2)],
+                     dim=-1)
+
+
+def predict_from_partials(w0, parts: torch.Tensor, kp: int):
+    """(p [...], sumVfX [..., kp]) from a row's summed `fm_partials`."""
     linear, sum_vfx = parts[..., 0], parts[..., 1:1 + kp]
     sum_v2x2 = parts[..., 1 + kp:]
     p = w0 + linear + 0.5 * torch.sum(sum_vfx * sum_vfx - sum_v2x2, dim=-1)
     return p, sum_vfx
 
 
+def _psum_predict(w0, wg, vg, val, mesh, axis: str):
+    """`_row_predict` on a feature stripe: the prediction partials of the
+    owned lanes summed over the mesh axis in ONE all_reduce, then p."""
+    return predict_from_partials(w0, psum(fm_partials(wg, vg, val), mesh,
+                                          axis), vg.shape[-1])
+
+
+def stripe_gather_partials(w, v, idx, val, shard: int, stripe: int):
+    """One stripe's half of the feature-sharded FM prediction: translate
+    global ids into the local [stripe] tables (core/striping.py), gather
+    the owned lanes and form their `fm_partials`. idx/val are [..., K] on
+    w's device. Returns (wg, vg, vmask, lidx, partials)."""
+    lidx, vmask = translate_to_stripe(idx, val, shard, stripe)
+    live, sidx = live_lanes(lidx, w.shape[0])
+    wg = gather(w, sidx, live)
+    vg = _gather_rows(v, sidx, live)
+    return wg, vg, vmask, lidx, fm_partials(wg, vg, vmask)
+
+
 def sharded_gather_predict(w, v, w0, idx, val, mesh, axis: str,
                            stripe: int):
     """The ONE copy of the feature-sharded FM gather + prediction, used by
     the sharded train step and by sharded scoring (FMShardedTrainer.
-    make_predict), so train-time and serve-time p cannot drift: translate
-    global ids into the local [stripe] tables (core/striping.py), gather
-    the owned lanes, and sum the three prediction partials over the axis
-    in one all_reduce. idx/val are [..., K] on w's device. Returns (wg,
-    vg, vmask, lidx, p, sumVfX)."""
-    lidx, vmask = translate_to_stripe(idx, val, mesh.index(axis), stripe)
-    live, sidx = live_lanes(lidx, w.shape[0])
-    wg = gather(w, sidx, live)
-    vg = _gather_rows(v, sidx, live)
-    p, sum_vfx = _psum_predict(w0, wg, vg, vmask, mesh, axis)
+    make_predict), so train-time and serve-time p cannot drift: this
+    rank's `stripe_gather_partials`, summed over the axis in one
+    all_reduce (serving/sharded.py sums the same partials across local
+    devices). Returns (wg, vg, vmask, lidx, p, sumVfX)."""
+    wg, vg, vmask, lidx, parts = stripe_gather_partials(
+        w, v, idx, val, mesh.index(axis), stripe)
+    p, sum_vfx = predict_from_partials(w0, psum(parts, mesh, axis),
+                                       vg.shape[-1])
     return wg, vg, vmask, lidx, p, sum_vfx
 
 

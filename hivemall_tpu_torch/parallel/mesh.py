@@ -16,7 +16,7 @@ from __future__ import annotations
 import datetime
 import os
 import time
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Union
 
 import torch
 import torch.distributed as dist
@@ -138,7 +138,7 @@ def _spawned(rank: int, fn, nprocs: int, args: Sequence,
              threads: Optional[int], timeout_s: float) -> None:
     if threads:
         torch.set_num_threads(threads)
-    dev = torch.device(device)
+    dev = torch.device(device[rank] if isinstance(device, list) else device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", rank % torch.cuda.device_count())
     init_distributed(backend, dev,
@@ -152,7 +152,8 @@ def _spawned(rank: int, fn, nprocs: int, args: Sequence,
 
 
 def spawn(fn, nprocs: int, args: Sequence = (), *, init_file: str,
-          backend: Optional[str] = None, device: DeviceLike = None,
+          backend: Optional[str] = None,
+          device: Union[DeviceLike, Sequence[DeviceLike]] = None,
           threads: Optional[int] = None, timeout: float = 600.0) -> None:
     """Run ``fn(rank, nprocs, *args)`` in ``nprocs`` fresh processes that
     form one world through a ``file://`` rendezvous at ``init_file`` (a
@@ -162,17 +163,23 @@ def spawn(fn, nprocs: int, args: Sequence = (), *, init_file: str,
     ``device`` and ``backend`` resolve as in `init_distributed`: None is
     CUDA (raising here, before any process starts, when there is none),
     rank r on GPU ``r % device_count`` unless ``device`` names one, with
-    NCCL; ``"cpu"`` runs the ranks on the CPU over gloo. Several ranks on
-    one GPU need ``backend="gloo"`` (NCCL refuses them).
+    NCCL; ``"cpu"`` runs the ranks on the CPU over gloo. A list or tuple
+    names one device per rank. Several ranks on one GPU need
+    ``backend="gloo"`` (NCCL refuses them).
 
     Raises the first rank's exception; kills every rank and raises
     ``TimeoutError`` when they have not all finished within ``timeout``
     seconds, so a hang cannot outlive it."""
     import torch.multiprocessing as tmp
 
-    dev = resolve_device(device)
+    if isinstance(device, (list, tuple)):
+        if len(device) != nprocs:
+            raise ValueError(f"{len(device)} devices for {nprocs} ranks")
+        dev = [str(resolve_device(d)) for d in device]
+    else:
+        dev = str(resolve_device(device))
     ctx = tmp.start_processes(
-        _spawned, args=(fn, nprocs, tuple(args), backend, str(dev),
+        _spawned, args=(fn, nprocs, tuple(args), backend, dev,
                         init_file, threads, timeout),
         nprocs=nprocs, join=False, start_method="spawn")
     deadline = time.monotonic() + timeout

@@ -30,21 +30,30 @@ def shard_weights(weights, mesh: Mesh, axis_name: str = WORKER_AXIS):
                                       mesh.index(axis_name))).to(mesh.device)
 
 
+def stripe_partial(w_local: torch.Tensor, indices, values, shard: int,
+                   stripe: int) -> torch.Tensor:
+    """One stripe's partial dot products [B]: translate the global ids into
+    the local [stripe] table and sum the owned lanes (foreign lanes add
+    0). Summed over the stripes it is the row's score: by ``psum`` across
+    ranks in training (`stripe_score`), across local devices in serving
+    (serving/sharded.py)."""
+    dev = w_local.device
+    idx, val = translate_to_stripe(_to_device(indices, torch.int64, dev),
+                                   _to_device(values, torch.float32, dev),
+                                   shard, stripe)
+    live, sidx = live_lanes(idx, w_local.shape[0])
+    return torch.sum(gather(w_local, sidx, live) * val, dim=-1)
+
+
 def stripe_score(mesh: Mesh, axis_name: str, stripe: int):
-    """The per-rank scoring body shared by sharded predict and sharded
-    training's serving path (ShardedTrainer.make_predict): translate the
-    global ids into the local [stripe] table, gather (foreign lanes add
-    0), sum the partial dot products over the axis."""
+    """The per-rank scoring body of sharded predict and of sharded
+    training's serving path (ShardedTrainer.make_predict): this rank's
+    `stripe_partial`, summed over the axis."""
     shard = mesh.index(axis_name)
 
     def local_score(w_local: torch.Tensor, indices, values) -> torch.Tensor:
-        dev = w_local.device
-        idx, val = translate_to_stripe(_to_device(indices, torch.int64, dev),
-                                       _to_device(values, torch.float32, dev),
-                                       shard, stripe)
-        live, sidx = live_lanes(idx, w_local.shape[0])
-        part = torch.sum(gather(w_local, sidx, live) * val, dim=-1)
-        return psum(part, mesh, axis_name)
+        return psum(stripe_partial(w_local, indices, values, shard, stripe),
+                    mesh, axis_name)
 
     return local_score
 

@@ -14,6 +14,10 @@ catalogs behind POST /topk.
 
     registry.deploy("rec", "artifacts/mf/1", retrieval={"k": 16})
     RetrievalEngine("artifacts/mf/1").topk([user_id])   # direct
+
+    # tables striped over 4 stripes on the local devices (here one card)
+    registry.deploy("big", "artifacts/fm/1",
+                    placement=ModelSharded(4, devices=["cuda:0"] * 4))
 """
 
 from .admission import (AIMDController, DeadlineExpired, PRIORITY_NAMES,
@@ -22,7 +26,8 @@ from .artifact import Artifact, family_of, freeze, load
 from .batcher import BatcherClosed, DynamicBatcher
 from .cache import ScoreCache
 from .engine import Servable, ServingEngine, make_servable
-from .placement import ModelExceedsDeviceBudget, Placement, SingleDevice
+from .placement import (ModelExceedsDeviceBudget, ModelSharded, Placement,
+                        Replicated, SingleDevice)
 from .retrieval import RetrievalEngine, SRPIndex, build_srp_index
 from .server import ModelEntry, ModelRegistry, serve
 
@@ -32,7 +37,8 @@ __all__ = [
     "AIMDController", "DeadlineExpired", "ShedLowPriority",
     "PRIORITY_NAMES", "priority_class",
     "Servable", "ServingEngine", "make_servable",
-    "Placement", "SingleDevice", "ModelExceedsDeviceBudget",
+    "Placement", "SingleDevice", "ModelSharded", "Replicated",
+    "ModelExceedsDeviceBudget",
     "RetrievalEngine", "SRPIndex", "build_srp_index",
     "ModelRegistry", "ModelEntry", "serve",
 ]

@@ -507,16 +507,15 @@ def _host_table(t: torch.Tensor):
 
 
 # Families whose score tables stripe along a gathered axis (the sharded
-# serving placement's input, a later slice of the port); trees and FFM's
-# codec blob have none, as in the JAX package.
+# serving placement's input, serving/sharded.py); trees and FFM's codec
+# blob have none, as in the JAX package.
 SHARDABLE_FAMILIES = ("linear", "multiclass", "fm", "mf")
 
 
 def host_score_tables(source) -> dict:
     """Family-normalized HOST view of the score-path tables — the input of
-    serving/retrieval.py's RetrievalEngine (the JAX package's
-    ``host_score_tables``, single-device view: the port has no sharded
-    placement yet, but the entries keep the reference's striped form).
+    serving/sharded.py's striped placement and of serving/retrieval.py's
+    RetrievalEngine (the JAX package's ``host_score_tables``).
 
     ``source`` is an :class:`Artifact` or a trained model. Returns::
 

@@ -48,7 +48,9 @@ Scorers (plain torch ops on the card, as the JAX scorers are plain jnp):
   ``[T, B]`` leaf values come back to the host, where the forest votes (or
   averages) and GBT sums its rounds — labels through ``/predict``.
 
-Sharded placement is a later slice of the port and raises by name.
+Placements other than single-device (``ModelSharded``, ``Replicated``)
+route to serving/sharded.py, which stripes the same tables over a grid of
+local devices and scores them with the same per-family bodies.
 """
 
 from __future__ import annotations
@@ -99,6 +101,10 @@ class _Servable:
     # artifacts) — surfaced per model on /models and /metrics
     weights_dtype: str = "float32"
     device: torch.device = torch.device("cpu")
+    # the (batch, model) grid shape of a sharded servable, () single-device;
+    # its /models placement block (None: the single-device default)
+    mesh_shape: tuple = ()
+    placement_info: Optional[dict] = None
 
     def device_tables(self) -> List[torch.Tensor]:
         """The resident score tables — whatever a request's gathers read.
@@ -448,23 +454,32 @@ class _FMServable(_SparseRowServable):
         return [self.state.w, self.state.v]
 
 
-def q8_fm_rows(w0: torch.Tensor, qw: torch.Tensor, w_scales: torch.Tensor,
-               qv: torch.Tensor, v_scales: torch.Tensor,
-               indices: torch.Tensor, values: torch.Tensor,
-               block_shift: int):
-    """Dequant-free int8 FM row math: gather the int8 w [B, K] and v
-    [B, K, kp] windows, widen only them, fold in their rows' per-block
-    scales (``v_scales`` is [D / block_rows, kp]) and combine them with
-    the live scorer's row math (models/fm._row_predict), f32 throughout.
-    Returns (p [B], sumVfX [B, kp]). Pad lanes read index 0 and are masked
-    to 0, as in q8_linear_scores."""
-    from ..models.fm import _row_predict
-
+def q8_fm_gather(qw: torch.Tensor, w_scales: torch.Tensor,
+                 qv: torch.Tensor, v_scales: torch.Tensor,
+                 indices: torch.Tensor, block_shift: int):
+    """Dequant-free int8 FM gather: the int8 w [B, K] and v [B, K, kp]
+    windows, widened alone and scaled by their rows' per-block scales
+    (``v_scales`` is [D / block_rows, kp]), f32. Pad lanes (index outside
+    [0, D)) read index 0 and are masked to 0, as in q8_linear_scores.
+    Returns (wg, vg)."""
     live, sidx = live_lanes(indices, qw.shape[0])
     blk = sidx >> block_shift
     zero = torch.zeros((), dtype=torch.float32, device=qw.device)
     wg = torch.where(live, qw[sidx].float() * w_scales[blk], zero)
     vg = torch.where(live[..., None], qv[sidx].float() * v_scales[blk], zero)
+    return wg, vg
+
+
+def q8_fm_rows(w0: torch.Tensor, qw: torch.Tensor, w_scales: torch.Tensor,
+               qv: torch.Tensor, v_scales: torch.Tensor,
+               indices: torch.Tensor, values: torch.Tensor,
+               block_shift: int):
+    """Dequant-free int8 FM row math: the `q8_fm_gather` windows combined
+    with the live scorer's row math (models/fm._row_predict), f32
+    throughout. Returns (p [B], sumVfX [B, kp])."""
+    from ..models.fm import _row_predict
+
+    wg, vg = q8_fm_gather(qw, w_scales, qv, v_scales, indices, block_shift)
     return _row_predict(w0, wg, vg, values)
 
 
@@ -984,19 +999,44 @@ def _dtype_bits(name: str) -> int:
 Servable = _Servable
 
 
+# Warmup dummy instances keyed by bucket shape, shared across engines:
+# deploying N same-family models warms the same (batch, width) buckets,
+# and dummy_instance is shape-determined (family + width + feature count +
+# grid shape), so one construction serves every model. Plain dict mutation
+# is GIL-atomic; a racing deploy at worst constructs one duplicate.
+_WARMUP_DUMMIES: dict = {}
+
+
+def _warmup_dummy(servable: _Servable, width: int):
+    # the grid shape is part of the key: a sharded servable's warmup is
+    # per grid, so a (1, 4) engine does not hand its entry to a (2, 2) one
+    key = (servable.family, width, getattr(servable, "n_features", None),
+           servable.mesh_shape)
+    inst = _WARMUP_DUMMIES.get(key)
+    if inst is None:
+        inst = _WARMUP_DUMMIES[key] = servable.dummy_instance(width)
+    return inst
+
+
 def make_servable(obj, placement=None, device: DeviceLike = None) -> _Servable:
     """Artifact | artifact dir path | trained model -> servable.
 
     An artifact serves on ``device`` (None: the CUDA device, or a
     RuntimeError when there is none). A trained model serves where its
     state lives unless ``device`` names another device. ``placement`` is
-    None, "single_device" or a serving.placement.Placement; its
-    ``device_byte_budget`` is enforced here — a model whose resident
-    score-table bytes exceed it refuses to load
+    None, a kind string or a serving.placement.Placement: a
+    ``ModelSharded`` / ``Replicated`` placement stripes the tables over its
+    own grid of devices (serving/sharded.py; ``device`` is not used
+    there). Its ``device_byte_budget`` is enforced here — a model whose
+    per-device resident score-table bytes exceed it refuses to load
     (ModelExceedsDeviceBudget)."""
     placement = resolve_placement(placement)
     if isinstance(obj, str):
         obj = load(obj)
+    if placement.kind != "single_device":
+        from .sharded import sharded_servable
+
+        return sharded_servable(obj, placement)
     if isinstance(obj, Artifact):
         servable = _servable_from_artifact(obj, resolve_device(device))
     else:
@@ -1027,7 +1067,17 @@ class ServingEngine:
         self.servable = source if isinstance(source, _Servable) \
             else make_servable(source, placement=placement, device=device)
         self.device = self.servable.device
-        self.placement = resolve_placement(placement).describe()
+        self.placement = self.servable.placement_info or \
+            {"kind": "single_device", "devices": 1, "mesh_shape": None,
+             "batch_shards": 1, "model_shards": 1}
+        bs = int(self.placement.get("batch_shards", 1))
+        if bs > 1 and (min_batch_bucket % bs or max_batch % bs):
+            # every batch bucket must split evenly over the batch axis —
+            # buckets are min_batch_bucket * 2^k capped at max_batch, so
+            # divisibility of the two ends covers the whole ladder
+            raise ValueError(
+                f"batch_shards={bs} must divide min_batch_bucket "
+                f"({min_batch_bucket}) and max_batch ({max_batch})")
         self.family = self.servable.family
         self.name = name
         self.max_batch = int(max_batch)
@@ -1050,6 +1100,14 @@ class ServingEngine:
                            float(self.table_bytes))
         REGISTRY.set_gauge(f"serving.{name}.weights_bits",
                            float(_dtype_bits(self.weights_dtype)))
+        # placement gauges: how many devices this model's bytes spread over
+        # and what one device holds (the total for single-device)
+        self.per_device_table_bytes = int(getattr(
+            self.servable, "per_device_table_bytes", 0)) or self.table_bytes
+        REGISTRY.set_gauge(f"serving.{name}.model_shards",
+                           float(self.placement.get("model_shards", 1)))
+        REGISTRY.set_gauge(f"serving.{name}.per_device_table_bytes",
+                           float(self.per_device_table_bytes))
 
     # -- buckets -------------------------------------------------------------
 
@@ -1094,7 +1152,7 @@ class ServingEngine:
                 alloc_segment_guard(f"serving.{self.name}.warmup",
                                     self.device) as g:
             for width in self.width_buckets():
-                inst = self.servable.dummy_instance(width or 8)
+                inst = _warmup_dummy(self.servable, width or 8)
                 for b in self.batch_buckets():
                     raw = self.servable.run_padded([inst], b, self.max_width)
                     self.servable.finalize(raw, 1)

@@ -60,8 +60,26 @@ and the candidate scorer masks any id outside the padded catalog to a
 zero row. Pad rows (past ``n_items``) score ``-inf`` and the carry starts
 at ``(-inf, n_pad)``, so no pad id reaches a result.
 
-Sharded catalogs (``ModelSharded`` placement) are a later slice of the
-port (ROADMAP Queue 1 #7) and raise by name.
+**Sharded catalogs.** Under a ``ModelSharded`` placement the catalog
+stripes over the grid's model axis (serving/placement.py, batch row 0's
+devices) by the trainers' grid arithmetic (core.striping.stripe_grid),
+each stripe aligned to ``block_items`` so no block window straddles two
+stripes (and so to the int8 scale blocks). Each merge step scores block
+``s`` of every stripe's local slice on its own device, then concatenates
+the carry, the stripes' block scores and their global ids in stripe order
+0..n-1 on the lead device and takes the same stable top-K — the JAX
+package's ``all_gather`` of the per-device block scores into the carry.
+The query batch is not split over the batch axis, as in the reference
+(its carry is replicated). Ties: within one stripe equal scores still
+resolve to the lowest id, but the merge interleaves stripes per step
+(stripe 1's block 0 comes before stripe 0's block 1), so an exact tie
+across stripes may resolve to a higher id than the single-device engine's;
+the sharded contract is score parity with the single-device engine, as in
+the JAX package. The candidate scorer sums each stripe's partial scores
+(foreign lanes 0) on the lead device; the query stagers gather from the
+user / feature stripes (serving/sharded.py's bodies) and sum likewise. An
+MF user outside the table stages to ``(0, mu)`` instead of raising (the
+reference's sharded trade).
 """
 
 from __future__ import annotations
@@ -72,12 +90,13 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..core.striping import stripe_grid, translate_to_stripe
 from ..device import DeviceLike, resolve_device
 from ..runtime.metrics import REGISTRY, alloc_segment_guard
 from ..runtime.tracing import TRACER
 from .artifact import Artifact, family_of, host_score_tables, load
 from .engine import LATENCY_BUCKETS
-from .placement import resolve_placement
+from .placement import ModelSharded, resolve_placement
 
 RETRIEVAL_FAMILIES = ("mf", "fm")
 
@@ -217,6 +236,41 @@ class SRPIndex:
 # --- the catalog -------------------------------------------------------------
 
 
+def _window(vec, bias, vscale, bscale, block_shift, bias_scaled, q, bs,
+            start: int, bk: int, rows):
+    """Scores [B, bk] of table rows [start, start + bk) — ``rows`` their
+    row numbers in the scale grid — the ONE block score expression of the
+    single-device and the sharded catalogs: only the window widens to f32,
+    int8 scales fold by ``row >> block_shift``."""
+    _check_f32_product(q)
+    w = vec[start:start + bk].float()  # per-window widen only
+    b = bias[start:start + bk].float()
+    if block_shift is not None:
+        # scales are [nb, F] for the vector table (per block of rows, per
+        # column); the gather aligns shapes, the fold is elementwise
+        blk = rows >> block_shift
+        w = w * vscale[blk]
+        if bias_scaled:
+            b = b * bscale[blk]
+    return bs[:, None] + q @ w.T + b[None, :]
+
+
+def _candidates(vec, bias, vscale, bscale, block_shift, bias_scaled, ids,
+                live):
+    """f32 rows [B, C, F] and biases [B, C] of table rows ``ids`` (0 where
+    not ``live``: JAX's fill-mode gather), scale-folded for int8."""
+    sid = torch.where(live, ids, torch.zeros_like(ids))
+    w = vec[sid].float()
+    b = bias[sid].float()
+    if block_shift is not None:
+        blk = sid >> block_shift
+        w = w * vscale[blk]
+        if bias_scaled:
+            b = b * bscale[blk]
+    zero = torch.zeros((), device=vec.device)
+    return torch.where(live[..., None], w, zero), torch.where(live, b, zero)
+
+
 class _SingleCatalog:
     """The padded item tables on ONE device and the scorers over them.
     ``vec`` / ``bias`` keep their serving dtype (f32, bf16 or int8) and
@@ -252,20 +306,12 @@ class _SingleCatalog:
         """Scores [B, bk] of catalog rows [start, start + bk) and their
         ids — the ONE score expression of the merge and of the
         materializing baseline. Rows past n_items score -inf."""
-        _check_f32_product(qvec)
         end = start + self.bk
         ids = self.ids[start:end]
-        w = self.vec[start:end].float()  # per-window widen only
-        b = self.bias[start:end].float()
-        if self.block_shift is not None:
-            # scales are [nb, F] for the vector table (per block of rows,
-            # per column); the gather aligns shapes, the fold is
-            # elementwise. ids >> block_shift < nb_pad: in range
-            blk = ids >> self.block_shift
-            w = w * self.vscale[blk]
-            if self.bias_scaled:
-                b = b * self.bscale[blk]
-        scores = base[:, None] + qvec @ w.T + b[None, :]
+        # ids >> block_shift < nb_pad: in range
+        scores = _window(self.vec, self.bias, self.vscale, self.bscale,
+                         self.block_shift, self.bias_scaled, qvec, base,
+                         start, self.bk, ids)
         if end > self.n_items:  # pad lanes must lose every merge
             scores = torch.where(ids[None, :] < self.n_items, scores,
                                  float("-inf"))
@@ -303,17 +349,8 @@ class _SingleCatalog:
         ids = torch.from_numpy(np.asarray(ids, np.int64)).to(self.device)
         mask = torch.from_numpy(np.asarray(mask, bool)).to(self.device)
         live = (ids >= 0) & (ids < self.n_pad)
-        sid = torch.where(live, ids, torch.zeros_like(ids))
-        w = self.vec[sid].float()  # [B, C, F]
-        b = self.bias[sid].float()
-        if self.block_shift is not None:
-            blk = sid >> self.block_shift
-            w = w * self.vscale[blk]
-            if self.bias_scaled:
-                b = b * self.bscale[blk]
-        zero = torch.zeros((), device=self.device)
-        w = torch.where(live[..., None], w, zero)
-        b = torch.where(live, b, zero)
+        w, b = _candidates(self.vec, self.bias, self.vscale, self.bscale,
+                           self.block_shift, self.bias_scaled, ids, live)
         _check_f32_product(q)
         scores = bs[:, None] + torch.einsum("bf,bcf->bc", q, w) + b
         scores = torch.where(mask, scores, float("-inf"))
@@ -332,7 +369,135 @@ class _SingleCatalog:
                                           self.bscale) if t is not None))
 
 
+class _ShardedCatalog:
+    """Item tables striped over one grid row's model axis (``devices``):
+    stripe j of ``vec`` / ``bias`` (and the int8 scales, on the block
+    grid) on ``devices[j]``, the stripe aligned to ``block_items``."""
+
+    def __init__(self, vec, bias, vscale, bscale, n_items: int,
+                 block_items: int, k_pad: int,
+                 block_shift: Optional[int], bias_scaled: bool,
+                 devices) -> None:
+        from .sharded import _stripe_put
+
+        self.devices = list(devices)
+        self.device = self.devices[0]
+        self.n_items = int(n_items)
+        self.bk = int(block_items)
+        self.k_pad = int(k_pad)
+        self.block_shift = block_shift
+        self.bias_scaled = bool(bias_scaled)
+        grid = [self.devices]
+        stripe, padded = stripe_grid(self.n_items, len(self.devices),
+                                     align=self.bk)
+        self.stripe = stripe
+        self.n_pad = padded
+        self.n_steps = stripe // self.bk
+        self.vec = _stripe_put(vec, 0, self.n_items, padded, grid,
+                               stripe)[0]
+        self.bias = _stripe_put(bias, 0, self.n_items, padded,
+                                grid, stripe)[0]
+        self.vscale = self.bscale = [None] * len(self.devices)
+        if block_shift is not None:
+            nb_stripe = stripe >> block_shift
+            vs = np.asarray(vscale, np.float32)
+            self.vscale = _stripe_put(vs, 0, len(vs), padded >> block_shift,
+                                      grid, nb_stripe)[0]
+            if bias_scaled:
+                bs = np.asarray(bscale, np.float32)
+                self.bscale = _stripe_put(bs, 0, len(bs),
+                                          padded >> block_shift, grid,
+                                          nb_stripe)[0]
+        self.lids = [torch.arange(stripe, device=d) for d in self.devices]
+
+    def _per_device(self, *tensors):
+        """Each stripe's copy of the query tensors (once per device)."""
+        moved = {}
+        for d in self.devices:
+            if d not in moved:
+                moved[d] = [t.to(d) for t in tensors]
+        return moved
+
+    def _block(self, j: int, q, bs, start: int):
+        """Stripe j's scores [B, bk] of its local rows [start, start + bk)
+        and their global ids, on ``devices[j]``; ids past n_items -inf."""
+        lids = self.lids[j][start:start + self.bk]
+        gids = j * self.stripe + lids
+        scores = _window(self.vec[j], self.bias[j], self.vscale[j],
+                         self.bscale[j], self.block_shift, self.bias_scaled,
+                         q, bs, start, self.bk, lids)
+        return torch.where(gids[None, :] < self.n_items, scores,
+                           float("-inf")), gids
+
+    def run_blocks(self, qvec: np.ndarray, base: np.ndarray):
+        """The streamed merge: per step, the carry then every stripe's
+        block scores in stripe order, one stable top-K on the lead
+        device. Returns (values [B, k_pad], global catalog-row ids)."""
+        moved = self._per_device(torch.from_numpy(qvec),
+                                 torch.from_numpy(base))
+        b = qvec.shape[0]
+        cv = torch.full((b, self.k_pad), float("-inf"), device=self.device)
+        ci = torch.full((b, self.k_pad), self.n_pad, dtype=torch.int64,
+                        device=self.device)
+        for s in range(self.n_steps):
+            vals, ids = [cv], [ci]
+            for j, d in enumerate(self.devices):
+                sc, g = self._block(j, *moved[d], s * self.bk)
+                vals.append(sc.to(self.device))
+                ids.append(g.to(self.device).expand(b, -1))
+            cv, ci = _stable_topk(torch.cat(vals, dim=1),
+                                  torch.cat(ids, dim=1), self.k_pad)
+        return cv, ci
+
+    def run_cand(self, qvec, base, ids, mask):
+        """Score a padded candidate slice [B, C]: each stripe's partial
+        scores (foreign and pad lanes 0) summed on the lead device in
+        stripe order, masked lanes -inf, one stable top-K."""
+        ids_t = torch.from_numpy(np.asarray(ids, np.int64))
+        m_t = torch.from_numpy(np.asarray(mask, np.float32))
+        moved = self._per_device(torch.from_numpy(qvec), ids_t, m_t)
+        s = None
+        for j, d in enumerate(self.devices):
+            q, i_d, m_d = moved[d]
+            _check_f32_product(q)
+            lid, m = translate_to_stripe(i_d, m_d, j, self.stripe)
+            rows, b = _candidates(self.vec[j], self.bias[j], self.vscale[j],
+                                  self.bscale[j], self.block_shift,
+                                  self.bias_scaled, lid, lid < self.stripe)
+            part = ((torch.einsum("bf,bcf->bc", q, rows) + b) * m).to(
+                self.device)
+            s = part if s is None else s + part
+        bs = torch.from_numpy(base).to(self.device)
+        ids_lead = ids_t.to(self.device)
+        scores = torch.where(m_t.to(self.device) > 0, bs[:, None] + s,
+                             float("-inf"))
+        return _stable_topk(scores, ids_lead, self.k_pad)
+
+    def score_catalog(self, qvec, base):
+        raise NotImplementedError(
+            "the materializing parity baseline runs on the single-device "
+            "engine; the sharded contract is score parity against it")
+
+    @property
+    def table_bytes(self) -> int:
+        seen, n = set(), 0
+        for t in self.vec + self.bias + self.vscale + self.bscale:
+            if t is not None and id(t) not in seen:
+                seen.add(id(t))
+                n += t.nbytes
+        return int(n)
+
+
 # --- query stagers -----------------------------------------------------------
+
+
+def _user_id(q) -> int:
+    """An MF query's user id: an int, ``{"user": id}`` or ``[id, ...]``."""
+    if isinstance(q, dict):
+        q = q["user"]
+    elif isinstance(q, (list, tuple, np.ndarray)):
+        q = q[0]
+    return int(q)
 
 
 class _MFStager:
@@ -360,11 +525,7 @@ class _MFStager:
     def _uids(self, queries) -> np.ndarray:
         uids = np.empty(len(queries), np.int64)
         for i, q in enumerate(queries):
-            if isinstance(q, dict):
-                q = q["user"]
-            elif isinstance(q, (list, tuple, np.ndarray)):
-                q = q[0]
-            u = int(q)
+            u = _user_id(q)
             if not 0 <= u < self.num_users:
                 raise ValueError(
                     f"user id {u} out of range [0, {self.num_users})")
@@ -386,6 +547,51 @@ class _MFStager:
             base = np.concatenate([base, np.zeros(b_pad - n, np.float32)])
         return np.ascontiguousarray(g, np.float32), \
             np.ascontiguousarray(base, np.float32)
+
+
+class _ShardedMFStager:
+    """MF user staging against user-striped P / Bu (the sharded /predict
+    path's gather, serving/sharded.py): each stripe gathers the users it
+    owns, the rows sum on the lead device, base = mu + Bu[u]. A user
+    outside the table lands in no stripe and stages to (0, mu)."""
+
+    has_width = False
+
+    def __init__(self, p_parts, bu_parts, mu: float, ps_parts,
+                 stripe_u: int, block_shift: Optional[int],
+                 devices) -> None:
+        self.p_parts, self.bu_parts = p_parts, bu_parts
+        self.ps_parts = ps_parts
+        self.mu = float(mu)
+        self.stripe_u = int(stripe_u)
+        self.block_shift = block_shift
+        self.devices = list(devices)
+        self.tables = [t for t in p_parts + bu_parts + ps_parts
+                       if t is not None]
+
+    def width_buckets(self) -> list:
+        return [None]
+
+    def dummy(self, width=None):
+        return 0
+
+    def _body(self, tables, u, shard, stripe, block_shift):
+        from .sharded import _mf_rows
+
+        p, bu, ps = tables
+        g, live, sid = _mf_rows(p, ps, u, shard, stripe, block_shift)
+        return g, torch.where(live, bu[sid], torch.zeros((), device=p.device))
+
+    def stage(self, queries: Sequence, b_pad: int):
+        from .sharded import row_sum
+
+        u = np.zeros(b_pad, np.int64)
+        u[:len(queries)] = [_user_id(q) for q in queries]
+        stripes = list(zip(self.p_parts, self.bu_parts, self.ps_parts))
+        g, bu = row_sum(self.devices, stripes, self._body,
+                        [torch.from_numpy(u)], self.stripe_u,
+                        self.block_shift)
+        return g.cpu().numpy(), (self.mu + bu).cpu().numpy()
 
 
 class _FMStager:
@@ -461,7 +667,6 @@ class RetrievalEngine:
                  placement=None, device: DeviceLike = None) -> None:
         from ..io.checkpoint import QUANT_SCHEME_INT8
 
-        # replicated / model-sharded catalogs are a later slice: raises
         placement = resolve_placement(placement)
         if isinstance(source, str):
             source = load(source)
@@ -471,7 +676,11 @@ class RetrievalEngine:
             raise ValueError(
                 f"family {family!r} has no retrieval path — top-K serves "
                 f"the embedding families ({', '.join(RETRIEVAL_FAMILIES)})")
-        self.device = resolve_device(device)
+        self.sharded = isinstance(placement, ModelSharded)
+        # a sharded catalog lives on its grid's first row, the query
+        # batch on that row's lead device
+        self.device = placement.mesh()[0][0] if self.sharded \
+            else resolve_device(device)
         self.name = name
         self.family = family
         spec = host_score_tables(source)
@@ -547,12 +756,22 @@ class RetrievalEngine:
                 bscale = np.asarray(bscale, np.float32)[blo:bhi]
 
         self.placement_info = placement.describe()
-        self._catalog = _SingleCatalog(
-            vec_host, bias_host, vscale, bscale, self.n_items,
-            self.block_items, self.k_pad, block_shift, bias_scaled,
-            self.device)
-        self._stager = self._make_stager(spec, striped, scales, meta,
-                                         block_shift)
+        if self.sharded:
+            row = placement.mesh()[0]
+            self.mesh_shape = (placement.batch_shards, len(row))
+            self._catalog = _ShardedCatalog(
+                vec_host, bias_host, vscale, bscale, self.n_items,
+                self.block_items, self.k_pad, block_shift, bias_scaled, row)
+            self._stager = self._make_sharded_stager(
+                spec, striped, scales, meta, row, block_shift)
+        else:
+            self.mesh_shape = ()
+            self._catalog = _SingleCatalog(
+                vec_host, bias_host, vscale, bscale, self.n_items,
+                self.block_items, self.k_pad, block_shift, bias_scaled,
+                self.device)
+            self._stager = self._make_stager(spec, striped, scales, meta,
+                                             block_shift)
 
         self._queries_ctr = REGISTRY.counter("retrieval",
                                              f"{name}.queries")
@@ -598,6 +817,63 @@ class RetrievalEngine:
             def fn(idx, val):
                 return _fm_rows(state, idx, val)
         return _FMStager(fn, tables, int(meta["dims"]), self.max_width, dev)
+
+    def _make_sharded_stager(self, spec, striped, scales, meta, row,
+                             block_shift):
+        """The query stagers over the grid row ``row``: MF's user-striped
+        P / Bu, or FM's feature-striped w / V (f32 / bf16, or int8 with
+        their block scales) through serving/sharded.py's FM bodies."""
+        from .sharded import _fm_body, _q8_fm_body, _stripe_put, row_sum
+
+        n = len(row)
+        grid = [row]
+        block_rows = 1 if block_shift is None else 1 << block_shift
+        if self.family == "mf":
+            use_bias = bool(meta.get("use_bias", True))
+            num_users = int(meta["num_users"])
+            stripe_u, padded_u = stripe_grid(num_users, n, align=block_rows)
+            bu = striped["Bu"] if use_bias \
+                else np.zeros_like(striped["Bu"])
+            ps_parts = [None] * n
+            if block_shift is not None:
+                ps = np.asarray(scales["P"], np.float32)
+                ps_parts = _stripe_put(ps, 0, len(ps),
+                                       padded_u >> block_shift, grid,
+                                       stripe_u >> block_shift)[0]
+            return _ShardedMFStager(
+                _stripe_put(striped["P"], 0, num_users, padded_u, grid,
+                            stripe_u)[0],
+                _stripe_put(np.asarray(bu, np.float32), 0, num_users,
+                            padded_u, grid, stripe_u)[0],
+                float(np.asarray(spec["replicated"]["mu"])), ps_parts,
+                stripe_u, block_shift, row)
+        from ..models.fm import predict_from_partials
+
+        dims = int(meta["dims"])
+        stripe_f, padded_f = stripe_grid(dims, n, align=block_rows)
+        names = ("w", "v")
+        parts = []
+        for nm in names:
+            parts.append(_stripe_put(striped[nm], 0, dims, padded_f, grid,
+                                     stripe_f)[0])
+            if block_shift is not None:
+                sc = np.asarray(scales[nm], np.float32)
+                parts.append(_stripe_put(sc, 0, len(sc),
+                                         padded_f >> block_shift, grid,
+                                         stripe_f >> block_shift)[0])
+        stripes = list(zip(*parts))
+        body = _q8_fm_body if block_shift is not None else _fm_body
+        w0 = torch.tensor(np.asarray(spec["replicated"]["w0"], np.float32),
+                          device=row[0])
+
+        def fn(idx, val):
+            (acc,) = row_sum(row, stripes, body, [idx, val], stripe_f,
+                             block_shift)
+            return predict_from_partials(w0, acc, (acc.shape[-1] - 1) // 2)
+
+        tables = tuple(dict.fromkeys(
+            [t for st in stripes for t in st] + [w0]))
+        return _FMStager(fn, tables, dims, self.max_width, row[0])
 
     # -- buckets -------------------------------------------------------------
 

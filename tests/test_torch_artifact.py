@@ -246,10 +246,17 @@ def test_later_slices_raise_by_name(tmp_path):
         freeze(Forest(), str(tmp_path / "forest_stand_in"))
     with pytest.raises(ValueError, match="no serving family"):
         freeze(GBT(), str(tmp_path / "gbt_stand_in"))
-    with pytest.raises(ValueError, match="later slice"):
-        make_servable(tm, placement="model_sharded")
-    with pytest.raises(ValueError, match="later slice"):
-        make_servable(tm, placement="replicated")
+    # sharded and replicated placements landed: over CPU devices they
+    # serve the single-device scores
+    from hivemall_tpu_torch.serving import ModelSharded, Replicated
+
+    rows = [[f"{i % 13}:1.0", f"{(i * 7) % 13}:0.5"] for i in range(16)]
+    want = make_servable(tm).run_padded(rows, 16, 8).numpy()
+    cpu = [torch.device("cpu")] * 4
+    for placement in (ModelSharded(2, devices=cpu), Replicated(
+            devices=cpu)):
+        got = make_servable(tm, placement=placement).run_padded(rows, 16, 8)
+        np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_artifact_serving_needs_cuda_unless_cpu_is_asked(tmp_path):

@@ -50,7 +50,9 @@ SLICE_MODULES = {
     "evaluation": ("__init__", "metrics"),
     "ftvec": ("__init__", "amplify"),
     "tools": ("__init__", "math"),
-    "runtime": ("faults", "timeseries", "slo", "debug_bundle"),
+    "runtime": ("faults", "timeseries", "slo", "debug_bundle", "recovery",
+                "cluster", "launch"),
+    "serving": ("__init__", "placement", "sharded", "retrieval"),
     "knn": ("__init__", "distance", "lsh", "similarity"),
     "parallel": ("__init__", "mesh", "mix", "sharded", "sharded_train",
                  "fm_mix", "ffm_mix", "mc_mix", "forest_shard"),
@@ -158,6 +160,23 @@ def test_spawn_without_cuda_raises_before_any_rank_starts(tmp_path,
     with pytest.raises(RuntimeError, match="device='cpu'"):
         spawn(print, 2, init_file=str(tmp_path / "rendezvous"))
     assert not (tmp_path / "rendezvous").exists()
+
+
+def test_sharded_and_elastic_entry_points_without_cuda_raise(tmp_path):
+    """A placement, a sharded catalog or an elastic run that names no
+    device means every CUDA device: none here is a RuntimeError, raised
+    before a table is placed or a rank is started."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default is taken")
+    from hivemall_tpu_torch.runtime.recovery import run_elastic
+    from hivemall_tpu_torch.serving import ModelSharded, Replicated
+
+    for placement in (ModelSharded(2), Replicated()):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            placement.mesh()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_elastic(print, print, 4, str(tmp_path / "ck.npz"))
+    assert not list(tmp_path.iterdir())
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):
