@@ -265,6 +265,24 @@ Phases (any failure exits non-zero; nothing is caught):
              against its uninterrupted run: the report (restarts, causes,
              lost steps, checkpoints, recovery_s, devices), the exact step
              count, holdout logloss. No hand kernel.
+20. sql    — the SQL surface (sql/registry.py, adapters/sqlite.py,
+             adapters/hive_transform.py) at the main path's widths: main's
+             first 16,384 rows and 4,096 held-out rows as TEXT in an
+             in-memory SQLite database; train(conn, "train_arow", ...,
+             "-dims 4194304 -pallas") with the scan and plan kernels'
+             launches equal to the 4 blocks, its seconds split (SQL fetch +
+             TEXT parse, fit, materialize) and its rows/s beside main's;
+             the model table against the same fit with device="cpu" (the
+             plain scan; rtol 1e-4 / atol 1e-5); the pure-SQL predict plan
+             (explode_features, JOIN model ON feature, sigmoid(SUM(weight *
+             value)) GROUP BY rowid; explode and join timed apart) against
+             sigmoid(model.predict) (rtol 1e-5 / atol 1e-6) and the SQL
+             logloss / auc aggregates against evaluation.metrics; then the
+             same rows through the TRANSFORM bridge as processes (start
+             included): train_arow -dims 4194304 -pallas from the kernel
+             library already built, its launches, its rows bit-equal to the
+             SQLite table, and predict_linear -loadmodel over them through
+             bin/hivemall-tpu-torch.
 Prints a kernels JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 """
@@ -5194,6 +5212,212 @@ def phase_recovery(seed, dev, smi, data):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+SQL_ROWS = 16384  # main's first rows, as SQL TEXT (parsed in Python)
+SQL_HOLDOUT = 4096  # main's first held-out rows
+
+
+def sql_text(idx, val):
+    """Rows of "id:value" items joined by spaces: a feature row as SQL TEXT
+    (adapters/sqlite.parse_features)."""
+    return [" ".join(f"{i}:{v:g}" for i, v in zip(r, vr))
+            for r, vr in zip(idx.tolist(), val.tolist())]
+
+
+def sql_tables(conn, data):
+    """The train and holdout tables (id, features TEXT, label REAL)."""
+    _, (idx, val, y), (h_idx, h_val, h_y) = data
+    for name, (i, v, lab) in (("train", (idx, val, y)),
+                              ("holdout", (h_idx, h_val, h_y))):
+        n = SQL_ROWS if name == "train" else SQL_HOLDOUT
+        conn.execute(f"CREATE TABLE {name} (id INTEGER PRIMARY KEY, "
+                     "features TEXT, label REAL)")
+        conn.executemany(f"INSERT INTO {name} VALUES (?,?,?)",
+                         zip(range(n), sql_text(i[:n], v[:n]),
+                             map(float, lab[:n])))
+
+
+def sql_bridge(args, text, env, count_launches):
+    """One run of the TRANSFORM bridge as a process; (stdout, seconds with
+    process start, the kernel launches it reported or None). Counting
+    runs the bridge's own __main__ in a process that reports its kernel
+    launches on stderr when it exits; otherwise bin/hivemall-tpu-torch
+    runs it."""
+    import os
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = ("import atexit, json, runpy, sys\n"
+            "from hivemall_tpu_torch.kernels import linear_scan as ls\n"
+            "atexit.register(lambda: print('LAUNCHES ' + json.dumps("
+            "ls.LAUNCHES), file=sys.stderr))\n"
+            "sys.argv = ['hive_transform'] + sys.argv[1:]\n"
+            "runpy.run_module('hivemall_tpu_torch.adapters.hive_transform', "
+            "run_name='__main__')\n")
+    cmd = [sys.executable, "-c", code] if count_launches else \
+        [os.path.join(here, "bin", "hivemall-tpu-torch")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd + args, input=text, capture_output=True,
+                          text=True, timeout=300, cwd=here,
+                          env={**env, "HIVEMALL_TPU_PYTHON": sys.executable})
+    secs = time.perf_counter() - t0
+    assert proc.returncode == 0, f"bridge {args[0]}: {proc.stderr[-4000:]}"
+    launches = json.loads(proc.stderr.rsplit("LAUNCHES ", 1)[1]) \
+        if count_launches else None
+    return proc.stdout, secs, launches
+
+
+def phase_sql(seed, dev, smi, data, pallas_run):
+    """The SQL surface on the card: SQLite train_arow -pallas over main's
+    rows as TEXT, the pure-SQL predict plan, the SQL metric aggregates,
+    then the same rows through the TRANSFORM bridge as processes."""
+    import os
+
+    import torch
+
+    from hivemall_tpu_torch.adapters import sqlite as hsql
+    from hivemall_tpu_torch.evaluation import metrics
+    from hivemall_tpu_torch.kernels import build
+    from hivemall_tpu_torch.kernels.linear_scan import LAUNCHES
+
+    # on the card the user's calls name no device; a CPU rehearsal names it
+    on_card = dev.type == "cuda"
+    kw = {} if on_card else {"device": dev}
+    conn = hsql.connect(**kw)
+    t0 = time.perf_counter()
+    sql_tables(conn, data)
+    load_s = time.perf_counter() - t0
+    _, _, (h_idx, h_val, h_y) = data
+    n_blocks = -(-SQL_ROWS // 4096)
+    opts = f"-dims {FULL_DIMS} -pallas"
+    print(f"[sql] card: {smi}; {SQL_ROWS} training rows and {SQL_HOLDOUT} "
+          f"held out of main's at D = {FULL_DIMS}, K = {WIDTH}, as TEXT in "
+          f"SQLite {hsql.sqlite3.sqlite_version} (tables written in "
+          f"{load_s:.3f} s)")
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+    t = {}
+    src = "SELECT features, label FROM train"
+    t0 = time.perf_counter()
+    model = hsql.train(conn, "train_arow", src, opts, model_table="model",
+                       timings=t, **kw)
+    total = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    want_launches = n_blocks if on_card else 0
+    assert launches == {"linear_scan": want_launches,
+                        "linear_scan_plan": want_launches}, \
+        f"SQL train_arow -pallas: launches {launches}, {n_blocks} blocks"
+    main_acc, main_ll, main_secs = pallas_run
+    print(f"[sql] train(conn, 'train_arow', ..., '{opts}'): SQL fetch + "
+          f"TEXT parse {t['fetch_parse']:.3f} s, fit {t['fit']:.3f} s, "
+          f"materialize {t['materialize']:.3f} s ({total:.3f} s in all) = "
+          f"{SQL_ROWS / total:.0f} SQL-driven rows/s beside phase main's "
+          f"{ROWS / main_secs:.0f} rows/s from arrays; kernel launches "
+          f"{launches} ({n_blocks} blocks)")
+    n_model = conn.execute("SELECT COUNT(*) FROM model").fetchone()[0]
+
+    # the same fit on the CPU (the plain scan) into a second table
+    t0 = time.perf_counter()
+    hsql.train(conn, "train_arow", src, opts, model_table="model_cpu",
+               device="cpu")
+    cpu_s = time.perf_counter() - t0
+    card = np.array(conn.execute("SELECT * FROM model ORDER BY feature")
+                    .fetchall())
+    cpu = np.array(conn.execute("SELECT * FROM model_cpu ORDER BY feature")
+                   .fetchall())
+    assert card.shape == cpu.shape == (n_model, 3), (card.shape, cpu.shape)
+    assert np.array_equal(card[:, 0], cpu[:, 0]), "model: feature ids"
+    np.testing.assert_allclose(card[:, 1:], cpu[:, 1:], rtol=RTOL, atol=ATOL,
+                               err_msg="SQL model table: card vs CPU")
+    print(f"[sql] model table: {n_model} rows (feature, weight, covar); "
+          f"card == the CPU fit ({cpu_s:.3f} s, plain scan) at rtol {RTOL} / "
+          f"atol {ATOL}, max |diff| "
+          f"{float(np.max(np.abs(card[:, 1:] - cpu[:, 1:]))):.3g}")
+
+    # the reference's pure-SQL predict plan
+    t0 = time.perf_counter()
+    hsql.explode_features(conn, "SELECT id, features FROM holdout", "ex",
+                          num_features=FULL_DIMS)
+    explode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scored = conn.execute("""
+        SELECT ex.rowid, sigmoid(SUM(m.weight * ex.value))
+        FROM ex JOIN model m ON m.feature = ex.feature
+        GROUP BY ex.rowid ORDER BY ex.rowid""").fetchall()
+    join_s = time.perf_counter() - t0
+    rows = np.array([r for r, _ in scored], np.int64)
+    probs = np.array([p for _, p in scored])
+    want = model.predict([r.split() for r in
+                          sql_text(h_idx[:SQL_HOLDOUT], h_val[:SQL_HOLDOUT])])
+    np.testing.assert_allclose(probs, 1 / (1 + np.exp(-want[rows])),
+                               rtol=1e-5, atol=1e-6,
+                               err_msg="SQL scores vs model.predict")
+    missing = np.setdiff1d(np.arange(SQL_HOLDOUT), rows)
+    assert np.all(want[missing] == 0.0), "a row the join dropped scores"
+    ll_sql, auc_sql = conn.execute("""
+        WITH scores AS (
+          SELECT ex.rowid AS id, sigmoid(SUM(m.weight * ex.value)) AS prob
+          FROM ex JOIN model m ON m.feature = ex.feature GROUP BY ex.rowid)
+        SELECT logloss(s.prob, t.label), auc(s.prob, t.label)
+        FROM scores s JOIN holdout t ON t.id = s.id""").fetchone()
+    lab = h_y[:SQL_HOLDOUT][rows]
+    ll_np = metrics.logloss(probs, lab)
+    auc_np = metrics.auc(probs, lab)
+    assert abs(ll_sql - ll_np) <= 1e-6 * abs(ll_np) and \
+        abs(auc_sql - auc_np) <= 1e-6 * abs(auc_np), \
+        (ll_sql, ll_np, auc_sql, auc_np)
+    print(f"[sql] pure-SQL predict over {SQL_HOLDOUT} held-out rows: "
+          f"explode {explode_s:.3f} s, join + sigmoid(SUM) GROUP BY "
+          f"{join_s:.3f} s; {len(rows)} rows scored ({len(missing)} touch "
+          f"no model row), == sigmoid(model.predict) at rtol 1e-5 / atol "
+          f"1e-6; SQL logloss {ll_sql:.6f} auc {auc_sql:.6f} == "
+          f"evaluation.metrics {ll_np:.6f} / {auc_np:.6f}")
+
+    # the same rows through the TRANSFORM bridge, one process each
+    so = build.library_path("linear_scan")
+    so_mtime = so.stat().st_mtime_ns if on_card else None
+    dev_args = [] if on_card else ["--device", str(dev)]
+    tsv = "".join(f"{f}\t{y}\n" for f, y in conn.execute(
+        "SELECT features, label FROM train ORDER BY id"))
+    env = {**os.environ, "PYTHONPATH": os.path.dirname(
+        os.path.abspath(__file__))}
+    out, train_s, bridge_launches = sql_bridge(
+        ["train_arow", "-dims", str(FULL_DIMS), "-pallas"] + dev_args, tsv,
+        env, count_launches=True)
+    if on_card:
+        assert so.stat().st_mtime_ns == so_mtime, \
+            "the bridge rebuilt the kernel"
+    assert bridge_launches == launches, bridge_launches
+    emitted = np.array([[float(c) for c in line.split("\t")]
+                        for line in out.splitlines()])
+    same = emitted.shape == card.shape and np.array_equal(emitted, card)
+    assert same, ("bridge rows != SQLite table: shape "
+                  f"{emitted.shape} vs {card.shape}")
+    tmp = os.path.join(os.environ.get("TMPDIR", "/tmp"),
+                       f"hivemall_sql_model_{os.getpid()}.tsv")
+    with open(tmp, "w") as f:
+        f.write(out)
+    test_tsv = "".join(f"{i}\t{f}\n" for i, f in conn.execute(
+        "SELECT id, features FROM holdout ORDER BY id"))
+    try:
+        pred, pred_s, _ = sql_bridge(["predict_linear", "-loadmodel", tmp,
+                                      "-sigmoid"] + dev_args, test_tsv, env,
+                                     count_launches=False)
+    finally:
+        os.unlink(tmp)
+    bp = np.array([float(line.split("\t")[1]) for line in pred.splitlines()])
+    assert bp.shape == (SQL_HOLDOUT,)
+    np.testing.assert_allclose(bp, 1 / (1 + np.exp(-want)), rtol=1e-5,
+                               atol=1e-6, err_msg="bridge predict_linear")
+    built = (f"from the kernel library already built ({so.name}, not "
+             f"rebuilt)" if on_card else "(no kernel on the CPU)")
+    print(f"[sql] TRANSFORM bridge (processes, start included): train_arow "
+          f"{train_s:.3f} s with launches {bridge_launches} {built}, "
+          f"{len(emitted)} rows bit-equal to the SQLite table; predict_linear "
+          f"through bin/hivemall-tpu-torch {pred_s:.3f} s, == "
+          f"sigmoid(model.predict) at rtol 1e-5 / atol 1e-6")
+    conn.close()
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5338,6 +5562,14 @@ def main(argv=None) -> int:
     print(f"[recovery] phase took {time.perf_counter() - t_rec:.1f} s; "
           f"kernel launches during it: {dict(LAUNCHES)} (recovery is host "
           f"control over the trainers' plain torch steps)")
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+    t_sql = time.perf_counter()
+    phase_sql(args.seed, dev, smi, data, pallas_run)
+    print(f"[sql] phase took {time.perf_counter() - t_sql:.1f} s; kernel "
+          f"launches during it: {dict(LAUNCHES)} (the SQL surface reaches no "
+          f"pallas_call in the JAX package; -pallas from SQL launches "
+          f"linear_scan.cu; the bridge's launches are its process's own)")
     source = "hivemall_tpu_torch/kernels/csrc/linear_scan.cu"
     replaces = "hivemall_tpu/kernels/linear_scan.py:44"
     kernels = [

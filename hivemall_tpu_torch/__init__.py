@@ -12,3 +12,8 @@ fallback to the CPU.
 from .constants import VERSION
 
 __version__ = VERSION
+
+
+def version() -> str:
+    """Mirrors hivemall_version() (ref: core/.../HivemallVersionUDF.java)."""
+    return VERSION

@@ -1,4 +1,5 @@
-"""Evaluation metrics (a numpy copy of `hivemall_tpu/evaluation/metrics.py`)."""
+"""Evaluation metrics and binary-response ranking measures (numpy copies
+of `hivemall_tpu/evaluation/`)."""
 
 from .metrics import (  # noqa: F401
     AUC,
@@ -17,4 +18,11 @@ from .metrics import (  # noqa: F401
     ndcg,
     r2,
     rmse,
+)
+from .binary_responses import (  # noqa: F401
+    average_precision,
+    hitrate,
+    mrr,
+    precision_at,
+    recall_at,
 )

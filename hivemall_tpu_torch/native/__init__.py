@@ -20,9 +20,12 @@ callers take their Python path exactly there.
 `CALLS` counts the calls into the library per binding, as the CUDA
 kernels' wrappers count launches.
 
+`lattice_tokenize_bulk` runs the Japanese lattice Viterbi over many texts
+(nlp/lattice.py marshals the lexicon).
+
 Not bound here (later slices, with the modules that need them):
-`decode_records` / `encode_records` (io/records.py),
-`lattice_tokenize_bulk` (nlp/) and the sanitizer variants.
+`decode_records` / `encode_records` (io/records.py) and the sanitizer
+variants.
 `pack_block` is left out too: the port's `core/batch.pack_rows` is a
 vectorised numpy pack (PERF.md).
 """
@@ -44,7 +47,8 @@ _load_error: Optional[str] = None
 CALLS = {"murmur3": 0, "murmur3_bulk": 0, "parse_features_bulk": 0,
          "zigzag_leb128_encode": 0, "zigzag_leb128_decode": 0,
          "arow_reference_rowloop": 0, "fm_reference_rowloop": 0,
-         "batch_apply_block": 0, "forest_eval": 0}
+         "batch_apply_block": 0, "forest_eval": 0,
+         "lattice_tokenize_bulk": 0}
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -67,6 +71,9 @@ _PROTOTYPES = {
                _I64, _I64, _I64, _P, _P, _P, _P, _P, _I64, _I64,
                _P, _P, _P, _P, _P, _I64, _P, _P, _P, ctypes.c_int32, _P]),
     "hm_forest_eval": (_I64, [_P, _P, _P, _P, _I64, _P, _I64, _I64, _P]),
+    "hm_lattice_tokenize_bulk": (
+        _I64, [_P, _P, _P, _I64, _P, _P, _P, _P, _P, _I64, ctypes.c_int32,
+               _P, ctypes.c_int32, _P, _P, _P, _P, _P, _P, _P]),
 }
 
 
@@ -407,3 +414,50 @@ def forest_eval(programs: Sequence[Tuple[np.ndarray, np.ndarray, np.ndarray]],
     if rc != 0:
         raise ValueError("malformed opcode program")
     return out
+
+
+def lattice_tokenize_bulk(cps: np.ndarray, classes: np.ndarray,
+                          text_offsets: np.ndarray,
+                          surf_buf: np.ndarray, surf_offsets: np.ndarray,
+                          entry_offsets: np.ndarray, entry_pos: np.ndarray,
+                          entry_cost: np.ndarray, max_word: int,
+                          conn: np.ndarray,
+                          unk_base: np.ndarray, unk_per: np.ndarray,
+                          unk_pos: np.ndarray):
+    """Bulk lattice Viterbi (hm_lattice_tokenize_bulk); the caller
+    (nlp/lattice.py, which owns the lexicon encoding) marshals the tables.
+    Returns (starts, lens, pos_ids, counts), or None where the JAX package
+    returns None with its library loaded: the native pass reports a corrupt
+    lattice, and the caller takes its Python path."""
+    lib = _load()
+    # pin every buffer to the ABI's dtype and C order: the native pass
+    # reads them at fixed widths
+    cps = np.ascontiguousarray(cps, np.uint32)
+    classes = np.ascontiguousarray(classes, np.uint8)
+    text_offsets = np.ascontiguousarray(text_offsets, np.int64)
+    surf_buf = np.ascontiguousarray(surf_buf, np.uint32)
+    surf_offsets = np.ascontiguousarray(surf_offsets, np.int64)
+    entry_offsets = np.ascontiguousarray(entry_offsets, np.int64)
+    entry_pos = np.ascontiguousarray(entry_pos, np.int16)
+    entry_cost = np.ascontiguousarray(entry_cost, np.int32)
+    conn = np.ascontiguousarray(conn, np.int32)
+    unk_base = np.ascontiguousarray(unk_base, np.int32)
+    unk_per = np.ascontiguousarray(unk_per, np.int32)
+    unk_pos = np.ascontiguousarray(unk_pos, np.int16)
+    n_texts = len(text_offsets) - 1
+    total_chars = int(text_offsets[-1])
+    out_start = np.empty(max(total_chars, 1), np.int32)
+    out_len = np.empty(max(total_chars, 1), np.int32)
+    out_pos = np.empty(max(total_chars, 1), np.int16)
+    out_counts = np.empty(max(n_texts, 1), np.int64)
+    CALLS["lattice_tokenize_bulk"] += 1
+    rc = lib.hm_lattice_tokenize_bulk(
+        _ptr(cps), _ptr(classes), _ptr(text_offsets), n_texts,
+        _ptr(surf_buf), _ptr(surf_offsets), _ptr(entry_offsets),
+        _ptr(entry_pos), _ptr(entry_cost), len(surf_offsets) - 1,
+        int(max_word), _ptr(conn), conn.shape[0],
+        _ptr(unk_base), _ptr(unk_per), _ptr(unk_pos),
+        _ptr(out_start), _ptr(out_len), _ptr(out_pos), _ptr(out_counts))
+    if rc < 0:
+        return None
+    return out_start[:rc], out_len[:rc], out_pos[:rc], out_counts

@@ -20,32 +20,18 @@ from merged rows (the 6-tuples ``TrainedForest.model_rows()`` emits:
 from __future__ import annotations
 
 import shlex
-from collections import Counter
-from typing import Iterable, List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from ..device import DeviceLike
+from ..ensemble import rf_ensemble
 from ..models.trees.forest import (TrainedForest,
                                    train_gradient_tree_boosting_classifier,
                                    train_randomforest_classifier,
                                    train_randomforest_regr)
 from ..models.trees.predict import compile_tree
 from .mesh import make_mesh
-
-
-def rf_ensemble(votes: Iterable[int]) -> Tuple[int, float, List[float]]:
-    """Random-forest majority vote -> (label, probability, posterior probs)
-    (ref: smile/tools/RandomForestEnsembleUDAF.java:34; a copy of the JAX
-    package's ``ensemble.rf_ensemble``)."""
-    counts = Counter(int(v) for v in votes)
-    if not counts:
-        return -1, 0.0, []
-    total = sum(counts.values())
-    k = max(counts) + 1
-    posteriori = [counts.get(i, 0) / total for i in range(k)]
-    label, cnt = counts.most_common(1)[0]
-    return label, cnt / total, posteriori
 
 
 def shard_tree_counts(total_trees: int, process_count: int) -> List[int]:

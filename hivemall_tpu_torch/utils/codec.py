@@ -30,6 +30,15 @@ def half_to_float(h) -> np.ndarray:
     return np.asarray(h, dtype=np.float16).astype(np.float32)
 
 
+def half_float_bits(x: float) -> int:
+    """float -> uint16 bit pattern (HalfFloat.floatToHalfFloat analog)."""
+    return int(np.float16(x).view(np.uint16))
+
+
+def bits_to_half_float(bits: int) -> float:
+    return float(np.uint16(bits).view(np.float16))
+
+
 # ---------------------------------------------------------------- zigzag
 
 def zigzag_encode(v: int) -> int:
@@ -102,6 +111,25 @@ def zigzag_leb128_decode_array(buf: bytes, n: int) -> List[int]:
     for _ in range(n):
         v, pos = leb128_decode(buf, pos)
         out.append(zigzag_decode(v))
+    return out
+
+
+# ---------------------------------------------------------------- varbyte
+
+def vbyte_encode(values: Iterable[int]) -> bytes:
+    """Variable-byte codec for non-negative ints (ref: VariableByteCodec.java)."""
+    out = bytearray()
+    for v in values:
+        leb128_encode(int(v), out)
+    return bytes(out)
+
+
+def vbyte_decode(buf: bytes, n: int) -> List[int]:
+    out = []
+    pos = 0
+    for _ in range(n):
+        v, pos = leb128_decode(buf, pos)
+        out.append(v)
     return out
 
 

@@ -156,3 +156,39 @@ class FMFeature:
                 raise
             idx = mhash(idx_s, num_features)
         return FMFeature(idx, float(val_s), field)
+
+
+def add_bias(features: Sequence[str], bias_name: str = "0") -> List[str]:
+    """`add_bias(features)` appends the constant bias feature
+    (ref: ftvec/AddBiasUDF.java, HivemallConstants.java:25)."""
+    return list(features) + [f"{bias_name}:1.0"]
+
+
+def extract_feature(fv: str) -> str:
+    """`extract_feature("name:value") -> name` (ref: ftvec/ExtractFeatureUDF.java:31)."""
+    pos = fv.find(":")
+    return fv if pos < 0 else fv[:pos]
+
+
+def extract_weight(fv: str) -> float:
+    """`extract_weight("name:value") -> value` (ref: ftvec/ExtractWeightUDF.java)."""
+    pos = fv.find(":")
+    return 1.0 if pos < 0 else float(fv[pos + 1 :])
+
+
+def feature(name: Union[str, int], value: float) -> str:
+    """`feature(name, value) -> "name:value"` (ref: ftvec/FeatureUDF.java)."""
+    return f"{name}:{value}"
+
+def feature_index(fv: str) -> Union[int, str]:
+    """`feature_index("idx:value") -> idx` (ref: ftvec/FeatureIndexUDF.java)."""
+    name = extract_feature(fv)
+    try:
+        return int(name)
+    except ValueError:
+        return name
+
+
+def sort_by_feature(features: Sequence[str]) -> List[str]:
+    """`sort_by_feature(features)` (ref: ftvec/SortByFeatureUDF.java)."""
+    return sorted(features, key=lambda s: str(feature_index(s)))

@@ -14,7 +14,7 @@ host library's `hm_murmur3_bulk`, as in the JAX package.
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import Iterable, List, Sequence
 
 import numpy as np
 
@@ -86,3 +86,30 @@ def murmurhash3_bytes_batch(
 
     bss: List[bytes] = [s.encode("utf-8") if isinstance(s, str) else s for s in strings]
     return native.murmur3_bulk(bss, num_features, seed)
+
+
+def sha1_hash(data: bytes | str, num_features: int = DEFAULT_NUM_FEATURES) -> int:
+    """The `sha1(word)` SQL function analog (ref: ftvec/hashing/Sha1UDF.java):
+    first 4 bytes of SHA-1 as a big-endian signed int, floor-mod folded."""
+    import hashlib
+
+    if isinstance(data, str):
+        data = data.encode("utf-8")
+    digest = hashlib.sha1(data).digest()
+    h = int.from_bytes(digest[:4], "big", signed=True)
+    return h % num_features
+
+
+def array_hash_values(
+    values: Iterable[str],
+    prefix: str | None = None,
+    num_features: int = DEFAULT_NUM_FEATURES,
+    use_indexed_prefix: bool = False,
+) -> List[int]:
+    """`array_hash_values` / `prefixed_hash_values` SQL functions
+    (ref: ftvec/hashing/ArrayHashValuesUDF.java, ArrayPrefixedHashValuesUDF.java)."""
+    out = []
+    for i, v in enumerate(values):
+        key = v if prefix is None else (f"{prefix}{i}:{v}" if use_indexed_prefix else prefix + v)
+        out.append(mhash(key, num_features))
+    return out
