@@ -200,10 +200,11 @@ Phases (any failure exits non-zero; nothing is caught):
              for regression, 0 failed requests; freshness p50 / p99, the
              mean ms of the pipeline's spans, artifact and checkpoint bytes,
              the worker's rows/s, /predict p50 / p99, serving's allocator
-             segments, peak memory. Run 2: 32 batches under a seeded fault
-             plan (crash_mid_write, corrupt, transient_step; a checkpoint
-             every 4 batches): 2 restarts, the .prev fallback fired, the
-             final checkpoint at batch 32 with no lost step. Run 3: 32
+             segments, peak memory. Run 2: 24 batches (cut from 32 for
+             time) under a seeded fault plan (crash_mid_write, corrupt,
+             transient_step; a checkpoint every 4 batches): 2 restarts,
+             the .prev fallback fired, the final checkpoint at batch 24
+             with no lost step. Run 3: 32
              batches (cut from 48 for time) on the card and on the CPU (one checkpoint, last):
              the same gate decisions, final w / cov at rtol 1e-4 / atol
              1e-5, touched equal. No hand kernel: the pipeline trains
@@ -283,6 +284,36 @@ Phases (any failure exits non-zero; nothing is caught):
              library already built, its launches, its rows bit-equal to the
              SQLite table, and predict_linear -loadmodel over them through
              bin/hivemall-tpu-torch.
+21. records — record shards (io/records.py) at the main path's widths:
+             main's 262,144 rows written to 8 HMTR1 shards (laid out so an
+             unshuffled read gives main's row order; encode seconds, shard
+             bytes against the raw [B, K] int32 + f32 bytes, read_shard's
+             decode seconds, the native codec's calls), then
+             RecordDataset(shuffle=False) blocks on the card through
+             make_pallas_scan_step: 64 scan + 64 plan launches (they count
+             in the kernels line beside main's), touched equal to main's
+             -pallas model, weights / covars within rtol 1e-4 / atol 1e-5
+             (the shards sort each row by id, so the scan sums lanes in
+             another order), holdout logloss within 1e-4 of main's; one
+             epoch with device_prefetch and one without (the same tables
+             bit for bit), each one's rows/s beside main's; whether pandas
+             and pyarrow import on this machine.
+22. mxu    — the -mxu_scatter backends (ops/mxu_scatter.py, plain torch:
+             the JAX module is XLA): train_arow -mini_batch 4096
+             -mxu_scatter on main's rows beside -mini_batch 4096 (holdout
+             logloss within 1e-4, touched equal); AdaGradRDA's mxu step
+             over main's first 16 blocks and FM k = 5 over 65,536 of fm's
+             rows, card == CPU at the CPU tests' tolerances (atol 2e-5 /
+             3e-6, rtol 2^-22; touched and step exact); FFM at ffm's shape
+             over 8,192 rows, card == CPU at phase ffm's rtol 1e-4 / atol
+             1e-5 (its head features sum thousands of rows' g, each from
+             a 1,024-pair score the card reduces in another order);
+             gather, scatter_add and make_plan at the JAX module's bench
+             shape (2^19 ids over 2^22 rows, 4 columns) by CUDA events
+             beside index_select with a fill mask / index_add_, device
+             operations and byte bounds; two scatter runs bit-equal, card
+             == CPU; the AROW mxu and xla minibatch steps eager and as
+             one CUDA graph; 0 kernel launches.
 Prints a kernels JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 """
@@ -310,12 +341,11 @@ ROWS = 262144  # rows the main path trains on
 
 def workload_ids(rng, shape, dims):
     """Log-uniform (head-heavy) id frequency, placed by a fixed permutation
-    of the hashed space — the id distribution of the repo's CTR benchmark
-    (hivemall_tpu/runtime/benchmark.py::make_workload_ids)."""
-    perm = np.random.RandomState(12345).permutation(dims).astype(np.int32)
-    u = rng.random_sample(shape)
-    ids = np.exp(u * np.log(float(dims))).astype(np.int64) % dims
-    return perm[ids]
+    of the hashed space — the id law of the repo's CTR benchmarks, the
+    port's runtime/benchmark.py::make_workload_ids."""
+    from hivemall_tpu_torch.runtime.benchmark import make_workload_ids
+
+    return make_workload_ids(rng, shape, dims)
 
 
 def logress_cases():
@@ -3854,7 +3884,7 @@ PIPE_DRIFT = 131072  # events per concept phase
 PIPE_FREEZE = 65536  # events per freeze -> gate -> publish cycle
 PIPE_CKPT = 32768  # events per elastic checkpoint
 PIPE_HOLDOUT_ROWS = 16384
-PIPE_FAULT_BATCHES = 32  # run 2
+PIPE_FAULT_BATCHES = 24  # run 2 (cut from 32 for time)
 PIPE_FAULT_CKPT = 4 * 4096  # run 2: a write every 4 batches
 PIPE_PARITY_BATCHES = 32  # run 3: two freeze cycles (cut from 48 for time)
 PIPE_CLIENTS = 4
@@ -5418,6 +5448,453 @@ def phase_sql(seed, dev, smi, data, pallas_run):
     return launches
 
 
+REC_SHARDS = 8  # phase records: main's rows in 8 shards
+REC_BLOCK = 4096
+
+
+def rec_order(n, shards):
+    """The input order that makes write_records' round robin put main's
+    rows s * n/shards .. (s+1) * n/shards - 1 into shard s in order, so an
+    unshuffled dataset reads them back in main's order."""
+    return np.arange(n).reshape(shards, n // shards).T.reshape(-1)
+
+
+def rec_epoch(ds, step, state, dev):
+    """One epoch of the dataset's blocks through the scan step; returns
+    (state, seconds, blocks) with the card synchronised at both ends."""
+    sync(dev)
+    t0 = time.perf_counter()
+    n = 0
+    for blk in ds.blocks():
+        state, _ = step(state, blk.indices, blk.values, blk.labels)
+        n += 1
+    sync(dev)
+    return state, time.perf_counter() - t0, n
+
+
+def phase_records(seed, dev, smi, data, served, pallas_run):
+    """Record shards (io/records.py) on the card: main's rows written to 8
+    shards, read back as RecordDataset blocks prefetched to the card and
+    replayed through make_pallas_scan_step (the scan and plan kernels),
+    against main's -pallas model. Returns the launches of the checked
+    epoch."""
+    import importlib.util
+    import os
+    import tempfile
+
+    from hivemall_tpu_torch import native
+    from hivemall_tpu_torch.core.state import init_linear_state
+    from hivemall_tpu_torch.io.records import (RecordDataset, read_shard,
+                                               write_records)
+    from hivemall_tpu_torch.kernels.linear_scan import (LAUNCHES,
+                                                        make_pallas_scan_step)
+    from hivemall_tpu_torch.models.base import (TrainedLinearModel,
+                                                binary_label_map)
+    from hivemall_tpu_torch.models.classifier import AROW
+
+    _, (idx, val, y), (h_idx, h_val, h_y) = data
+    main_model, _, (main_acc, main_ll) = served
+    n = idx.shape[0]
+    order = rec_order(n, REC_SHARDS)
+    labels = binary_label_map(y)
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = os.path.join(tmp, "ctr")
+        rows_i, rows_v = list(idx[order]), list(val[order])
+        before = dict(native.CALLS)
+        t0 = time.perf_counter()
+        paths = write_records(prefix, rows_i, rows_v, labels[order],
+                              num_shards=REC_SHARDS)
+        enc_s = time.perf_counter() - t0
+        shard_bytes = sum(os.path.getsize(p) for p in paths)
+        raw = n * WIDTH * (4 + 4) + n * 4
+        t0 = time.perf_counter()
+        for p in paths:
+            read_shard(p)
+        dec_s = time.perf_counter() - t0
+        calls = {k: native.CALLS[k] - before[k]
+                 for k in ("encode_records", "decode_records")}
+        assert calls == {"encode_records": REC_SHARDS,
+                         "decode_records": REC_SHARDS}, calls
+        print(f"[records] card: {smi}; {n} rows of main at D = {FULL_DIMS}, "
+              f"K = {WIDTH} into {REC_SHARDS} HMTR1 shards: encode "
+              f"{enc_s:.3f} s, {shard_bytes} shard bytes against {raw} raw "
+              f"[B, K] int32 + f32 bytes and labels "
+              f"({shard_bytes / raw:.3f}x); read_shard of all "
+              f"{REC_SHARDS}: {dec_s:.3f} s (native calls {calls})")
+
+        step = make_pallas_scan_step(AROW, {"r": 0.1}, device=dev)
+        runs = {}
+        for prefetch in (True, False):
+            ds = RecordDataset(paths, FULL_DIMS, REC_BLOCK, shuffle=False,
+                               device_prefetch=prefetch, device=dev)
+            state = init_linear_state(FULL_DIMS, use_covariance=True,
+                                      device=dev)
+            for key in LAUNCHES:
+                LAUNCHES[key] = 0
+            state, secs, blocks = rec_epoch(ds, step, state, dev)
+            runs[prefetch] = (state, secs, dict(LAUNCHES), blocks)
+    state, secs, launches, blocks = runs[True]
+    want = REC_SHARDS * -(-(n // REC_SHARDS) // REC_BLOCK)  # 64 at full size
+    # one scan and one plan launch a block on the card (the CPU runs the
+    # plain versions, which launch nothing)
+    per = want if dev.type == "cuda" else 0
+    assert blocks == want and launches == {"linear_scan": per,
+                                           "linear_scan_plan": per}, \
+        (blocks, launches)
+    ms = main_model.state
+    assert torch_equal(state.touched, ms.touched), "records: touched"
+    errs = {}
+    for k in ("weights", "covars"):
+        a = getattr(state, k).cpu().numpy()
+        b = getattr(ms, k).cpu().numpy()
+        np.testing.assert_allclose(a, b, rtol=RTOL, atol=ATOL,
+                                   err_msg=f"records: {k}")
+        errs[k] = float(np.max(np.abs(a - b)))
+    other = runs[False][0]
+    same = all(torch_equal(getattr(other, k), getattr(state, k))
+               for k in ("weights", "covars", "touched"))
+    assert same, "records: prefetch on and off trained different tables"
+    model = TrainedLinearModel(state=state, rule=AROW, dims=FULL_DIMS,
+                               block_width=WIDTH)
+    acc, ll = holdout(model, h_idx, h_val, h_y)
+    assert abs(ll - main_ll) <= 1e-4, (ll, main_ll)
+    main_rps = n / pallas_run[2]
+    print(f"[records] RecordDataset(shuffle=False, device={dev.type}) -> "
+          f"make_pallas_scan_step: {blocks} blocks, launches {launches}; "
+          f"touched == main's -pallas model, weights / covars within rtol "
+          f"{RTOL:g} / atol {ATOL:g} (max|err| {errs['weights']:.3g} / "
+          f"{errs['covars']:.3g}: rows are sorted by id in the shards, so "
+          f"the scan sums their lanes in another order); holdout acc "
+          f"{acc:.4f} logloss {ll:.6f} (main {main_acc:.4f} / "
+          f"{main_ll:.6f}); prefetch off trains the same tables bit for "
+          f"bit")
+    for prefetch in (True, False):
+        s = runs[prefetch][1]
+        print(f"[records] epoch with device_prefetch={prefetch}: {s:.3f} s "
+              f"= {n / s:.0f} rows/s (decode, pack, copy and both kernels; "
+              f"launches {runs[prefetch][2]}) beside main's train_arow "
+              f"-pallas from arrays {main_rps:.0f} rows/s; {smi}")
+    found = {m: importlib.util.find_spec(m) is not None
+             for m in ("pandas", "pyarrow")}
+    print(f"[records] on this machine: pandas importable: "
+          f"{found['pandas']}, pyarrow importable: {found['pyarrow']}")
+    return launches
+
+
+def torch_equal(a, b):
+    import torch
+
+    return bool(torch.equal(a.cpu(), b.cpu()))
+
+
+MXU_N = 1 << 19  # the JAX module's bench shape: 2^19 ids over 2^22 rows
+MXU_C = 4
+MXU_REPS = 20
+MXU_RDA_BLOCKS = 16  # AdaGradRDA card == CPU on main's first 16 blocks
+MXU_FM_ROWS = 65536  # fm's rows, cut for the CPU's side of card == CPU
+MXU_FFM_ROWS = 8192  # ffm's shape, cut likewise
+MXU_ENGINE_TOL = (2.0 ** -22, 2e-5)  # tests/test_torch_mxu_scatter.py
+MXU_FM_TOL = (2.0 ** -22, 3e-6)
+
+
+def mxu_close(tag, got, ref, tol):
+    """got == ref field by field at (rtol, atol); integers exact. Returns
+    the largest |diff| of the float fields."""
+    err = 0.0
+    for k, a in got.items():
+        b = ref[k]
+        if np.asarray(a).dtype.kind in "iub":
+            assert np.array_equal(a, b), f"{tag}: {k}"
+            continue
+        np.testing.assert_allclose(a, b, rtol=tol[0], atol=tol[1],
+                                   err_msg=f"{tag}: {k}")
+        err = max(err, float(np.max(np.abs(np.asarray(a, np.float64)
+                                           - np.asarray(b, np.float64)))))
+    return err
+
+
+def mxu_linear_fields(st):
+    from hivemall_tpu_torch.core.state import linear_state_to_numpy
+
+    d = linear_state_to_numpy(st)
+    out = {"weights": d["weights"], "touched": d["touched"],
+           "step": np.int64(d["step"])}
+    out.update({f"slot {k}": v for k, v in d["slots"].items()})
+    if d["covars"] is not None:
+        out["covars"] = d["covars"]
+    return out
+
+
+def mxu_steps(seed, dev, data):
+    """The backends on main's data: AROW -mini_batch 4096 -mxu_scatter
+    against the xla backend through train_arow; AdaGradRDA's mxu step on
+    the card against the CPU over main's first blocks; FM and FFM mxu
+    steps on the card against the CPU."""
+    import torch
+
+    from hivemall_tpu_torch.core.engine import make_train_fn
+    from hivemall_tpu_torch.core.state import linear_state_from_numpy
+    from hivemall_tpu_torch.models import ffm as FF
+    from hivemall_tpu_torch.models import fm as F
+    from hivemall_tpu_torch.models.classifier import ADAGRAD_RDA, train_arow
+
+    _, (idx, val, y), (h_idx, h_val, h_y) = data
+    feats = (list(idx), list(val))
+    # on the card the user's call names no device; a CPU rehearsal names it
+    kw = {} if dev.type == "cuda" else {"device": dev}
+    res = {}
+    for opts in ("-mini_batch 4096 -mxu_scatter", "-mini_batch 4096"):
+        # a warm-up witness of each backend (its kernels' first loads), so
+        # the timed runs below compare steady steps
+        train_arow((feats[0][:4096], feats[1][:4096]), y[:4096],
+                   f"-dims {FULL_DIMS} {opts}", **kw)
+    for name, opts in (("mxu", "-mini_batch 4096 -mxu_scatter"),
+                       ("xla", "-mini_batch 4096")):
+        sync(dev)
+        t0 = time.perf_counter()
+        m = train_arow(feats, y, f"-dims {FULL_DIMS} {opts}", **kw)
+        sync(dev)
+        res[name] = (m, time.perf_counter() - t0,
+                     holdout(m, h_idx, h_val, h_y))
+    (mm, ms_, (ma, ml)), (xm, xs, (xa, xl)) = res["mxu"], res["xla"]
+    assert torch_equal(mm.state.touched, xm.state.touched), "mxu: touched"
+    assert abs(ml - xl) <= 1e-4, (ml, xl)
+    dw = float((mm.state.weights - xm.state.weights).abs().max())
+    print(f"[mxu] train_arow -mini_batch 4096 -mxu_scatter on main's "
+          f"{len(y)} rows: {ms_:.3f} s = {len(y) / ms_:.0f} rows/s, holdout "
+          f"acc {ma:.4f} logloss {ml:.6f}; -mini_batch 4096 (xla) {xs:.3f} s "
+          f"= {len(y) / xs:.0f} rows/s, acc {xa:.4f} logloss {xl:.6f}; "
+          f"touched equal, max|dw| {dw:.3g}")
+
+    yy = np.where(y > 0, 1.0, -1.0).astype(np.float32)
+    rng = np.random.RandomState(seed + 61)
+    hyper = {"eta": 0.1, "lambda": 1e-6, "scale": 100.0}
+    host = {"weights": np.zeros(FULL_DIMS, np.float32), "covars": None,
+            "slots": {"sum_grad": np.zeros(FULL_DIMS, np.float32),
+                      "sum_sqgrad": np.zeros(FULL_DIMS, np.float32)},
+            "touched": np.zeros(FULL_DIMS, np.int8), "step": 0,
+            "globals": {}}
+    out = []
+    for d in (dev, torch.device("cpu")):
+        step = make_train_fn(ADAGRAD_RDA, hyper, mode="minibatch",
+                             update_backend="mxu", device=d)
+        st = linear_state_from_numpy(host, d)
+        for b in range(MXU_RDA_BLOCKS):
+            s = slice(b * 4096, (b + 1) * 4096)
+            st, _ = step(st, idx[s], val[s], yy[s])
+        out.append(mxu_linear_fields(st))
+    e = mxu_close("mxu adagrad_rda", *out, MXU_ENGINE_TOL)
+    print(f"[mxu] AdaGradRDA mxu step over main's first {MXU_RDA_BLOCKS} "
+          f"blocks of 4096 at D = {FULL_DIMS}: card == CPU (atol "
+          f"{MXU_ENGINE_TOL[1]:g}, rtol 2^-22; touched, step exact), "
+          f"max|err| {e:.3g}")
+
+    fh = F.FMHyper(factors=FM_FACTORS, classification=True)
+    kp = fh.padded_factors
+    v = np.zeros((FULL_DIMS, kp), np.float32)
+    v[:, :FM_FACTORS] = 0.1 * rng.randn(FULL_DIMS, FM_FACTORS)
+    fhost = {"w0": np.float32(0.0), "w": np.zeros(FULL_DIMS, np.float32),
+             "v": v, "lambda_w0": np.float32(fh.lambda0),
+             "lambda_w": np.float32(fh.lambda0),
+             "lambda_v": np.array([fh.lambda0] * FM_FACTORS
+                                  + [0.0] * (kp - FM_FACTORS), np.float32),
+             "touched": np.zeros(FULL_DIMS, np.int8), "step": 0}
+    out = []
+    for d in (dev, torch.device("cpu")):
+        step = F.make_fm_step(fh, "minibatch", update_backend="mxu",
+                              device=d)
+        st = F.fm_state_from_numpy(fhost, d)
+        for s in range(0, MXU_FM_ROWS, 4096):
+            sl = slice(s, s + 4096)
+            st, _ = step(st, idx[sl], val[sl], yy[sl],
+                         np.zeros(4096, np.float32))
+        out.append(F.fm_state_to_numpy(st))
+    e = mxu_close("mxu fm", *out, MXU_FM_TOL)
+    print(f"[mxu] FM k = {FM_FACTORS} mxu step over fm's first "
+          f"{MXU_FM_ROWS} rows (-c, -mini_batch 4096) at D = {FULL_DIMS}: "
+          f"card == CPU (atol {MXU_FM_TOL[1]:g}, rtol 2^-22; touched, step "
+          f"exact), max|err| {e:.3g}")
+
+    opts = (f"-factor {FFM_K} -feature_hashing {FFM_FEATURE_BITS} -v_bits "
+            f"{FFM_V_BITS} -num_fields {FFM_FIELDS}")
+    hy = FF.ffm_hyper_from_options(FF._ffm_options().parse(opts, "smoke"))
+    nf = hy.num_features
+    f_idx = workload_ids(rng, (MXU_FFM_ROWS, FFM_WIDTH), nf).astype(np.int64)
+    f_fld = rng.randint(0, FFM_FIELDS, nf)[f_idx]
+    f_val = np.ones(f_idx.shape, np.float32)
+    f_y = np.where(rng.rand(MXU_FFM_ROWS) < 0.5, -1.0, 1.0) \
+        .astype(np.float32)
+    fh2 = {"w0": np.float32(0.0), "w": np.zeros(nf, np.float32),
+           "z": np.zeros(nf, np.float32), "n": np.zeros(nf, np.float32),
+           "v": (0.1 * rng.randn(hy.v_dims, FFM_K)).astype(np.float32),
+           # accumulators of keys already seen (phase ffm's warm state)
+           "v_gg": rng.uniform(50, 150, hy.v_dims).astype(np.float32),
+           "touched": np.zeros(nf, np.int8), "step": 0}
+    out = []
+    for d in (dev, torch.device("cpu")):
+        step = FF.make_ffm_step(hy, "minibatch", update_backend="mxu",
+                                device=d)
+        st = FF.ffm_state_from_numpy(fh2, d)
+        for s in range(0, MXU_FFM_ROWS, FFM_BLOCK):
+            sl = slice(s, s + FFM_BLOCK)
+            st, _ = step(st, f_idx[sl], f_val[sl], f_fld[sl], f_y[sl])
+        out.append(FF.ffm_state_to_numpy(st))
+    # every row's g comes from a 1,024-pair score that the card and the
+    # CPU reduce in different orders, and a head feature's z / n and its
+    # pairs' V sum those g over thousands of rows: held at phase ffm's
+    # card == CPU tolerance (the mxu gather is exact and its sums
+    # deterministic; the gaps are the scores')
+    e = mxu_close("mxu ffm", *out, (RTOL, ATOL))
+    gaps = {k: f"{float(np.max(np.abs(out[0][k] - out[1][k]))):.3g}"
+            for k in ("w", "z", "n", "v", "v_gg")}
+    print(f"[mxu] FFM mxu step at ffm's shape (2^{FFM_FEATURE_BITS} "
+          f"features, 2^{FFM_V_BITS} V rows, k = {FFM_K}, {FFM_FIELDS} "
+          f"fields, {FFM_WIDTH} ids a row) over {MXU_FFM_ROWS} rows: card == "
+          f"CPU (rtol {RTOL:g} / atol {ATOL:g}, phase ffm's; touched, step "
+          f"exact), max|err| {e:.3g}, by field {gaps}")
+    return res["mxu"][0], res["xla"][0]
+
+
+def mxu_bench(seed, dev):
+    """gather and scatter_add at the JAX module's bench shape on the card,
+    by CUDA events, beside the one PyTorch call for each (index_select
+    with a fill mask; index_add_ into a table with a drop row), their
+    byte bounds and device operations; two scatter runs bit-equal.
+    Returns the kernels-line-shaped readings of both."""
+    import torch
+
+    from hivemall_tpu_torch.ops import mxu_scatter as mxu
+
+    rng = np.random.RandomState(seed + 62)
+    n, e, c = MXU_N, FULL_DIMS, MXU_C
+    ids_np = workload_ids(rng, n, e).astype(np.int32)
+    ids_np[::97] = e  # pad lanes, as a block's
+    ids = torch.from_numpy(ids_np).to(dev)
+    table = torch.from_numpy(rng.randn(e, c).astype(np.float32)).to(dev)
+    upd = torch.from_numpy(rng.randn(n, c).astype(np.float32)).to(dev)
+    plan = mxu.make_plan(ids, e)
+    valid = ids.long() < e
+    safe = torch.where(valid, ids.long(), torch.zeros_like(ids.long()))
+    sink = torch.where(valid, ids.long(), torch.full_like(ids.long(), e))
+    ext = torch.cat([table, table.new_zeros(1, c)])
+
+    def lib_gather():
+        return torch.where(valid[:, None], table.index_select(0, safe), 0.0)
+
+    def lib_scatter():
+        ext.index_add_(0, sink, upd)
+
+    g = mxu.gather(table, plan)
+    assert torch.equal(g, lib_gather()), "mxu gather != index_select"
+    s1 = mxu.scatter_add(table, ids, upd, plan)
+    s2 = mxu.scatter_add(table, ids, upd, plan)
+    assert torch.equal(s1, s2), "two scatter_add runs differ"
+    # held against float64 sums: a head id takes ~20,000 of the 2^19
+    # updates here, and index_add_'s own float32 sum of them drifts by
+    # more than the tests' 1e-4
+    ref = table.double().index_add_(0, safe, (upd * valid[:, None]).double())
+    np.testing.assert_allclose(s1.cpu().numpy(), ref.cpu().numpy(),
+                               atol=1e-4, err_msg="mxu scatter_add")
+    lib_err = float((table.clone().index_add_(0, safe, upd * valid[:, None])
+                     .double() - ref).abs().max())
+    cpu_plan = mxu.make_plan(ids.cpu(), e)
+    assert torch.equal(cpu_plan.sid, plan.sid.cpu()) and \
+        torch.equal(cpu_plan.spos, plan.spos.cpu()), "plan card != CPU"
+    s_cpu = mxu.scatter_add(table.cpu(), ids.cpu(), upd.cpu(), cpu_plan)
+    s_err = float((s1.cpu() - s_cpu).abs().max())
+    np.testing.assert_allclose(s1.cpu().numpy(), s_cpu.numpy(), atol=1e-4,
+                               err_msg="mxu scatter_add card != CPU")
+    uniq = int(torch.unique(ids[valid]).numel())
+    nv = int(valid.sum())
+    # bytes each function must move: gather reads the plan (sid, spos) and
+    # each distinct valid id's row, writes [N, c]; scatter_add reads the
+    # plan, the updates and the table and writes the new [E, c] table
+    g_bytes = 2 * n * 4 + uniq * c * 4 + n * c * 4
+    s_bytes = 2 * n * 4 + n * c * 4 + 2 * e * c * 4
+    plan_bytes = n * 4 + 2 * n * 4
+    out = {}
+    for name, fn, lib, nbytes in (
+            ("mxu_gather", lambda: mxu.gather(table, plan), lib_gather,
+             g_bytes),
+            ("mxu_scatter_add", lambda: mxu.scatter_add(table, ids, upd,
+                                                        plan),
+             lib_scatter, s_bytes),
+            ("mxu_make_plan", lambda: mxu.make_plan(ids, e), None,
+             plan_bytes)):
+        ms = cuda_ms(fn, MXU_REPS)
+        lib_ms = cuda_ms(lib, MXU_REPS) if lib is not None else None
+        ops, windows = steady_ops(fn)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        out[name] = {"ms": ms, "library_ms": lib_ms, "bound_ms": bound,
+                     "bytes": nbytes, "ops": ops}
+        lib_txt = f", library call {lib_ms:.4f} ms" if lib else ""
+        print(f"[mxu] {name} at N = {n} ids over E = {e} x c = {c} "
+              f"({nv} valid, {uniq} distinct): {ms:.4f} ms by CUDA events"
+              f"{lib_txt}; {ops} device operations (windows {windows}); "
+              f"byte bound {bound:.6f} ms ({nbytes} B at 3.35 TB/s)")
+    s_ref = float((s1.double() - ref).abs().max())
+    print(f"[mxu] two scatter_add runs on the card bit-equal; card == CPU "
+          f"(plan exact, sums max|err| {s_err:.3g}); against float64 sums "
+          f"max|err| {s_ref:.3g} (index_add_ in float32: {lib_err:.3g}); "
+          f"gather == index_select exactly")
+    return out
+
+
+def mxu_step_timing(seed, dev, data):
+    """One AROW block (B = 4096, K = 32, D = 2^22) through the mxu and the
+    xla minibatch steps: ms eager and replayed as one CUDA graph, device
+    operations."""
+    import torch
+
+    from hivemall_tpu_torch.core.engine import make_train_fn
+    from hivemall_tpu_torch.core.state import init_linear_state
+    from hivemall_tpu_torch.models.classifier import AROW
+
+    _, (idx, val, y), _ = data
+    yy = torch_on(np.where(y[:4096] > 0, 1.0, -1.0).astype(np.float32), dev)
+    ti, tv = torch_on(idx[:4096].astype(np.int64), dev), torch_on(val[:4096],
+                                                                  dev)
+    out = {}
+    for backend in ("mxu", "xla"):
+        step = make_train_fn(AROW, {"r": 0.1}, mode="minibatch",
+                             update_backend=backend, device=dev)
+        st = init_linear_state(FULL_DIMS, use_covariance=True, device=dev)
+
+        def run():
+            step(st, ti, tv, yy)
+
+        out[backend] = (cuda_ms(run, MXU_REPS), graph_ms(run, MXU_REPS),
+                        *steady_ops(run))
+    for backend, (eager, graph, ops, windows) in out.items():
+        print(f"[mxu] AROW minibatch step ({backend}), B = 4096, K = {WIDTH}"
+              f", D = {FULL_DIMS}: {eager:.4f} ms eager, {graph:.4f} ms as "
+              f"one CUDA graph, {ops} device operations (windows "
+              f"{windows})")
+    return out
+
+
+def steady_ops(fn):
+    """`device_ops` of fn() over three profiler windows: their largest
+    count and all three (a window can come back short: in one run the
+    profiler returned 0 for a call that launches kernels)."""
+    counts = [device_ops(fn) for _ in range(3)]
+    return max(counts), counts
+
+
+def phase_mxu(seed, dev, smi, data):
+    """The -mxu_scatter backends (ops/mxu_scatter.py) on the card: the
+    trainers against the xla backend and the CPU, the ops at the JAX
+    module's bench shape beside the library calls, the AROW step eager
+    and as a graph. Returns the bench readings."""
+    print(f"[mxu] card: {smi}")
+    mxu_steps(seed, dev, data)
+    if dev.type != "cuda":  # a CPU rehearsal: the timings are the card's
+        return None
+    bench = mxu_bench(seed, dev)
+    mxu_step_timing(seed, dev, data)
+    return bench
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5570,17 +6047,34 @@ def main(argv=None) -> int:
           f"launches during it: {dict(LAUNCHES)} (the SQL surface reaches no "
           f"pallas_call in the JAX package; -pallas from SQL launches "
           f"linear_scan.cu; the bridge's launches are its process's own)")
+    t_rec = time.perf_counter()
+    rec_launches = phase_records(args.seed, dev, smi, data, served,
+                                 pallas_run)
+    print(f"[records] phase took {time.perf_counter() - t_rec:.1f} s; the "
+          f"checked epoch's launches {rec_launches} count in the kernels "
+          f"line beside main's")
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+    t_mxu = time.perf_counter()
+    phase_mxu(args.seed, dev, smi, data)
+    assert not any(LAUNCHES.values()), dict(LAUNCHES)
+    print(f"[mxu] phase took {time.perf_counter() - t_mxu:.1f} s; kernel "
+          f"launches during it: {dict(LAUNCHES)} (ops/mxu_scatter reaches no "
+          f"pallas_call in the JAX package: it is XLA, plain torch here)")
     source = "hivemall_tpu_torch/kernels/csrc/linear_scan.cu"
     replaces = "hivemall_tpu/kernels/linear_scan.py:44"
     kernels = [
         {"name": "linear_scan", "route": "cuda", "source": source,
-         "replaces": replaces, "launches": launches["linear_scan"],
+         "replaces": replaces,
+         "launches": launches["linear_scan"] + rec_launches["linear_scan"],
          "max_abs_err": max(err, scan["err"]), "ms": scan["ms"],
          "plain_ms": scan["plain_ms"], "bound_ms": scan["bound_ms"],
          "bound_by": "bytes", "library_ms": None,
          "latency_floor_ms": scan["latency_floor_ms"]},
         {"name": "linear_scan_plan", "route": "cuda", "source": source,
-         "replaces": replaces, "launches": launches["linear_scan_plan"],
+         "replaces": replaces,
+         "launches": launches["linear_scan_plan"]
+         + rec_launches["linear_scan_plan"],
          "max_abs_err": 0.0, "ms": plan["ms"], "plain_ms": plan["plain_ms"],
          "bound_ms": plan["bound_ms"], "bound_by": plan["bound_by"],
          "library_ms": None},

@@ -45,6 +45,23 @@ def pad_to_bucket(k: int, min_width: int = 8) -> int:
     return w
 
 
+def bucket_rows(x, min_rows: int = 8):
+    """Pad an array's leading (row) axis up to the bucket ladder
+    (``pad_to_bucket``), so a variable-length batch reaches a per-shape
+    path (a captured CUDA graph, a warmed bucket) in one of few shapes.
+    Pad rows are zeros; callers slice the result back to the true row
+    count. Takes a numpy array (the JAX package's contract) or a tensor,
+    and returns the same kind."""
+    n = x.shape[0]
+    b = pad_to_bucket(max(n, 1), min_width=min_rows)
+    if b == n:
+        return x
+    pad_shape = (b - n,) + tuple(x.shape[1:])
+    if torch.is_tensor(x):
+        return torch.cat([x, x.new_zeros(pad_shape)])
+    return np.concatenate([np.asarray(x), np.zeros(pad_shape, x.dtype)])
+
+
 def pack_rows(
     idx_rows: Sequence[np.ndarray],
     val_rows: Sequence[np.ndarray],

@@ -14,6 +14,10 @@ The reference's hot loop is `process(row) -> train -> model.set(feature, ...)`
   (averaged per feature when `mini_batch_average`) — the reference's
   documented mini-batch semantic (ref: RegressionBaseUDTF.java:236-295 +
   utils/lang/FloatAccumulator.java:38-41). Batch size 1 equals scan mode.
+  ``update_backend="mxu"`` (`-mini_batch B -mxu_scatter`) runs the same
+  semantics over ops/mxu_scatter.py's sorted plan: one packed gather, one
+  stacked scatter-add without float atomics, derive_w over the whole
+  table.
 
 Rules are written once for both modes: a row scalar (score, y, t, ...) has
 shape [] in scan mode and [B] in minibatch mode, a lane tensor [K] or
@@ -210,9 +214,12 @@ def make_train_fn(
     if update_backend not in ("xla", "mxu"):
         raise ValueError(f"unknown update_backend {update_backend!r}")
     if update_backend == "mxu":
-        raise ValueError("update_backend='mxu' (the sorted-window gather/"
-                         "scatter, ops/mxu_scatter.py) is a later slice of "
-                         "the torch port; use the default backend")
+        if mode != "minibatch":
+            raise ValueError("update_backend='mxu' requires minibatch mode "
+                             "(scan mode is sequential per row)")
+        if feature_shard is not None:
+            raise ValueError("update_backend='mxu' does not compose with "
+                             "feature_shard yet; use the xla backend")
     dev = resolve_device(device)
     use_cov = rule.use_covariance
     n_partials = 3 if use_cov else 2
@@ -352,7 +359,99 @@ def make_train_fn(
                                   step=t0 + b, globals=gl)
         return new_state, torch.sum(outs.loss)
 
-    return scan_step if mode == "scan" else minibatch_step
+    def minibatch_step_mxu(state: LinearState, indices, values, labels):
+        """minibatch_step with every table access routed through
+        ops/mxu_scatter's sorted plan — the FloatAccumulator semantics,
+        f32 sums equal up to addition order. One packed gather serves w,
+        cov and every slot; one stacked scatter-add into a zero table
+        serves every delta column plus the update counts; derive_w rules
+        recompute w over the whole table, kept where a feature fired."""
+        from ..ops import mxu_scatter as mxu
+
+        indices, values, labels = inputs(indices, values, labels)
+        b, k = indices.shape
+        d = state.dims
+        t0 = state.step
+        ts = (t0 + 1 + torch.arange(b, device=dev)).float()
+        gl = dict(state.globals)
+        if rule.pre_batch is not None:
+            gl = rule.pre_batch(gl, labels)
+        ids = indices.reshape(-1)
+        plan = mxu.make_plan(ids, d)
+
+        # ONE gather for everything: w [+ cov] [+ slots], padded to a
+        # power-of-two column count
+        slot_names = tuple(sorted(state.slots))
+        cols = [state.weights] + ([state.covars] if use_cov else []) + \
+            [state.slots[n] for n in slot_names]
+        ncol = len(cols)
+        cpad = mxu.pad_cols(ncol)
+        packed = torch.stack([c.float() for c in cols]
+                             + [cols[0].float()] * (cpad - ncol), dim=-1)
+        g = mxu.gather(packed, plan).reshape(b, k, cpad)
+        w_g = g[..., 0]
+        pos = 1
+        cov_g = None
+        if use_cov:
+            # an out-of-range lane reads covariance 1.0
+            oob = (indices < 0) | (indices >= d)
+            cov_g = torch.where(oob, 1.0, g[..., pos])
+            pos += 1
+        sl_g = {n: g[..., pos + i] for i, n in enumerate(slot_names)}
+        outs = make_batch_update(rule, hyper)(w_g, cov_g, sl_g, values,
+                                              labels, ts, gl)
+        lane_upd = outs.updated.float()[:, None] * torch.ones_like(values)
+
+        # ONE stacked scatter-add into zeros: dw [+ dcov] [+ dslots] + counts
+        dcols = [outs.dw]
+        if use_cov and outs.dcov is not None:
+            dcols.append(outs.dcov)
+        scat_slots = [n for n in rule.slot_names if n in outs.dslots]
+        dcols += [outs.dslots[n] for n in scat_slots]
+        dcols.append(lane_upd)
+        nd = len(dcols)
+        dstack = torch.stack([c.float() for c in dcols], dim=-1) \
+            .reshape(b * k, nd)
+        sums = mxu.scatter_add(
+            torch.zeros((d, mxu.pad_cols(nd)), dtype=torch.float32,
+                        device=dev), ids, dstack, plan)
+        counts = sums[:, nd - 1]
+        denom = torch.clamp(counts, min=1.0) if mini_batch_average \
+            else torch.ones((), device=dev)
+        weights = (state.weights.float() + sums[:, 0] / denom) \
+            .to(state.weights.dtype)
+        covars = state.covars
+        pos = 1
+        if use_cov and outs.dcov is not None:
+            covars = (state.covars.float() + sums[:, pos] / denom) \
+                .to(state.covars.dtype)
+            pos += 1
+        new_slots = dict(state.slots)
+        for n in scat_slots:
+            new_slots[n] = (state.slots[n].float() + sums[:, pos]) \
+                .to(state.slots[n].dtype)
+            pos += 1
+        if rule.derive_w is not None:
+            # w is a pure element-wise function of the slots: recompute it
+            # over the WHOLE table and keep the old value where nothing
+            # fired — no gather-after-scatter round trip
+            tf_end = torch.tensor(float(t0 + b), device=dev)
+            w_full = rule.derive_w({n: t.float() for n, t in
+                                    new_slots.items()}, tf_end, hyper)
+            weights = torch.where(counts > 0, w_full.to(weights.dtype),
+                                  weights)
+        touched = torch.maximum(state.touched, (counts > 0).to(torch.int8))
+        if track_deltas:
+            new_slots[DELTA_SLOT] = new_slots[DELTA_SLOT] + counts.to(
+                new_slots[DELTA_SLOT].dtype)
+        new_state = state.replace(weights=weights, covars=covars,
+                                  slots=new_slots, touched=touched,
+                                  step=t0 + b, globals=gl)
+        return new_state, torch.sum(outs.loss)
+
+    if mode == "scan":
+        return scan_step
+    return minibatch_step_mxu if update_backend == "mxu" else minibatch_step
 
 
 def make_train_step(
@@ -360,6 +459,7 @@ def make_train_step(
     hyper: dict,
     mode: str = "minibatch",
     mini_batch_average: bool = True,
+    update_backend: str = "xla",
     device: DeviceLike = None,
 ):
     """The single-replica step: `make_train_fn` on ``device`` (None: the
@@ -369,7 +469,7 @@ def make_train_step(
     the stand-in for that donation."""
     return make_train_fn(rule, hyper, mode=mode,
                          mini_batch_average=mini_batch_average,
-                         device=device)
+                         update_backend=update_backend, device=device)
 
 
 def make_epoch(step_fn):

@@ -14,7 +14,8 @@ Execution modes:
   block — the CUDA kernel on the card (kernels/csrc/linear_scan.cu), its
   plain torch version on the CPU. The flag keeps the JAX package's name.
 - `-mini_batch B` > 1: minibatch mode — the reference's accumulate-then-
-  apply-average semantics.
+  apply-average semantics; with `-mxu_scatter`, over ops/mxu_scatter.py's
+  sorted-id gather / scatter-add (core/engine.py update_backend="mxu").
 - `-batch B`: the same minibatch semantics through host-staged dedup plans
   (core/batch_update.py): one compact write per unique feature of each
   B-row chunk.
@@ -46,21 +47,6 @@ from ..ops.convergence import ConversionState
 from ..runtime.metrics import REGISTRY
 from ..utils.feature import parse_features_batch
 from ..utils.options import CommandLine, Options
-
-# the execution backend of the JAX package that is a later slice of the
-# port: refused by name where the JAX package would run it, rather than
-# quietly run as something else
-_LATER_SLICE = {
-    "mxu_scatter": "the sorted-window gather/scatter (-mini_batch B "
-                   "-mxu_scatter, ops/mxu_scatter.py)",
-}
-
-
-def later_slice(flag: str, what: str) -> ValueError:
-    """The refusal of a JAX backend whose port is a later slice."""
-    return ValueError(f"-{flag}: {what} is a later slice of the torch port "
-                      f"(hivemall_tpu_torch); drop the flag")
-
 
 def base_options() -> Options:
     """Options shared by all linear learners (ref: LearnerBaseUDTF.java:85-103)."""
@@ -96,10 +82,10 @@ def base_options() -> Options:
           "host path for workers without an accelerator (train_arow: any "
           "options; train_fm: -classification with a fixed -eta)")
     o.add("mxu_scatter", None, False,
-          "Route -mini_batch table updates through the sorted-window "
-          "gather/scatter (ops/mxu_scatter.py; a later slice of the port, "
-          "refused with -mini_batch); ignored in exact scan mode, as in "
-          "the JAX package")
+          "Route -mini_batch table updates through the sorted-id "
+          "gather/scatter (ops/mxu_scatter.py): one packed gather and one "
+          "stacked scatter-add a block, without float atomics; ignored in "
+          "exact scan mode, as in the JAX package")
     o.add("batch", "batch_backend", True,
           "Segment-sum batched backend: apply minibatches of B rows "
           "through one host-staged dedup plan (core/batch_update.py) — "
@@ -385,10 +371,6 @@ def fit_linear(
 
         warnings.warn(f"-native_apply unavailable ({reason}); falling "
                       "back to the -batch backend", stacklevel=2)
-    if cl.has("mxu_scatter") and mode == "minibatch":
-        # the JAX package runs its mxu backend only here; in scan mode it
-        # ignores the flag, and so does the port
-        raise later_slice("mxu_scatter", _LATER_SLICE["mxu_scatter"])
     if mode == "batch":
         step = make_batch_train_step(rule, hyper, batch_size=batch_b,
                                      device=dev)
@@ -397,7 +379,12 @@ def fit_linear(
 
         step = make_pallas_scan_step(rule, hyper, device=dev)
     else:
-        step = make_train_fn(rule, hyper, mode=mode, device=dev)
+        # the mxu backend runs only in minibatch mode; in scan mode the
+        # flag is ignored, as in the JAX package
+        backend = "mxu" if (cl.has("mxu_scatter") and mode == "minibatch") \
+            else "xla"
+        step = make_train_fn(rule, hyper, mode=mode, update_backend=backend,
+                             device=dev)
     state = init_linear_state(
         dims,
         use_covariance=rule.use_covariance,

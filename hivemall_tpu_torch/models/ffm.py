@@ -64,7 +64,6 @@ from ..ops.scatter import scatter_rows_flat
 from ..core.collectives import psum
 from ..utils.feature import FMFeature
 from ..utils.options import Options
-from .base import later_slice
 from .fm import _fm_options
 
 _MIX1 = 0x9E3779B1
@@ -294,8 +293,14 @@ def make_ffm_step(hyper: FFMHyper, mode: str = "scan",
     ``pack_v`` interleaves V and its AdaGrad accumulator into one
     [Dv, k+1] table for the block, so one row gather and one row scatter
     serve both (None: pack when B * K^2 * 8 >= Dv, the JAX package's
-    rule). ``update_backend="mxu"`` is a later slice of the port and
-    raises.
+    rule). ``update_backend="mxu"`` (local minibatch only) always packs,
+    padded to a power-of-two lane count, and sends each row group's
+    [B * K * K] pair traffic through ops/mxu_scatter.py: one sorted plan
+    of the group's pair keys serves its gather and its scatter-add of
+    dV + dgg, and a plan of its feature ids the FTRL z / n sums, so the
+    step adds no float atomically. The linear w keeps the last-lane set
+    of the xla backend, as the JAX mxu step does (it sets w the same
+    way).
 
     ``feature_shard=(mesh, axis, stripe_w, stripe_v)`` stripes the linear
     tables (w / z / n / touched, [num_features]) and the pairwise tables
@@ -308,10 +313,13 @@ def make_ffm_step(hyper: FFMHyper, mode: str = "scan",
     if update_backend not in ("xla", "mxu"):
         raise ValueError(f"unknown update_backend {update_backend!r}")
     if update_backend == "mxu":
-        raise ValueError("update_backend='mxu' (the sorted-window gather/"
-                         "scatter of the pairwise V traffic, "
-                         "ops/mxu_scatter.py) is a later slice of the torch "
-                         "port: ROADMAP Queue 2 #3; use the default backend")
+        if mode != "minibatch" or feature_shard is not None:
+            raise ValueError("update_backend='mxu' requires the local "
+                             "minibatch path")
+        if pack_v is False:
+            raise ValueError("update_backend='mxu' rides the packed V+gg "
+                             "table; pack_v=False contradicts it")
+    use_mxu = update_backend == "mxu"
     if mode not in ("scan", "minibatch"):
         raise ValueError(f"unknown mode {mode!r}")
     if row_chunk is not None and mode != "minibatch":
@@ -336,9 +344,11 @@ def make_ffm_step(hyper: FFMHyper, mode: str = "scan",
         return pc - y, 0.5 * (pc - y) ** 2
 
     def row_updates(base: FFMState, idx, val, fld, y, ts, pk_base):
-        """(g, loss, keys, dV, dgg) of rows [B, K] against ``base`` (its
-        V and gg from the packed table ``pk_base`` when given)."""
-        own = None
+        """(g, loss, keys, dV, dgg, plan) of rows [B, K] against ``base``
+        (its V and gg from the packed table ``pk_base`` when given; under
+        mxu through ``plan``, the sorted plan of the rows' pair keys,
+        returned for the scatter; else None)."""
+        own = plan = None
         if feature_shard is not None:
             p, keys, Vg, xx, gg, own = sharded_ffm_gather(
                 base, idx, val, fld, hyper, *feature_shard)
@@ -346,7 +356,14 @@ def make_ffm_step(hyper: FFMHyper, mode: str = "scan",
             keys = _row_pair_keys(idx, fld, hyper.v_dims)  # [B, K, K]
             gg = None
             if pk_base is not None:
-                pg = pk_base[keys]  # [B, K, K, k+1]
+                if use_mxu:
+                    from ..ops import mxu_scatter as mxu
+
+                    plan = mxu.make_plan(keys.reshape(-1), hyper.v_dims)
+                    pg = mxu.gather(pk_base, plan).reshape(
+                        keys.shape + (pk_base.shape[-1],))[..., :k + 1]
+                else:
+                    pg = pk_base[keys]  # [B, K, K, k+1]
                 Vg, gg = pg[..., :-1], pg[..., -1]
             else:
                 Vg = base.v[keys]
@@ -373,7 +390,7 @@ def make_ffm_step(hyper: FFMHyper, mode: str = "scan",
             pair_real = pair_real * own
         dV = dV * pair_real[..., None]
         dgg = torch.sum(gradV * gradV, dim=-1) * pair_real
-        return g, loss, keys, dV, dgg
+        return g, loss, keys, dV, dgg, plan
 
     def w_updates(base: FFMState, sidx, live, val, g, ts):
         """Linear-term lanes: (dz, dn, w_new), FTRL (default) or SGD."""
@@ -401,9 +418,17 @@ def make_ffm_step(hyper: FFMHyper, mode: str = "scan",
         accumulated into ``carry`` (and ``pk_carry``) in place; every read
         of ``base`` comes before the first write, so ``carry`` may be
         ``base``. Returns (loss sum, g sum)."""
-        g, loss, keys, dV, dgg = row_updates(base, idx, val, fld, lab, ts,
-                                             pk_base)
-        if pk_carry is not None:
+        g, loss, keys, dV, dgg, plan = row_updates(base, idx, val, fld, lab,
+                                                   ts, pk_base)
+        if plan is not None:
+            from ..ops import mxu_scatter as mxu
+
+            # the sorted scatter-add returns a new table: write it back
+            pk_carry.copy_(mxu.scatter_add(
+                pk_carry, keys.reshape(-1),
+                torch.cat([dV, dgg[..., None]], dim=-1).reshape(-1, k + 1),
+                plan))
+        elif pk_carry is not None:
             scatter_rows_flat(pk_carry, keys.reshape(-1),
                               torch.cat([dV, dgg[..., None]], dim=-1)
                               .reshape(-1, k + 1))
@@ -421,7 +446,15 @@ def make_ffm_step(hyper: FFMHyper, mode: str = "scan",
         live, sidx = live_lanes(idx, carry.w.shape[0])
         if hyper.linear_coeff:
             dz, dn, w_new = w_updates(base, sidx, live, val, g, ts)
-            if dz is not None:
+            if dz is not None and plan is not None:
+                # the FTRL sums ride a sorted plan of the lanes' ids too, so
+                # the mxu step adds no float atomically (dead lanes' ids
+                # are out of range: dropped)
+                ids = idx.reshape(-1)
+                lplan = mxu.make_plan(ids, carry.z.shape[0])
+                for t, d in ((carry.z, dz), (carry.n, dn)):
+                    t.copy_(mxu.scatter_add(t, ids, d.reshape(-1), lplan))
+            elif dz is not None:
                 flat = sidx.reshape(-1)
                 carry.z.index_add_(0, flat,
                                    torch.where(live, dz, -0.0).reshape(-1))
@@ -455,7 +488,17 @@ def make_ffm_step(hyper: FFMHyper, mode: str = "scan",
         return b * K * K * 8 >= state.v.shape[0]
 
     def pack(state: FFMState):
-        return torch.cat([state.v, state.v_gg[:, None]], dim=1)
+        pk = torch.cat([state.v, state.v_gg[:, None]], dim=1)
+        if use_mxu:
+            # the mxu lane protocol needs a power-of-two lane count; the
+            # extra pad lanes receive no update (kl < c scatter protocol)
+            from ..ops.mxu_scatter import pad_cols
+
+            extra = pad_cols(k + 1) - (k + 1)
+            if extra:
+                pk = torch.cat([pk, pk.new_zeros((pk.shape[0], extra))],
+                               dim=1)
+        return pk
 
     def unpack(st: FFMState, pk) -> FFMState:
         return st.replace(v=pk[:, :k].contiguous(),
@@ -488,7 +531,8 @@ def make_ffm_step(hyper: FFMHyper, mode: str = "scan",
                                                  labels)
         b = indices.shape[0]
         ts = timesteps(state, b)
-        pk = pack(state) if want_pack(b, indices.shape[1], state) else None
+        pk = pack(state) if use_mxu or want_pack(b, indices.shape[1],
+                                                 state) else None
         w0 = state.w0
         loss, g_sum = apply_row_group(state, state, indices, values, fields,
                                       labels, ts, pk_carry=pk, pk_base=pk)
@@ -505,7 +549,7 @@ def make_ffm_step(hyper: FFMHyper, mode: str = "scan",
         if b % c != 0:
             raise ValueError(f"batch {b} not divisible by row_chunk {c}")
         ts = timesteps(state, b)
-        packed = want_pack(b, indices.shape[1], state)
+        packed = use_mxu or want_pack(b, indices.shape[1], state)
         # the block-start parameters every chunk reads: snapshots of the
         # tables the chunks write
         base = state.replace(
@@ -753,9 +797,9 @@ def train_ffm(rows: Sequence[Sequence[str]], labels,
     """Train an FFM on the CUDA device (``device="cpu"`` asks for the CPU)
     from "field:idx:value" string rows. Default ``-mini_batch 1`` is the
     exact per-row scan; ``-mini_batch B`` the minibatch, tiled by
-    ``-row_chunk``. ``-mxu_scatter`` with ``-mini_batch`` is a later slice
-    of the port and raises; in scan mode it is ignored, as in the JAX
-    package."""
+    ``-row_chunk``. ``-mxu_scatter`` with ``-mini_batch`` selects the
+    sorted-id backend (`make_ffm_step` update_backend="mxu"); in scan mode
+    it is ignored, as in the JAX package."""
     cl = _ffm_options().parse(options, "train_ffm")
     dev = resolve_device(device)
     hyper = ffm_hyper_from_options(cl)
@@ -774,16 +818,14 @@ def train_ffm(rows: Sequence[Sequence[str]], labels,
             raise ValueError(
                 f"-mini_batch {block} not divisible by -row_chunk "
                 f"{row_chunk}")
-    if cl.has("mxu_scatter") and mode == "minibatch":
-        raise later_slice("mxu_scatter",
-                          "the sorted-window gather/scatter of the pairwise "
-                          "V traffic (-mini_batch B -mxu_scatter, "
-                          "ops/mxu_scatter.py)")
-    step = make_ffm_step(hyper, mode, row_chunk=row_chunk, device=dev)
+    backend = "mxu" if (cl.has("mxu_scatter") and mode == "minibatch") \
+        else "xla"
+    step = make_ffm_step(hyper, mode, row_chunk=row_chunk,
+                         update_backend=backend, device=dev)
     # the trailing partial block (n % block rows) won't divide by
     # row_chunk; it goes through an untiled step (same semantics)
-    tail_step = make_ffm_step(hyper, mode, device=dev) \
-        if row_chunk is not None else step
+    tail_step = make_ffm_step(hyper, mode, update_backend=backend,
+                              device=dev) if row_chunk is not None else step
     state = init_ffm_state(hyper, device=dev)
     iters = cl.get_int("iters", 1)
     conv = ConversionState(not cl.has("disable_cv"),

@@ -55,14 +55,12 @@ from ..ops.eta import EtaEstimator, get_eta
 from ..ops.scatter import scatter_rows_flat
 from ..core.collectives import psum
 from ..utils.options import Options
-from .base import FeatureRows, _stage_rows, base_options, later_slice
+from .base import FeatureRows, _stage_rows, base_options
 
-# the JAX backend of train_fm that is a later slice of the port: refused by
-# name where the JAX package would run it
-_LATER_SLICE = {
-    "mxu_scatter": "the sorted-window gather/scatter (-mini_batch B "
-                   "-mxu_scatter, ops/mxu_scatter.py)",
-}
+DOUBLE_MIN = -1.7976931348623157e308  # the JAX package's constant: the
+# reference's minTarget default is Double.MIN_VALUE (smallest positive!),
+# maxTarget Double.MAX_VALUE; both packages default to no-op bounds instead
+# (FMHyper.min_target / max_target), identical whenever -min/-max are set.
 
 
 @dataclass
@@ -288,9 +286,14 @@ def make_fm_step(hyper: FMHyper, mode: str = "minibatch",
 
     ``pack_w`` is accepted for the JAX signature: there it selects whether
     w rides a V pad lane through one row gather and scatter, a layout the
-    JAX tests pin equal to the split one. The port computes both the same
-    way (w and V as separate tables). ``update_backend="mxu"`` is a later
-    slice of the port and raises.
+    JAX tests pin equal to the split one. The xla backend computes both
+    the same way (w and V as separate tables). ``update_backend="mxu"``
+    (local minibatch only) is that packed layout over ops/mxu_scatter.py:
+    w borrows V's first pad lane and the update counts the next one when
+    there is one, so ONE sorted gather of the packed [D, kp] table serves
+    the block and ONE scatter-add carries dv, dw and the counts. It needs
+    a pad lane (padded_factors > factors), ``pack_w`` and a power-of-two
+    padded_factors, and refuses otherwise, as in JAX.
 
     ``feature_shard=(mesh, axis, stripe)`` runs the same step on this
     rank's [stripe] slice of w and V (parallel/sharded_train.py
@@ -307,11 +310,26 @@ def make_fm_step(hyper: FMHyper, mode: str = "minibatch",
     if update_backend not in ("xla", "mxu"):
         raise ValueError(f"unknown update_backend {update_backend!r}")
     if update_backend == "mxu":
-        raise ValueError("update_backend='mxu' (the sorted-window gather/"
-                         "scatter, ops/mxu_scatter.py) is a later slice of "
-                         "the torch port: ROADMAP Queue 2 #3; use the "
-                         "default backend")
-    del pack_w  # one layout serves both settings (see the docstring)
+        if mode != "minibatch" or feature_shard is not None:
+            raise ValueError("update_backend='mxu' requires the local "
+                             "minibatch path")
+        from ..ops.mxu_scatter import pad_cols
+
+        kp = hyper.padded_factors
+        if kp <= hyper.factors or not pack_w:
+            raise ValueError(
+                "the mxu FM path rides the packed [D, kp] table and borrows "
+                "pad lanes for w and the update counts; it needs "
+                "padded_factors > factors (k = 8/16 exactly have no pad "
+                "lane) and pack_w=True")
+        if pad_cols(kp) != kp:
+            raise ValueError(
+                f"the mxu FM path needs a power-of-two padded_factors "
+                f"(lane tiling, ops/mxu_scatter.py); factors="
+                f"{hyper.factors} pads to {kp} — choose k whose "
+                f"multiple-of-8 round-up is a power of two (k <= 7, "
+                f"9..15, 25..31, ...) or use the xla backend")
+    use_mxu = update_backend == "mxu"
     dev = resolve_device(device)
     k = hyper.factors
 
@@ -410,19 +428,88 @@ def make_fm_step(hyper: FMHyper, mode: str = "minibatch",
         return st.replace(touched=touched_after(st, indices, live, trained),
                           step=state.step + b_rows), loss
 
+    def mxu_apply(state: FMState, indices, theta, dw, dv, plan, packed):
+        """(w, V, touched) after the block, over the packed layout: dv
+        and dw (on lane `factors`, w's packed position) ride one
+        scatter-add, the per-feature update counts the next pad lane when
+        the shape has one (else a scatter of their own), so counts, the
+        denominators and touched come out of the same pass."""
+        from ..ops import mxu_scatter as mxu
+
+        kp = state.v.shape[1]
+        cnt_lane = k + 1 if k + 1 < kp else None
+        ids = indices.reshape(-1)
+        scaled = theta[:, None, None] * torch.cat(
+            [dv[..., :k], dw[..., None]], dim=-1).float()
+        if cnt_lane is not None:
+            scaled = torch.cat([scaled, theta[:, None, None].expand(
+                scaled.shape[:2] + (1,))], dim=-1)
+        upd = scaled.reshape(-1, scaled.shape[-1])
+
+        def counts_apart():
+            return mxu.scatter_add(
+                torch.zeros(state.dims, dtype=torch.float32, device=dev),
+                ids, theta[:, None].expand(indices.shape).reshape(-1), plan)
+
+        # V's lanes past `factors` go back to 0 (w's and the counts' lanes)
+        v_lanes = torch.arange(kp, device=dev) < k
+        if mini_batch_average:
+            acc = mxu.scatter_add(torch.zeros(state.v.shape,
+                                              dtype=torch.float32,
+                                              device=dev), ids, upd, plan)
+            counts = counts_apart() if cnt_lane is None else acc[:, cnt_lane]
+            denom = torch.clamp(counts, min=1.0)
+            new_w = (state.w.float() + acc[:, k] / denom).to(state.w.dtype)
+            new_v = (state.v.float() + torch.where(v_lanes, acc, 0.0)
+                     / denom[:, None]).to(state.v.dtype)
+        else:
+            pk = mxu.scatter_add(packed, ids, upd, plan)
+            new_w = pk[:, k].to(state.w.dtype)
+            counts = counts_apart() if cnt_lane is None else pk[:, cnt_lane]
+            new_v = torch.where(v_lanes, pk, 0.0).to(state.v.dtype)
+        touched = torch.maximum(state.touched, (counts > 0).to(torch.int8))
+        return new_w, new_v, touched
+
     def minibatch_step(state: FMState, indices, values, labels, va_mask):
         indices, values, labels = inputs(indices, values, labels)
         va = _to_device(va_mask, torch.float32, dev)
         b, d = indices.shape[0], state.dims
         ts = (state.step + 1 + torch.arange(b, device=dev)).float()
         eta = hyper.eta.eta(ts)
-        live, sidx = live_lanes(indices, d)
-        wg = gather(state.w, sidx, live)
-        vg = _gather_rows(state.v, sidx, live)
+        plan = packed = None
+        if use_mxu:
+            # the packed [D, kp] table (w on lane `factors`), gathered ONCE
+            # for the whole block through the sorted plan
+            from ..ops import mxu_scatter as mxu
+
+            packed = state.v.float().clone()
+            packed[:, k] = state.w.float()
+            plan = mxu.make_plan(indices.reshape(-1), d)
+            pg = mxu.gather(packed, plan).reshape(indices.shape
+                                                  + (packed.shape[1],))
+            wg = pg[..., k]
+            vg = pg.clone()
+            vg[..., k] = 0.0  # restore the pad-lane zero
+        else:
+            live, sidx = live_lanes(indices, d)
+            wg = gather(state.w, sidx, live)
+            vg = _gather_rows(state.v, sidx, live)
         p, sum_vfx = row_predict(state.w0, wg, vg, values)
         g, loss = _dloss_and_loss(p, labels, hyper)
         dw0, dw, dv = theta_deltas(state, eta, g, values, wg, vg, sum_vfx)
         theta = 1.0 - va  # [B]
+        if use_mxu:
+            new_w, new_v, touched = mxu_apply(state, indices, theta, dw, dv,
+                                              plan, packed)
+            if mini_batch_average:
+                new_w0 = state.w0 + torch.sum(theta * dw0) / torch.clamp(
+                    torch.sum(theta), min=1.0)
+            else:
+                new_w0 = state.w0 + torch.sum(theta * dw0)
+            return adareg_after(state, state.replace(
+                w0=new_w0, w=new_w, v=new_v, touched=touched,
+                step=state.step + b), va, eta, g, values, wg, vg, sum_vfx,
+                theta, loss)
         lane_dw = torch.where(live, theta[:, None] * dw, -0.0)
         lane_dv = theta[:, None, None] * dv[..., :k]
         if mini_batch_average:
@@ -452,6 +539,14 @@ def make_fm_step(hyper: FMHyper, mode: str = "minibatch",
             w0=new_w0, w=new_w, v=new_v,
             touched=touched_after(state, indices, live, theta > 0),
             step=state.step + b)
+        return adareg_after(state, new_state, va, eta, g, values, wg, vg,
+                            sum_vfx, theta, loss)
+
+    def adareg_after(state, new_state, va, eta, g, values, wg, vg, sum_vfx,
+                     theta, loss):
+        """The block's adareg lambda update against its start state (the
+        validation rows' deltas summed), and the loss of its training
+        rows."""
         if hyper.adareg:
             dl_w0, dl_w, dl_v = lambda_deltas(state, eta, g, values, wg, vg,
                                               sum_vfx)
@@ -531,8 +626,9 @@ def train_fm(features: FeatureRows, targets, options: Optional[str] = None,
     Default ``-mini_batch 1`` is the exact per-row scan; ``-mini_batch B``
     the averaged minibatch; ``-native_scan`` the exact scan through the
     native C row loop on the host, its model then placed on the device.
-    ``-mxu_scatter`` with ``-mini_batch`` is a later slice of the port and
-    raises; in scan mode it is ignored, as in the JAX package."""
+    ``-mxu_scatter`` with ``-mini_batch`` selects the sorted-id backend
+    (`make_fm_step` update_backend="mxu"); in scan mode it is ignored, as
+    in the JAX package."""
     cl = _fm_options().parse(options, "train_fm")
     dev = resolve_device(device)
     dims = cl.get_int("dims") or cl.get_int("p") or DEFAULT_NUM_FEATURES
@@ -561,9 +657,9 @@ def train_fm(features: FeatureRows, targets, options: Optional[str] = None,
     if cl.has("native_scan"):
         return _train_fm_native_scan(cl, hyper, dims, idx_rows, val_rows,
                                      targets, width, block, mode, iters, dev)
-    if cl.has("mxu_scatter") and mode == "minibatch":
-        raise later_slice("mxu_scatter", _LATER_SLICE["mxu_scatter"])
-    step = make_fm_step(hyper, mode, device=dev)
+    backend = "mxu" if (cl.has("mxu_scatter") and mode == "minibatch") \
+        else "xla"
+    step = make_fm_step(hyper, mode, update_backend=backend, device=dev)
     state = init_fm_state(dims, hyper, device=dev)
     # the JAX package's validation-row stream, draw for draw
     rng = np.random.RandomState(hyper.seed)

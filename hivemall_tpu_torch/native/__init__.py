@@ -21,13 +21,18 @@ callers take their Python path exactly there.
 kernels' wrappers count launches.
 
 `lattice_tokenize_bulk` runs the Japanese lattice Viterbi over many texts
-(nlp/lattice.py marshals the lexicon).
+(nlp/lattice.py marshals the lexicon). `decode_records` /
+`encode_records` are the HMTR1 record-shard codec of io/records.py.
 
-Not bound here (later slices, with the modules that need them):
-`decode_records` / `encode_records` (io/records.py) and the sanitizer
-variants.
-`pack_block` is left out too: the port's `core/batch.pack_rows` is a
-vectorised numpy pack (PERF.md).
+`available()` says whether the library builds and loads (building it at
+first call); `load_error()` says why it did not. Every binding still
+raises where the library cannot be had: `available()` is a probe for a
+caller that asks, never a path that turns a build error into a quiet
+fallback.
+
+Not bound here: the sanitizer variants (a build of the JAX package's
+scripts, not of the port's `native/build.py`), and `pack_block`: the
+port's `core/batch.pack_rows` is a vectorised numpy pack (PERF.md).
 """
 
 from __future__ import annotations
@@ -48,7 +53,8 @@ CALLS = {"murmur3": 0, "murmur3_bulk": 0, "parse_features_bulk": 0,
          "zigzag_leb128_encode": 0, "zigzag_leb128_decode": 0,
          "arow_reference_rowloop": 0, "fm_reference_rowloop": 0,
          "batch_apply_block": 0, "forest_eval": 0,
-         "lattice_tokenize_bulk": 0}
+         "lattice_tokenize_bulk": 0, "decode_records": 0,
+         "encode_records": 0}
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -59,6 +65,9 @@ _PROTOTYPES = {
     "hm_murmur3_x86_32": (ctypes.c_int32,
                           [ctypes.c_char_p, _I64, ctypes.c_uint32]),
     "hm_murmur3_bulk": (None, [_P, _P, _I64, ctypes.c_uint32, _I64, _P]),
+    "hm_decode_records": (_I64, [_P, _I64, _I64, _P, _P, _P, _P]),
+    "hm_encode_records_bound": (_I64, [_P, _I64]),
+    "hm_encode_records": (_I64, [_P, _P, _P, _P, _I64, _P, _I64]),
     "hm_zigzag_leb128_encode": (_I64, [_P, _I64, _P, _I64]),
     "hm_zigzag_leb128_decode": (_I64, [_P, _I64, _I64, _P]),
     "hm_parse_features_batch": (_I64, [_P, _P, _I64, _I64, _P, _P]),
@@ -120,6 +129,24 @@ def load_error() -> Optional[str]:
     """Why the last attempt to build or load the library failed, or None
     when none has failed since it last loaded. Builds nothing."""
     return _load_error
+
+
+def available() -> bool:
+    """True when the library builds (at first call) and loads; False with
+    the reason kept in `load_error()`. A probe only: the bindings raise
+    RuntimeError themselves when the library cannot be had."""
+    try:
+        _load()
+    except RuntimeError:
+        return False
+    return True
+
+
+def has_batch_apply() -> bool:
+    """True when the loaded library exports the batched-apply entry point
+    (hm_batch_apply_block), the -native_apply backend's probe. The port
+    builds its library from the one source, so this is `available()`."""
+    return available() and hasattr(_load(), "hm_batch_apply_block")
 
 
 # rule-family ids of hm_batch_apply_block's native closed forms — the ABI's
@@ -243,6 +270,65 @@ def murmur3_bulk(strings: Sequence[bytes], num_features: int,
     lib.hm_murmur3_bulk(ctypes.cast(cbuf, ctypes.c_void_p), _ptr(offsets),
                         n, seed, num_features, _ptr(out))
     return out
+
+
+def decode_records(body: bytes, n_rows: int):
+    """Decode an HMTR1 shard body (io/records.py) -> (row_offsets [n+1]
+    int64, indices int64, values f32, labels [n] f32). ValueError("corrupt
+    record shard") on a truncated or malformed body. The JAX package
+    returns None without its library; the port raises (module
+    docstring)."""
+    lib = _load()
+    buf = np.frombuffer(body, dtype=np.uint8)
+    CALLS["decode_records"] += 1
+    total = lib.hm_decode_records(_ptr(buf), len(body), n_rows, None, None,
+                                  None, None)
+    if total < 0:
+        raise ValueError("corrupt record shard")
+    offsets = np.empty(n_rows + 1, np.int64)
+    indices = np.empty(total, np.int64)
+    values = np.empty(total, np.float32)
+    labels = np.empty(n_rows, np.float32)
+    out = lib.hm_decode_records(_ptr(buf), len(body), n_rows, _ptr(offsets),
+                                _ptr(indices), _ptr(values), _ptr(labels))
+    if out != total:
+        raise ValueError("corrupt record shard")
+    return offsets, indices, values, labels
+
+
+def encode_records(idx_rows: Sequence[np.ndarray],
+                   val_rows: Sequence[np.ndarray],
+                   labels: np.ndarray) -> bytes:
+    """Encode rows to an HMTR1 shard body, each row sorted by feature id
+    (stable: equal ids keep their input order). Raises ValueError on
+    nnz > 255 or a negative id, as the JAX package does."""
+    lib = _load()
+    n = len(idx_rows)
+    if len(val_rows) != n or len(labels) != n:
+        raise ValueError("idx_rows/val_rows/labels length mismatch")
+    lens = np.fromiter(map(len, idx_rows), np.int64, n)
+    vlens = np.fromiter(map(len, val_rows), np.int64, n)
+    if not np.array_equal(lens, vlens):
+        i = int(np.nonzero(lens != vlens)[0][0])
+        raise ValueError(f"row {i}: {lens[i]} indices vs {vlens[i]} values")
+    offsets = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(lens, out=offsets[1:])
+    indices = (np.ascontiguousarray(
+        np.concatenate(idx_rows).astype(np.int64, copy=False)) if n else
+        np.zeros(0, np.int64))
+    values = (np.ascontiguousarray(
+        np.concatenate(val_rows).astype(np.float32, copy=False)) if n else
+        np.zeros(0, np.float32))
+    labs = np.ascontiguousarray(labels, dtype=np.float32)
+    cap = int(lib.hm_encode_records_bound(_ptr(offsets), n))
+    out = np.empty(max(cap, 1), dtype=np.uint8)
+    CALLS["encode_records"] += 1
+    written = lib.hm_encode_records(_ptr(indices), _ptr(values),
+                                    _ptr(offsets), _ptr(labs), n, _ptr(out),
+                                    cap)
+    if written < 0:
+        raise ValueError("row nnz > 255 or negative feature id")
+    return out[:written].tobytes()
 
 
 def zigzag_leb128_encode(values: np.ndarray) -> bytes:

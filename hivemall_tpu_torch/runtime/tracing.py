@@ -42,14 +42,15 @@ threshold commits even when unsampled, so the tail is never invisible.
 
 Usage::
 
-    from hivemall_tpu_torch.runtime.tracing import TRACER, sync_ready
+    from hivemall_tpu_torch.runtime.tracing import (TRACER, step_span,
+                                                    sync_ready)
 
     with TRACER.span("engine.pad", args={"rows": n}):
         staged = servable.stage(chunk, b_pad, width_cap)
 
-    with TRACER.span("train.step", args={"step": i}):  # training timeline
-        state, loss = step(state, *block)
-        sync_ready(loss)                               # train.sync
+    with step_span("mix_dp", step=i):  # training timeline: train.step
+        state, loss = trainer.step(state, *block)
+        sync_ready(loss)               # train.sync
 
     TRACER.export_chrome("trace.json")   # -> ui.perfetto.dev
 """
@@ -530,6 +531,27 @@ TRACER = Tracer(
     enabled=os.environ.get("HIVEMALL_TPU_TRACE", "1") != "0",
     slow_reserve=_env_float("HIVEMALL_TPU_TRACE_SLOW_RESERVE", 0.25),
 )
+
+
+@contextlib.contextmanager
+def step_span(trainer: str, step: Optional[int] = None,
+              tracer: Optional[Tracer] = None) -> Iterator[Span]:
+    """Root span for ONE training step — the per-step timeline the sharded
+    and mix trainers feed: open it in the driving loop, and the trainer's
+    dispatch lands as a ``train.compiled_step`` child, host block building
+    under ``train.data_prep``, ``sync_ready`` as ``train.sync``::
+
+        for i, blk in enumerate(blocks):
+            with step_span("sharded_1d", step=i):
+                state, loss = trainer.step(state, *blk)
+                sync_ready(loss)
+    """
+    t = tracer if tracer is not None else TRACER
+    args = {"trainer": trainer}
+    if step is not None:
+        args["step"] = int(step)
+    with t.span("train.step", args=args) as s:
+        yield s
 
 
 def sync_ready(tree, tracer: Optional[Tracer] = None):

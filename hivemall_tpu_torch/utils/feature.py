@@ -61,6 +61,13 @@ def parse_feature(s: str) -> Tuple[Union[int, str], float]:
     return fv.feature, fv.value
 
 
+def hash_feature_name(name: Union[int, str], num_features: int) -> int:
+    """Int names index directly (mod space); strings are murmur-hashed."""
+    if isinstance(name, (int, np.integer)):
+        return int(name) % num_features
+    return mhash(str(name), num_features)
+
+
 def parse_features_batch(
     rows: Sequence[Sequence[FeatureLike]],
     num_features: int = DEFAULT_NUM_FEATURES,

@@ -6,8 +6,10 @@
   package's, in every execution mode the port runs;
 - `-mxu_scatter` is accepted exactly where the JAX package ignores it (exact
   scan mode, `-pallas` included, and `train_fm`'s scan) and trains to the
-  same state as without it; where the JAX package would run its mxu backend
-  (`-mini_batch` > 1) the port still refuses it by name.
+  same state as without it; where the JAX package runs its mxu backend
+  (`-mini_batch` > 1) the port runs its own (ops/mxu_scatter.py), equal to
+  the JAX package's at the reference's tolerances (atol 1e-5 end to end,
+  as tests/test_mxu_scatter.py's fit_linear case).
 """
 
 import numpy as np
@@ -75,10 +77,27 @@ def test_train_fm_mxu_scatter_is_ignored_in_scan_mode():
 
 
 def test_mxu_scatter_with_mini_batch_is_still_refused():
+    """The two calls this test once held refused (the port had no mxu
+    backend yet) now train, equal to the JAX package's mxu backend; the
+    name is kept."""
+    from hivemall_tpu.models import fm as JFM
+
     feats, y = rows(n=20)
-    with pytest.raises(ValueError, match="later slice"):
-        TC.train_arow(feats, y, "-dims 64 -mini_batch 4096 -mxu_scatter",
-                      device="cpu")
-    with pytest.raises(ValueError, match="later slice"):
-        TFM.train_fm(feats, y, "-c -dims 64 -mini_batch 4096 -mxu_scatter",
-                     device="cpu")
+    opts = "-dims 64 -mini_batch 4096 -mxu_scatter"
+    t = TC.train_arow(feats, y, opts, device="cpu")
+    j = JC.train_arow(feats, y, opts)
+    for k in ("weights", "covars"):
+        np.testing.assert_allclose(getattr(t.state, k).numpy(),
+                                   np.asarray(getattr(j.state, k)),
+                                   atol=1e-5, err_msg=k)
+    np.testing.assert_array_equal(t.state.touched.numpy(),
+                                  np.asarray(j.state.touched))
+    opts = "-c -dims 64 -mini_batch 4096 -mxu_scatter"
+    t = TFM.train_fm(feats, y, opts, device="cpu")
+    j = JFM.train_fm(feats, y, opts)
+    for k in ("w0", "w", "v"):
+        np.testing.assert_allclose(getattr(t.state, k).numpy(),
+                                   np.asarray(getattr(j.state, k)),
+                                   atol=1e-5, err_msg=k)
+    np.testing.assert_array_equal(t.state.touched.numpy(),
+                                  np.asarray(j.state.touched))

@@ -159,12 +159,16 @@ def test_batch_update_matches_rule():
 
 
 def test_refused_backends_name_the_later_slice():
-    """mxu stays a later slice; feature_shard (lifted with
-    parallel/sharded_train.py) runs: one stripe of a one-rank mesh is the
-    whole model, the unsharded step's."""
-    with pytest.raises(ValueError, match="later slice"):
-        TE.make_train_fn(TC.AROW, {"r": 0.1}, update_backend="mxu",
-                         device="cpu")
+    """No backend is a later slice any more: mxu (lifted with
+    ops/mxu_scatter.py, held against JAX in tests/test_torch_mxu_scatter.py)
+    builds and keeps only the reference's refusals; feature_shard (lifted
+    with parallel/sharded_train.py) runs: one stripe of a one-rank mesh is
+    the whole model, the unsharded step's."""
+    TE.make_train_fn(TC.AROW, {"r": 0.1}, update_backend="mxu",
+                     device="cpu")
+    with pytest.raises(ValueError, match="requires minibatch mode"):
+        TE.make_train_fn(TC.AROW, {"r": 0.1}, mode="scan",
+                         update_backend="mxu", device="cpu")
     from torch_cases import one_rank_mesh
 
     rng = np.random.RandomState(0)

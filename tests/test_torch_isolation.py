@@ -98,13 +98,15 @@ SLICE_MODULES = {
     "sql": ("__init__", "registry"),
     "adapters": ("model_rows", "sqlite", "hive_transform"),
     "utils": ("feature", "hashing", "codec", "math"),
-    "runtime": ("faults", "timeseries", "slo", "debug_bundle", "recovery",
-                "cluster", "launch"),
+    "runtime": ("__init__", "faults", "timeseries", "slo", "debug_bundle",
+                "recovery", "cluster", "launch", "benchmark"),
+    "ops": ("losses", "mxu_scatter"),
+    "io": ("__init__", "records"),
     "serving": ("__init__", "placement", "sharded", "retrieval"),
     "knn": ("__init__", "distance", "lsh", "similarity"),
     "parallel": ("__init__", "mesh", "mix", "sharded", "sharded_train",
                  "fm_mix", "ffm_mix", "mc_mix", "forest_shard"),
-    "core": ("striping", "collectives"),
+    "core": ("__init__", "striping", "collectives"),
 }
 
 
@@ -161,12 +163,17 @@ def test_default_device_without_cuda_raises():
     from hivemall_tpu_torch.models.trees import (
         train_gradient_tree_boosting_classifier, train_randomforest_classifier,
         train_randomforest_regr)
+    from hivemall_tpu_torch.io.records import RecordDataset
 
     feats = ([np.array([1, 2])], [np.ones(2, np.float32)])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_arow(feats, [1], "-dims 16")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_multiclass_arow(feats, ["a"], "-dims 16")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_arow(feats, [1], "-dims 16 -mini_batch 8 -mxu_scatter")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        RecordDataset([], 16, 8)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_ffm([["0:1:1", "1:2:1"]], [1],
                   "-feature_hashing 10 -v_bits 10")
