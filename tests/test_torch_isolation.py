@@ -96,7 +96,8 @@ SLICE_MODULES = {
     "nlp": ("__init__", "lattice", "lexicon_ja", "lexicon_ja_ext",
             "tokenizer", "evaluate"),
     "sql": ("__init__", "registry"),
-    "adapters": ("model_rows", "sqlite", "hive_transform"),
+    "adapters": ("__init__", "model_rows", "sqlite", "hive_transform",
+                 "arrow", "dataframe", "spark"),
     "utils": ("feature", "hashing", "codec", "math"),
     "runtime": ("__init__", "faults", "timeseries", "slo", "debug_bundle",
                 "recovery", "cluster", "launch", "benchmark"),

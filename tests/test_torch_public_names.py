@@ -43,10 +43,8 @@ NOTHING_TO_PORT_NAMES = {
         "core/batch.pack_rows packs blocks in vectorised numpy, measured "
         "against hm_pack_block by chip_smoke's phase native",
 }
-# reference modules of a later slice of the port
-STILL_TO_PORT = {
-    "adapters/arrow.py", "adapters/dataframe.py", "adapters/spark.py",
-}
+# reference modules of a later slice of the port (none left)
+STILL_TO_PORT = set()
 
 
 def _is_public(name: str) -> bool:

@@ -86,6 +86,16 @@ def assert_states_match(got, want, got_loss, want_loss):
                                rtol=RTOL, atol=ATOL)
 
 
+def assert_model_rows_match(got, want, rtol=2e-5, atol=1e-6):
+    """Two trained linear models' model_rows(): features exact, weights
+    and covariances within the reference's rtol 2e-5 / atol 1e-6."""
+    a, b = got.model_rows(), want.model_rows()
+    assert len(a) == len(b)
+    np.testing.assert_array_equal(a[0], b[0])
+    for x, y in zip(a[1:], b[1:]):
+        np.testing.assert_allclose(x, y, rtol=rtol, atol=atol)
+
+
 # --- serving-slice helpers (tests/test_torch_{checkpoint,artifact,serving}.py)
 
 def bf16_values(x):
