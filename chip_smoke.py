@@ -337,6 +337,19 @@ Phases (any failure exits non-zero; nothing is caught):
              runs once a group, ~1 ms each on the host: all ~179,000 would
              take minutes) == ensemble.argmin_kld of the direct rows. The
              adapters' launches count in the kernels line beside main's.
+24. cluster — the port's fleet scripts (bin/hivemall_tpu_torch_{cluster,
+             daemon}.sh): a world of two started by the cluster script over
+             127.0.0.1 and localhost (a loopback ssh, scripts/
+             ssh_loopback.sh; joined over gloo, as NCCL takes no two ranks
+             on one card), and one daemon worker on the default device,
+             started at the same time; each worker trains train_arow -dims
+             4194304 -pallas on the card on phase sql's 16,384 rows (a rank
+             its half: 2 + 2 launches; the daemon's worker 4 + 4), its model
+             rows bit for bit the same rows' direct train_arow; seconds from
+             start to the [launch] lines and to the results, each worker's
+             train seconds and rows/s; status 0, stop ("stopped pid"),
+             status 1 with no pid file left. The workers' launches count in
+             the kernels line beside main's.
 Prints a kernels JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 """
@@ -6203,6 +6216,295 @@ def phase_frames(seed, dev, smi, data, pallas_run, sql_rps):
           f"ensemble.argmin_kld of the direct partitions' rows exactly")
     return launches
 
+
+CLUSTER_HOSTS = ("127.0.0.1", "localhost")  # one machine, two host names
+CLUSTER_WAIT = 300  # seconds the workers may take to write their results
+CLUSTER_TIMEOUT = 120  # seconds any one fleet script call may take
+
+# the workers' program (HIVEMALL_TPU_TORCH_APP): one gloo all_reduce of the
+# rank's row count checks the world, then train_arow -pallas on the rank's
+# partition with no device named (on the card) unless the 4th argument names
+# one; the model rows go to <out>/<tag><rank>.npz, the facts (seconds,
+# launches) to <tag><rank>.json; then it waits to be stopped
+CLUSTER_PROGRAM = '''\
+import json, os, sys, time
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from hivemall_tpu_torch.device import resolve_device
+from hivemall_tpu_torch.kernels.linear_scan import LAUNCHES
+from hivemall_tpu_torch.models.classifier import train_arow
+
+data, out, tag, device = sys.argv[1:5]
+opts = " ".join(sys.argv[5:])
+kw = {} if device == "default" else {"device": device}
+idx, val, y = (np.load(os.path.join(data, f + ".npy"))
+               for f in ("idx", "val", "y"))
+joined = dist.is_initialized()
+rank, world = (dist.get_rank(), dist.get_world_size()) if joined else (0, 1)
+mine = np.array_split(np.arange(len(y)), world)[rank]
+total = torch.tensor([len(mine)])
+if joined:
+    dist.all_reduce(total)
+assert int(total) == len(y), (int(total), len(y))
+dev = resolve_device(kw.get("device"))
+t0 = time.perf_counter()
+torch.zeros(1, device=dev).sum().item()  # the device's first use, apart
+ctx_s = time.perf_counter() - t0
+rows = (list(idx[mine]), list(val[mine]))
+for key in LAUNCHES:
+    LAUNCHES[key] = 0
+t0 = time.perf_counter()
+model = train_arow(rows, y[mine], opts, **kw)
+if dev.type == "cuda":
+    torch.cuda.synchronize(dev)
+secs = time.perf_counter() - t0
+launches = dict(LAUNCHES)
+f, w, c = model.model_rows()
+base = os.path.join(out, f"{tag}{rank}")
+np.savez(base + ".tmp.npz", feature=f, weight=w, covar=c)
+os.replace(base + ".tmp.npz", base + ".npz")
+with open(base + ".tmp", "w") as fh:
+    json.dump({"rank": rank, "world": world, "total": int(total),
+               "rows": [int(mine[0]), int(mine[-1]) + 1], "secs": secs,
+               "context_s": ctx_s, "launches": launches,
+               "device": str(model.state.weights.device)}, fh)
+os.replace(base + ".tmp", base + ".json")
+print(f"{tag} rank {rank} trained", flush=True)
+while True:
+    time.sleep(1)
+'''
+
+
+def cluster_script(args, env):
+    """Start one fleet script call; a thread records its exit code, output
+    and seconds from its start to its exit into the returned dict."""
+    import threading
+
+    rec = {}
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(["bash", *args], env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+    def wait():
+        out, err = proc.communicate(timeout=CLUSTER_TIMEOUT)
+        rec.update(rc=proc.returncode, out=out, err=err,
+                   secs=time.perf_counter() - t0)
+
+    rec["thread"] = threading.Thread(target=wait, daemon=True)
+    rec["thread"].start()
+    return rec
+
+
+def cluster_done(rec, tag):
+    """The call's record once it has exited; one still running past its
+    timeout fails the phase."""
+    rec["thread"].join(CLUSTER_TIMEOUT + 5)
+    assert "rc" in rec, f"{tag}: no exit within {CLUSTER_TIMEOUT} s"
+    return rec
+
+
+def cluster_log_tail(log_dir):
+    import glob
+    import os
+
+    return "".join(open(p).read()[-3000:] for p in
+                   sorted(glob.glob(os.path.join(log_dir, "*.log"))))
+
+
+def cluster_wait(results, pid_files, log_dirs):
+    """Wait until every result file exists; a worker whose pid is gone
+    before then fails the phase with its log's tail."""
+    import os
+
+    deadline = time.perf_counter() + CLUSTER_WAIT
+    while not all(os.path.exists(p) for p in results):
+        for pid_file, log_dir in zip(pid_files, log_dirs):
+            pid = int(open(pid_file).read())
+            try:
+                os.kill(pid, 0)
+            except ProcessLookupError:
+                raise AssertionError(f"worker {pid} died:\n"
+                                     f"{cluster_log_tail(log_dir)}")
+        assert time.perf_counter() < deadline, \
+            f"workers wrote no results within {CLUSTER_WAIT} s"
+        time.sleep(0.1)
+
+
+def phase_cluster(seed, dev, smi, data, pallas_run):
+    """The port's fleet scripts on the card: a world of two started by
+    bin/hivemall_tpu_torch_cluster.sh over a loopback ssh and joined over
+    gloo, and one default-device worker started by
+    bin/hivemall_tpu_torch_daemon.sh at the same time; every worker trains
+    train_arow -pallas on main's first SQL_ROWS rows (a rank its half) on
+    the card, its model rows bit for bit the same rows' direct train_arow;
+    then status, stop and status again. Returns the workers' launches."""
+    import os
+    import socket
+    import tempfile
+
+    from hivemall_tpu_torch.models.classifier import train_arow
+
+    on_card = dev.type == "cuda"
+    kw = {} if on_card else {"device": dev}
+    here = os.path.dirname(os.path.abspath(__file__))
+    daemon = os.path.join(here, "bin", "hivemall_tpu_torch_daemon.sh")
+    cluster = os.path.join(here, "bin", "hivemall_tpu_torch_cluster.sh")
+    _, (idx, val, y), _ = data
+    n = SQL_ROWS
+    half = n // 2
+    opts = f"-dims {FULL_DIMS} -pallas"
+    base = {k: v for k, v in os.environ.items()
+            if not k.startswith("HIVEMALL_TPU_")}
+    base["HIVEMALL_TPU_PYTHON"] = sys.executable
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, a in (("idx", idx[:n]), ("val", val[:n]), ("y", y[:n])):
+            np.save(os.path.join(tmp, f"{name}.npy"), a)
+        prog = os.path.join(tmp, "worker.py")
+        with open(prog, "w") as f:
+            f.write(CLUSTER_PROGRAM)
+        shim = os.path.join(tmp, "bin")
+        os.mkdir(shim)
+        os.symlink(os.path.join(here, "scripts", "ssh_loopback.sh"),
+                   os.path.join(shim, "ssh"))
+        workers = os.path.join(tmp, "WORKER_LIST")
+        with open(workers, "w") as f:
+            f.write("\n".join(CLUSTER_HOSTS) + "\n")
+        hosts = os.path.join(tmp, "hosts")
+        solo_dir = os.path.join(tmp, "solo")
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        train_dev = "default" if on_card else str(dev)
+        # two ranks on one card: NCCL refuses them, so the fleet joins over
+        # gloo (HIVEMALL_TPU_DEVICE=cpu) and trains on the card
+        fleet_env = {**base, "PATH": shim + os.pathsep + base["PATH"],
+                     "LOOPBACK_SSH_ROOT": hosts,
+                     "HIVEMALL_TPU_WORKER_LIST": workers,
+                     "HIVEMALL_TPU_COORD_PORT": str(port),
+                     "HIVEMALL_TPU_DEVICE": "cpu",
+                     "HIVEMALL_TPU_TORCH_APP":
+                         f"{prog} {tmp} {tmp} fleet {train_dev} {opts}"}
+        solo_env = {**base,
+                    "HIVEMALL_TPU_PID_FILE": os.path.join(solo_dir,
+                                                          "worker.pid"),
+                    "HIVEMALL_TPU_LOG_DIR": os.path.join(solo_dir, "logs"),
+                    "HIVEMALL_TPU_TORCH_APP":
+                        f"{prog} {tmp} {tmp} solo {train_dev} {opts}"}
+        if not on_card:  # a CPU rehearsal names its device
+            solo_env["HIVEMALL_TPU_DEVICE"] = str(dev)
+        pid_files = [os.path.join(hosts, h, "worker.pid")
+                     for h in CLUSTER_HOSTS] + \
+            [solo_env["HIVEMALL_TPU_PID_FILE"]]
+        log_dirs = [os.path.join(hosts, h, "logs") for h in CLUSTER_HOSTS] \
+            + [solo_env["HIVEMALL_TPU_LOG_DIR"]]
+        names = ("fleet0", "fleet1", "solo0")
+        stopped = False
+        t0 = time.perf_counter()
+        fleet = cluster_script([cluster, "start"], fleet_env)
+        solo = cluster_script([daemon, "start", "127.0.0.1:1", "1", "0"],
+                              solo_env)
+        try:
+            # the same rows' direct train_arow, while the workers start
+            direct = {}
+            for tag, lo, hi in (("fleet0", 0, half), ("fleet1", half, n),
+                                ("solo0", 0, n)):
+                m, secs = timed(lambda: train_arow(
+                    (list(idx[lo:hi]), list(val[lo:hi])), y[lo:hi], opts,
+                    **kw), dev)
+                direct[tag] = (m.model_rows(), secs)
+            for tag, rec in (("cluster start", fleet),
+                             ("daemon start", solo)):
+                cluster_done(rec, tag)
+                assert rec["rc"] == 0, \
+                    f"{tag} exit {rec['rc']}:\n{rec['out']}{rec['err']}"
+            launch_lines = re.findall(r"^(?:(\S+): )?worker running as pid "
+                                      r"\d+: (\[launch\] .*)$",
+                                      fleet["out"] + solo["out"], re.M)
+            assert len(launch_lines) == 3, fleet["out"] + solo["out"]
+            cluster_wait([os.path.join(tmp, f"{t}.json") for t in names],
+                         pid_files, log_dirs)
+            results_s = time.perf_counter() - t0
+            facts = {}
+            launches = {"linear_scan": 0, "linear_scan_plan": 0}
+            for tag in names:
+                with open(os.path.join(tmp, f"{tag}.json")) as f:
+                    fact = json.load(f)
+                got = np.load(os.path.join(tmp, f"{tag}.npz"))
+                world = 1 if tag == "solo0" else 2
+                rows = fact["rows"][1] - fact["rows"][0]
+                assert (fact["rank"], fact["world"], fact["total"]) == \
+                    (int(tag[-1]), world, n), (tag, fact)
+                assert rows == n // world, (tag, fact)
+                assert fact["device"] == ("cuda:0" if on_card else "cpu"), \
+                    (tag, fact)
+                want_launches = -(-rows // 4096) if on_card else 0
+                assert fact["launches"] == {
+                    "linear_scan": want_launches,
+                    "linear_scan_plan": want_launches}, (tag, fact)
+                frames_same_rows(tag, (got["feature"], got["weight"],
+                                       got["covar"]), direct[tag][0])
+                for key in launches:
+                    launches[key] += fact["launches"][key]
+                facts[tag] = fact
+            st = cluster_done(cluster_script([cluster, "status"], fleet_env),
+                              "cluster status")
+            assert st["rc"] == 0, st["out"] + st["err"]
+            for h in CLUSTER_HOSTS:
+                assert f"{h}: worker running as pid" in st["out"], st["out"]
+            t_stop = time.perf_counter()
+            stops = (cluster_script([cluster, "stop"], fleet_env),
+                     cluster_script([daemon, "stop"], solo_env))
+            stopped = True
+            for rec in stops:
+                cluster_done(rec, "stop")
+                assert rec["rc"] == 0, rec["out"] + rec["err"]
+            stop_s = time.perf_counter() - t_stop
+            for h in CLUSTER_HOSTS:
+                assert f"{h}: stopped pid" in stops[0]["out"], stops[0]["out"]
+            assert "stopped pid" in stops[1]["out"], stops[1]["out"]
+            for args, env in (([cluster, "status"], fleet_env),
+                              ([daemon, "status"], solo_env)):
+                st = cluster_done(cluster_script(args, env), "status")
+                assert st["rc"] == 1 and "worker not running" in st["out"], \
+                    st["out"] + st["err"]
+            assert not any(os.path.exists(p) for p in pid_files), pid_files
+        finally:
+            if not stopped:  # a failure above: stop what was started
+                for rec in (cluster_script([cluster, "stop"], fleet_env),
+                            cluster_script([daemon, "stop"], solo_env)):
+                    rec["thread"].join(CLUSTER_TIMEOUT + 5)
+    phase_s = time.perf_counter() - t_phase
+    main_rps = ROWS / pallas_run[2]
+    where = "the card" if on_card else "the CPU"
+    print(f"[cluster] card: {smi}; {n} rows of main's at D = {FULL_DIMS}, "
+          f"K = {WIDTH}; a world of 2 from bin/hivemall_tpu_torch_cluster.sh "
+          f"over {' and '.join(CLUSTER_HOSTS)} (a loopback ssh; joined over "
+          f"gloo, trained on {where}) and one bin/hivemall_tpu_torch_"
+          f"daemon.sh worker on the default device, started together")
+    print(f"[cluster] start to the [launch] lines: cluster start "
+          f"{fleet['secs']:.3f} s, daemon start {solo['secs']:.3f} s; start "
+          f"to the results {results_s:.3f} s; "
+          + "; ".join(f"{h or 'daemon'}: {line}" for h, line in launch_lines))
+    for tag in names:
+        fact = facts[tag]
+        lo, hi = fact["rows"]
+        print(f"[cluster] {tag}: train_arow('{opts}') on rows [{lo}, {hi}) "
+              f"{fact['secs']:.3f} s up to the synchronize = "
+              f"{(hi - lo) / fact['secs']:.0f} rows/s (the device's first "
+              f"use {fact['context_s']:.3f} s, timed apart); launches "
+              f"{fact['launches']}; model rows == the direct call's bit for "
+              f"bit ({direct[tag][1]:.3f} s in this process); main's -pallas "
+              f"{main_rps:.0f} rows/s; {smi}")
+    print(f"[cluster] status 0 with every rank waiting; stop (fleet and "
+          f"daemon together) {stop_s:.3f} s, each 'stopped pid'; status 1 "
+          f"after, no pid file left; the phase {phase_s:.3f} s")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6376,13 +6678,21 @@ def main(argv=None) -> int:
           f"adapters' launches {frame_launches} count in the kernels line "
           f"beside main's (the frame adapters reach no pallas_call in the "
           f"JAX package; -pallas from a frame launches linear_scan.cu)")
+    t_cluster = time.perf_counter()
+    cluster_launches = phase_cluster(args.seed, dev, smi, data, pallas_run)
+    print(f"[cluster] phase took {time.perf_counter() - t_cluster:.1f} s; the "
+          f"workers' launches {cluster_launches} count in the kernels line "
+          f"beside main's (bin/hivemall_tpu_{{daemon,cluster}}.sh are shell "
+          f"over runtime.launch and reach no pallas_call; -pallas in the "
+          f"workers launches linear_scan.cu)")
     source = "hivemall_tpu_torch/kernels/csrc/linear_scan.cu"
     replaces = "hivemall_tpu/kernels/linear_scan.py:44"
     kernels = [
         {"name": "linear_scan", "route": "cuda", "source": source,
          "replaces": replaces,
          "launches": launches["linear_scan"] + rec_launches["linear_scan"]
-         + frame_launches["linear_scan"],
+         + frame_launches["linear_scan"]
+         + cluster_launches["linear_scan"],
          "max_abs_err": max(err, scan["err"]), "ms": scan["ms"],
          "plain_ms": scan["plain_ms"], "bound_ms": scan["bound_ms"],
          "bound_by": "bytes", "library_ms": None,
@@ -6391,7 +6701,8 @@ def main(argv=None) -> int:
          "replaces": replaces,
          "launches": launches["linear_scan_plan"]
          + rec_launches["linear_scan_plan"]
-         + frame_launches["linear_scan_plan"],
+         + frame_launches["linear_scan_plan"]
+         + cluster_launches["linear_scan_plan"],
          "max_abs_err": 0.0, "ms": plan["ms"], "plain_ms": plan["plain_ms"],
          "bound_ms": plan["bound_ms"], "bound_by": plan["bound_by"],
          "library_ms": None},

@@ -25,7 +25,7 @@ from __future__ import annotations
 import os
 from typing import Optional, Tuple
 
-from ..device import DeviceLike
+from ..device import DeviceLike, resolve_device
 
 DEFAULT_PORT = 11212  # kept from MixEnv.java:21 for familiarity
 
@@ -77,10 +77,12 @@ def init_cluster(coordinator: Optional[str] = None,
     return True
 
 
-def main() -> None:
+def main(argv=None) -> None:
     """`python -m hivemall_tpu_torch.runtime.cluster --coordinator
     host:port --num-procs N --proc-id I [--device cpu]` — join the world
-    and report it (the start_mixserv.sh analog)."""
+    and report it (the start_mixserv.sh analog). The device is resolved
+    first: with no ``--device`` on a host without a CUDA device it raises
+    before joining."""
     import argparse
 
     import torch.distributed as dist
@@ -90,7 +92,8 @@ def main() -> None:
     ap.add_argument("--num-procs", type=int, default=None)
     ap.add_argument("--proc-id", type=int, default=None)
     ap.add_argument("--device", default=None)
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
+    resolve_device(args.device)
     joined = init_cluster(args.coordinator, args.num_procs, args.proc_id,
                           args.device)
     rank, world = (dist.get_rank(), dist.get_world_size()) if joined \

@@ -15,7 +15,9 @@ or from HIVEMALL_TPU_COORDINATOR / _NUM_PROCS / _PROC_ID; ``--mix
 host1,host2`` (the reference's client option, ref: LearnerBaseUDTF.java:98)
 maps its first host to the coordinator. ``--device`` picks this process's
 device as the JAX package's JAX_PLATFORMS picks its platform: unset is the
-CUDA device (``cuda:LOCAL_RANK``), ``cpu`` joins over gloo on the CPU.
+CUDA device (``cuda:LOCAL_RANK``), ``cpu`` joins over gloo on the CPU. The
+device is resolved before anything else runs: with no flag on a host
+without a CUDA device the launcher raises, and the program never starts.
 HIVEMALL_TPU_METRICS_PORT opens the /metrics endpoint (loopback unless
 HIVEMALL_TPU_METRICS_HOST says otherwise).
 """
@@ -27,6 +29,7 @@ import os
 import runpy
 import sys
 
+from ..device import resolve_device
 from .cluster import init_cluster, parse_mix_option
 
 
@@ -56,6 +59,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    dev = resolve_device(args.device)
     coordinator = args.coordinator
     if coordinator is None and args.mix:
         host, port = parse_mix_option(args.mix)
@@ -77,16 +81,15 @@ def main(argv=None) -> int:
     import torch
     import torch.distributed as dist
 
-    from ..device import resolve_device
-
     rank, world = (dist.get_rank(), dist.get_world_size()) if joined \
         else (0, 1)
-    dev = resolve_device(args.device) if args.device else None
-    local = 1 if dev is not None and dev.type == "cpu" \
-        else torch.cuda.device_count()
+    if dev.type == "cuda" and dev.index is None:
+        # the device the join set (cuda:LOCAL_RANK), else the default one
+        dev = torch.device("cuda", torch.cuda.current_device())
+    local = 1 if dev.type == "cpu" else torch.cuda.device_count()
     print(f"[launch] distributed={'joined' if joined else 'single-process'} "
-          f"rank={rank}/{world} local_devices={local} "
-          f"device={dev or 'cuda'}", file=sys.stderr, flush=True)
+          f"rank={rank}/{world} local_devices={local} device={dev}",
+          file=sys.stderr, flush=True)
 
     try:
         if args.module is not None:

@@ -3,9 +3,10 @@ launcher (runtime/launch.py) on the CPU, mirroring tests/test_launch.py:
 one process, a two-process gloo world joined through the launcher over a
 loopback coordinator (an all_reduce proves the ranks talk, not only that
 they joined), and the reference's ``-mix`` syntax mapped to the
-coordinator — parsed as the JAX package parses it. The daemon script
-(bin/hivemall_tpu_daemon.sh) still launches the JAX package and is not
-exercised here."""
+coordinator — parsed as the JAX package parses it; with no ``--device``
+on a host without a CUDA device, both entry points raise before a program
+runs. The port's daemon scripts are tested in
+tests/test_torch_cluster_scripts.py."""
 
 import json
 import os
@@ -17,6 +18,7 @@ import pytest
 
 from hivemall_tpu.runtime import cluster as jcluster
 from hivemall_tpu_torch.runtime import cluster as tcluster
+from hivemall_tpu_torch.runtime import launch as tlaunch
 from hivemall_tpu_torch.runtime.launch import build_parser
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -142,3 +144,44 @@ def test_cluster_env_and_single_process_noop(monkeypatch):
         ("10.1.2.3:11212", 4, 3)
     # one process joins nothing, whatever the coordinator
     assert tcluster.init_cluster("127.0.0.1:1", 1, 0, "cpu") is False
+
+
+def test_launch_default_device_raises_before_the_program(tmp_path,
+                                                         monkeypatch):
+    """No --device on a host without a CUDA device: the launcher raises
+    before it joins or runs anything (the program would write a file)."""
+    monkeypatch.setattr("torch.cuda.is_available", lambda: False)
+    # the launcher hands the process over: keep this one's argv and path
+    monkeypatch.setattr(sys, "argv", list(sys.argv))
+    monkeypatch.setattr(sys, "path", list(sys.path))
+    for k in ("HIVEMALL_TPU_COORDINATOR", "HIVEMALL_TPU_METRICS_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    out = tmp_path / "ran.txt"
+    prog = tmp_path / "prog.py"
+    prog.write_text(f"open({str(out)!r}, 'w').write('ran')\n")
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        tlaunch.main([str(prog)])
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        tlaunch.main(["--module", "json.tool", str(prog)])
+    assert not out.exists()
+    tlaunch.main(["--device", "cpu", str(prog)])  # asked for: it runs
+    assert out.read_text() == "ran"
+
+
+def test_cluster_main_default_device_raises_before_joining(monkeypatch,
+                                                           capsys):
+    """runtime.cluster's report-only join resolves its device first, so a
+    world of one on a host without a CUDA device raises too, and reports
+    nothing."""
+    import torch.distributed as dist
+
+    monkeypatch.setattr("torch.cuda.is_available", lambda: False)
+    monkeypatch.delenv("HIVEMALL_TPU_COORDINATOR", raising=False)
+    for argv in ([], ["--coordinator", "127.0.0.1:1", "--num-procs", "1",
+                      "--proc-id", "0"]):
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            tcluster.main(argv)
+    assert capsys.readouterr().out == ""
+    assert not dist.is_initialized()
+    tcluster.main(["--device", "cpu"])
+    assert "single-process process=0/1" in capsys.readouterr().out
