@@ -1,0 +1,61 @@
+"""graftcheck for the port — a static analyzer of hivemall_tpu_torch's source.
+
+The twin of the JAX package's graftcheck, with its engine (module and
+whole-program models, suppressions, baseline, SARIF, the fixer, the
+parallel runner) and its language-level concurrency and FFI rules, which
+apply to torch code as they stand. Runnable as
+
+    python -m hivemall_tpu_torch.analysis [paths]
+
+(no paths: the ``hivemall_tpu_torch`` package). It reads source only: it
+imports neither torch nor jax, touches no device, and gives the same
+answer on any host, so the port's rule that entry points run on the card
+unless asked for the CPU does not apply to it.
+
+Rules:
+
+- G012 unguarded-shared-field   — a field two threads touch with no
+                                  common lock.
+- G013 blocking-under-lock      — a device sync (``torch.cuda.synchronize``,
+                                  ``.item()``, ``.cpu()``), IO, a warm-up
+                                  sweep or a Future rendezvous while a lock
+                                  is held, on the serving/pipeline path.
+- G014 cv-misuse                — wait() outside a predicate loop,
+                                  notify() unheld, a Lock re-acquired.
+- G015 thread-leak              — a non-daemon thread never joined.
+- G016 lock-order-cycle         — two locks taken in opposite orders.
+- G022 ffi-unvalidated-pointer  — a numpy pointer crosses the ctypes ABI
+                                  with no dtype+contiguity proof.
+- G023 ffi-borrowed-buffer      — a temporary's or a view's pointer.
+- G024 ffi-missing-prototype    — a native symbol called without both
+                                  argtypes and restype declared, or under
+                                  a serving-path lock.
+- G025 ffi-abi-drift            — ctypes declarations against the exported
+                                  C signatures of ``native/
+                                  hivemall_native.cpp`` and of the CUDA
+                                  kernels' ``extern "C"`` block
+                                  (``kernels/csrc/linear_scan.cu``).
+- G026 ffi-unchecked-return     — a native status code dropped.
+
+The JAX package's other rules (exception flow G027-G031, and the
+JAX-idiom rules G001-G011, G017-G021, G032-G036) are still its own.
+
+Suppress a line with ``# graftcheck: disable=G0XX (reason)`` (or
+``disable=all``); accepted pre-existing findings live in
+``hivemall_tpu_torch/analysis/baseline.json`` and are refreshed with
+``python -m hivemall_tpu_torch.analysis --update-baseline``.
+"""
+
+from .findings import Finding, Severity
+from .runner import analyze_paths, analyze_source
+from .baseline import load_baseline, diff_against_baseline, write_baseline
+
+__all__ = [
+    "Finding",
+    "Severity",
+    "analyze_paths",
+    "analyze_source",
+    "load_baseline",
+    "diff_against_baseline",
+    "write_baseline",
+]

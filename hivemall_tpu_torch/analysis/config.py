@@ -1,0 +1,128 @@
+"""Codebase-specific knobs for the port's graftcheck rules.
+
+Only the constants that this package's modules read: the module model's
+trace and taint vocabulary, the concurrency rules' scope and blocking-call
+tables, and the FFI rules' symbol prefix, validators and C sources — all
+pointed at the port's tree (``hivemall_tpu_torch/``).
+"""
+
+from __future__ import annotations
+
+import re
+
+# --- module model (modmodel.py): traced functions and device-value taint ---
+# The model keeps the JAX package's trace/taint walker so that its rules
+# read the same facts; no torch code is traced, so in the port these mark
+# only a stray jax-style wrapper. G013 reads JITTED_ATTR_CALLEES too.
+SYNC_CALLS = ("float", "int", "bool")
+SYNC_METHODS = ("item", "tolist")
+
+# `step = make_train_step(...)` / `predict = make_predict(...)`: calling the
+# result yields device values. Matched against the callee name.
+JITTED_FACTORY_RE = re.compile(
+    r"^make_\w*(step|epoch|predict|train_fn|mix|fn)\w*$")
+
+# Attribute callees whose results are device values (trainer convention:
+# `self._step(...)` dispatches the step's device work).
+JITTED_ATTR_CALLEES = ("_step", "step")
+
+# Transforms whose function argument is traced when called.
+TRACING_TRANSFORMS = (
+    "jit", "vmap", "pmap", "shard_map", "scan", "cond", "while_loop",
+    "fori_loop", "checkpoint", "remat", "grad", "value_and_grad", "custom_vjp",
+)
+
+# Calls whose RESULT is host data even when arguments are device values.
+UNTAINT_CALLS = ("device_get", "shape", "len", "range", "eval_shape",
+                 "tree_structure")
+
+# --- program model (program.py) ---------------------------------------------
+# Collective calls whose axis argument the per-function summaries record.
+COLLECTIVE_CALLS = ("psum", "pmean", "pmax", "pmin", "all_gather",
+                    "axis_index", "ppermute", "psum_scatter", "pcast")
+
+# --- G012-G016: concurrency / serving safety --------------------------------
+# Constructors whose result is a lock object; the kind decides reentrancy
+# (plain Lock is non-reentrant; Condition() wraps an RLock by default).
+LOCK_CONSTRUCTOR_KINDS = {
+    "Lock": "lock",
+    "RLock": "rlock",
+    "Condition": "condition",
+    "Semaphore": "lock",
+    "BoundedSemaphore": "lock",
+}
+
+# Method calls on a field that mutate the underlying container — counted as
+# WRITES by the guarded-by inference (`self._q.append(x)` races exactly like
+# `self._q = ...`).
+MUTATOR_METHODS = ("append", "appendleft", "extend", "insert", "add",
+                   "discard", "remove", "clear", "update", "setdefault",
+                   "pop", "popleft", "popitem", "sort")
+
+# G013 scope: the serving hot path — a blocking call under a lock here stalls
+# every in-flight request at once (the hot-swap-stall failure mode). Modules
+# outside the list opt in with the marker comment. The continuous-training
+# pipeline is in scope by prefix: its worker thread shares the registry with
+# request handlers, so a freeze/gate/deploy under its lock would stall
+# every concurrent status()/lineage read exactly when a swap is in flight.
+# The observability stack (metrics registry + endpoint, time-series
+# sampler, SLO engine) is hot the same way: the sampler thread, ring
+# listeners and HTTP scrape handlers all take its locks concurrently with
+# request handlers.
+CONCURRENCY_HOT_PREFIXES = ("hivemall_tpu_torch/serving/",
+                            "hivemall_tpu_torch/pipeline/",
+                            "hivemall_tpu_torch/runtime/metrics",
+                            "hivemall_tpu_torch/runtime/timeseries",
+                            "hivemall_tpu_torch/runtime/slo")
+CONCURRENCY_MARKER = "# graftcheck: serving-module"
+
+# Blocking-call classification for G013 (tails of dotted callees).
+# The device syncs are torch's: `torch.cuda.synchronize()` and
+# `Stream/Event.synchronize()` wait for the card; `.item()` and `.cpu()`
+# copy a device tensor to the host and wait for every kernel queued before
+# them. The analyzer sees no types, so these tails count on any receiver:
+# `.item()` on a numpy scalar or array and `.cpu()` on a tensor already on
+# the host are flagged too under a lock in scope. That costs a suppression
+# (with its reason) at such a line; the port's locked regions call neither.
+BLOCKING_DEVICE_TAILS = ("synchronize", "item", "cpu")
+BLOCKING_IO_TAILS = ("sleep", "urlopen", "connect", "accept", "recv",
+                     "sendall", "getaddrinfo", "fsync")
+# Future/thread rendezvous: .result() blocks on completion; set_result /
+# set_exception run done-callbacks synchronously on the calling thread.
+BLOCKING_FUTURE_TAILS = ("result", "set_result", "set_exception", "join",
+                         "wait")
+# Device dispatch and first-use work under a lock: an engine's warm-up
+# sweep (every bucket run on the card, allocator segments grown),
+# predict / a servable's padded run (the device dispatch of a request),
+# and CUDA-graph capture (`torch.cuda.CUDAGraph.capture_begin`,
+# `torch.cuda.make_graphed_callables`), which runs the captured work once.
+BLOCKING_JIT_TAILS = ("warmup", "predict", "predict_fn", "run_padded",
+                      "capture_begin", "make_graphed_callables")
+# Roots whose methods share tails with the blocking list but never block
+# (os.path.join, np ops, json/re parsing).
+BLOCKING_SAFE_ROOTS = ("os", "np", "numpy", "json", "re", "posixpath",
+                       "ntpath", "shutil", "sys", "math")
+
+# --- G022-G026: FFI boundary ------------------------------------------------
+# Exported symbols of the native host library and of the CUDA kernels'
+# extern "C" block all share this prefix; any dotted call whose tail
+# matches is a foreign call.
+FFI_SYMBOL_PREFIXES = ("hm_",)
+# Callees whose results are sanctioned pointer sources: they raise on any
+# dtype/rank/contiguity violation, so arrays unpacked from them are
+# ABI-proven (ops/scatter.py plan_abi_arrays — the frozen plan ABI's gate).
+FFI_SANCTIONING_VALIDATORS = ("plan_abi_arrays",)
+# numpy constructors whose result is always freshly allocated C-contiguous;
+# with an explicit dtype they fully validate a pointer source.
+FFI_FRESH_CTORS = ("empty", "zeros", "ones", "full", "frombuffer")
+# The Python-side plan ABI version constant (ops/scatter.py) checked by
+# G025 against the C side's HM_PLAN_ABI_VERSION literal.
+FFI_ABI_VERSION_CONSTANT = "PLAN_ABI_VERSION"
+# The C sources G025 cross-checks the ctypes declarations against, each
+# with the env var that overrides its repo-root-relative default: the
+# native host library, and the CUDA kernels' extern "C" block. Tests seed
+# deliberate drift through a tempdir copy named by the env var.
+FFI_NATIVE_CPP_ENV = "GRAFTCHECK_NATIVE_CPP"
+FFI_NATIVE_CPP_DEFAULT = "native/hivemall_native.cpp"
+FFI_KERNEL_CU_ENV = "GRAFTCHECK_KERNEL_CU"
+FFI_KERNEL_CU_DEFAULT = "hivemall_tpu_torch/kernels/csrc/linear_scan.cu"

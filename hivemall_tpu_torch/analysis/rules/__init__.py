@@ -1,0 +1,38 @@
+"""Rule registry.
+
+Module rules export ``RULE_ID`` and ``check(model)``; program rules export
+``RULE_ID`` and ``check_program(program, scanned)`` — the runner dispatches
+each tier (runner._run_rules). The port has the JAX package's concurrency
+rules (G012-G016) and FFI rules (G022-G026)."""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, List
+
+from ..findings import Finding
+from ..modmodel import ModuleModel
+from . import (g012_unguarded_shared_field, g013_blocking_under_lock,
+               g014_cv_misuse, g015_thread_leak, g016_lock_order_cycle,
+               g022_ffi_unvalidated_pointer, g023_ffi_borrowed_buffer,
+               g024_ffi_missing_prototype, g025_ffi_abi_drift,
+               g026_ffi_unchecked_return)
+
+_MODULE_RULES = (g015_thread_leak,)
+_PROGRAM_RULES = (g012_unguarded_shared_field, g013_blocking_under_lock,
+                  g014_cv_misuse, g016_lock_order_cycle,
+                  g022_ffi_unvalidated_pointer, g023_ffi_borrowed_buffer,
+                  g024_ffi_missing_prototype, g025_ffi_abi_drift,
+                  g026_ffi_unchecked_return)
+
+ALL_RULES: Dict[str, Callable[[ModuleModel], List[Finding]]] = {
+    m.RULE_ID: m.check for m in _MODULE_RULES
+}
+
+PROGRAM_RULES: Dict[str, Callable] = {
+    m.RULE_ID: m.check_program for m in _PROGRAM_RULES
+}
+
+RULE_DOCS: Dict[str, str] = {
+    m.RULE_ID: (m.__doc__ or "").strip().splitlines()[0]
+    for m in _MODULE_RULES + _PROGRAM_RULES
+}

@@ -78,21 +78,35 @@ def _library():
         from .build import load
 
         lib = load("linear_scan")
-        i, ll, p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
-        for fn, args in (
-                ("hm_linear_scan", [i, p, i] + [p] * 12 + [i, i, ll, i, i, p]),
-                ("hm_linear_scan_stage_cycles",
-                 [p, i] + [p] * 9 + [i, i, ll, i, i, p, p]),
-                ("hm_linear_scan_plan", [p] * 4 + [i, i, ll, i, p]),
-                ("hm_linear_scan_depth", [i, i]),
-                ("hm_linear_scan_max_k", []),
-                ("hm_row_chain_floor", [p] * 4 + [i, i, ll, p])):
-            getattr(lib, fn).restype = i
-            getattr(lib, fn).argtypes = args
-        for fn, args in (("hm_cuda_error_string", [i]),
-                         ("hm_linear_scan_stage_names", [])):
-            getattr(lib, fn).restype = ctypes.c_char_p
-            getattr(lib, fn).argtypes = args
+        # one literal declaration per symbol of csrc/linear_scan.cu's
+        # extern "C" block, so that graftcheck's G025 holds each against
+        # its C definition (python -m hivemall_tpu_torch.analysis)
+        lib.hm_linear_scan.restype = ctypes.c_int
+        lib.hm_linear_scan.argtypes = [
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_int] + \
+            [ctypes.c_void_p] * 12 + [
+            ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p]
+        lib.hm_linear_scan_stage_cycles.restype = ctypes.c_int
+        lib.hm_linear_scan_stage_cycles.argtypes = [
+            ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 9 + [
+            ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        lib.hm_linear_scan_stage_names.restype = ctypes.c_char_p
+        lib.hm_linear_scan_stage_names.argtypes = []
+        lib.hm_linear_scan_plan.restype = ctypes.c_int
+        lib.hm_linear_scan_plan.argtypes = [ctypes.c_void_p] * 4 + [
+            ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+            ctypes.c_void_p]
+        lib.hm_linear_scan_depth.restype = ctypes.c_int
+        lib.hm_linear_scan_depth.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.hm_linear_scan_max_k.restype = ctypes.c_int
+        lib.hm_linear_scan_max_k.argtypes = []
+        lib.hm_row_chain_floor.restype = ctypes.c_int
+        lib.hm_row_chain_floor.argtypes = [ctypes.c_void_p] * 4 + [
+            ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+        lib.hm_cuda_error_string.restype = ctypes.c_char_p
+        lib.hm_cuda_error_string.argtypes = [ctypes.c_int]
         _lib = lib
     return _lib
 
@@ -230,7 +244,7 @@ def _hyper_values(keys, hyper) -> np.ndarray:
     its code."""
     vals = [float(ETA_SCHEDULES[hyper[key]] if key == "schedule"
                   else hyper[key]) for key in keys]
-    return np.asarray(vals or [0.0], dtype=np.float32)
+    return np.ascontiguousarray(vals or [0.0], dtype=np.float32)
 
 
 def linear_scan(rule: Rule, hyper: dict, state: LinearState,

@@ -56,34 +56,90 @@ CALLS = {"murmur3": 0, "murmur3_bulk": 0, "parse_features_bulk": 0,
          "lattice_tokenize_bulk": 0, "decode_records": 0,
          "encode_records": 0}
 
-_P = ctypes.c_void_p
-_I64 = ctypes.c_int64
-_F32 = ctypes.c_float
-_PROTOTYPES = {
-    # name: (restype, argtypes)
-    "hm_plan_abi_version": (_I64, []),
-    "hm_murmur3_x86_32": (ctypes.c_int32,
-                          [ctypes.c_char_p, _I64, ctypes.c_uint32]),
-    "hm_murmur3_bulk": (None, [_P, _P, _I64, ctypes.c_uint32, _I64, _P]),
-    "hm_decode_records": (_I64, [_P, _I64, _I64, _P, _P, _P, _P]),
-    "hm_encode_records_bound": (_I64, [_P, _I64]),
-    "hm_encode_records": (_I64, [_P, _P, _P, _P, _I64, _P, _I64]),
-    "hm_zigzag_leb128_encode": (_I64, [_P, _I64, _P, _I64]),
-    "hm_zigzag_leb128_decode": (_I64, [_P, _I64, _I64, _P]),
-    "hm_parse_features_batch": (_I64, [_P, _P, _I64, _I64, _P, _P]),
-    "hm_arow_reference_rowloop": (
-        _I64, [_P, _P, _P, _I64, _I64, _F32, _P, _P, _P, _P, _P]),
-    "hm_fm_reference_rowloop": (
-        _I64, [_P, _P, _P, _I64, _I64, _I64, _F32, _F32, _P, _P, _P, _P]),
-    "hm_batch_apply_block": (
-        _I64, [ctypes.c_int32, _F32, _F32, _F32, _P, _P, _I64, _I64,
-               _I64, _I64, _I64, _P, _P, _P, _P, _P, _I64, _I64,
-               _P, _P, _P, _P, _P, _I64, _P, _P, _P, ctypes.c_int32, _P]),
-    "hm_forest_eval": (_I64, [_P, _P, _P, _P, _I64, _P, _I64, _I64, _P]),
-    "hm_lattice_tokenize_bulk": (
-        _I64, [_P, _P, _P, _I64, _P, _P, _P, _P, _P, _I64, ctypes.c_int32,
-               _P, ctypes.c_int32, _P, _P, _P, _P, _P, _P, _P]),
-}
+def _declare(lib: ctypes.CDLL) -> None:
+    """Every prototype the port calls, one literal declaration per symbol
+    (the JAX package's form), so that graftcheck's G024-G026 read each one
+    and G025 holds it against its definition in hivemall_native.cpp
+    (python -m hivemall_tpu_torch.analysis). An absent symbol raises
+    AttributeError, which _load reports as a load failure."""
+    lib.hm_plan_abi_version.restype = ctypes.c_int64
+    lib.hm_plan_abi_version.argtypes = []
+    lib.hm_murmur3_x86_32.restype = ctypes.c_int32
+    lib.hm_murmur3_x86_32.argtypes = [ctypes.c_char_p, ctypes.c_int64,
+                                      ctypes.c_uint32]
+    lib.hm_murmur3_bulk.restype = None
+    lib.hm_murmur3_bulk.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32,
+        ctypes.c_int64, ctypes.c_void_p,
+    ]
+    lib.hm_decode_records.restype = ctypes.c_int64
+    lib.hm_decode_records.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    lib.hm_encode_records_bound.restype = ctypes.c_int64
+    lib.hm_encode_records_bound.argtypes = [ctypes.c_void_p, ctypes.c_int64]
+    lib.hm_encode_records.restype = ctypes.c_int64
+    lib.hm_encode_records.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+    ]
+    lib.hm_zigzag_leb128_encode.restype = ctypes.c_int64
+    lib.hm_zigzag_leb128_encode.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+    ]
+    lib.hm_zigzag_leb128_decode.restype = ctypes.c_int64
+    lib.hm_zigzag_leb128_decode.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
+    ]
+    lib.hm_parse_features_batch.restype = ctypes.c_int64
+    lib.hm_parse_features_batch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    lib.hm_arow_reference_rowloop.restype = ctypes.c_int64
+    lib.hm_arow_reference_rowloop.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_float,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    lib.hm_fm_reference_rowloop.restype = ctypes.c_int64
+    lib.hm_fm_reference_rowloop.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_float, ctypes.c_float,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p,
+    ]
+    lib.hm_batch_apply_block.restype = ctypes.c_int64
+    lib.hm_batch_apply_block.argtypes = [
+        ctypes.c_int32, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int32, ctypes.c_void_p,
+    ]
+    lib.hm_forest_eval.restype = ctypes.c_int64
+    lib.hm_forest_eval.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_void_p,
+    ]
+    lib.hm_lattice_tokenize_bulk.restype = ctypes.c_int64
+    lib.hm_lattice_tokenize_bulk.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32,
+        ctypes.c_void_p, ctypes.c_int32,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ]
 
 
 def _open(path) -> ctypes.CDLL:
@@ -92,10 +148,7 @@ def _open(path) -> ctypes.CDLL:
     from ..ops.scatter import PLAN_ABI_VERSION
 
     lib = ctypes.CDLL(str(path))
-    for name, (restype, argtypes) in _PROTOTYPES.items():
-        fn = getattr(lib, name)
-        fn.restype = restype
-        fn.argtypes = argtypes
+    _declare(lib)
     native_ver = int(lib.hm_plan_abi_version())
     if native_ver != PLAN_ABI_VERSION:
         raise RuntimeError(f"plan ABI version mismatch: {path} was "

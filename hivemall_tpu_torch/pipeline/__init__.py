@@ -10,6 +10,8 @@ hot-swaps passing versions into a live serving/server.ModelRegistry while
 traffic flows — reporting end-to-end "event observed -> model serving it"
 freshness as a first-class metric. It trains and serves on one device,
 the card unless the caller passes ``device="cpu"``.
+
+# graftcheck: serving-module
 """
 
 from .gate import EvalGate, GateDecision, score_metrics

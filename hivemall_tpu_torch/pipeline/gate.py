@@ -24,6 +24,8 @@ Semantics (tests/test_torch_pipeline.py pins each):
 
 The port of `hivemall_tpu/pipeline/gate.py`: the decision logic is host
 Python over numpy scores, the scores come from the card.
+
+# graftcheck: serving-module
 """
 
 from __future__ import annotations

@@ -14,6 +14,8 @@ out under it (the arrays themselves are never mutated after append).
 
 A host copy of `hivemall_tpu/pipeline/holdout.py` (numpy only; the port
 imports nothing of the JAX package).
+
+# graftcheck: serving-module
 """
 
 from __future__ import annotations

@@ -29,6 +29,8 @@ Fault kinds:
 Single-threaded by design: one injector arms per driver loop (``inject``
 refuses to nest). An injected fault is a Python exception raised on the
 host before a step or around a file write; it never touches the device.
+
+# graftcheck: serving-module
 """
 
 from __future__ import annotations

@@ -62,6 +62,8 @@ supervisor's process for a world of one, in each rank's otherwise), the
 ``recovery.restart`` / ``recovery.preempted`` instants, and the fault
 harness's ``fault.injected`` instants (re-stamped by the supervisor for
 faults that fired in a rank).
+
+# graftcheck: serving-module
 """
 
 from __future__ import annotations

@@ -1,3 +1,4 @@
+# graftcheck: serving-module
 """End-to-end span tracing: request spans through serving, step timelines
 through training, one Perfetto-loadable export for both.
 

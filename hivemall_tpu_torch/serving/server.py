@@ -294,9 +294,10 @@ class ModelRegistry:
         """Resolve a model by name; with one deployed model, name may be
         omitted (the single-model convenience)."""
         if name is not None:
-            # lock-free read: a single dict .get() is atomic under the GIL
-            # and deploy() publishes entries with one assignment
-            return self._entries.get(name)
+            # designed lock-free read: a single dict .get() is atomic under
+            # the GIL and deploy() publishes entries with one assignment —
+            # readers see the old or new entry, never a partial one
+            return self._entries.get(name)  # graftcheck: disable=G012 (reviewed lock-free read)
         with self._lock:  # a concurrent first deploy mutates the dict
             entries = list(self._entries.values())
         if len(entries) == 1:

@@ -1,0 +1,607 @@
+"""graftcheck for the port (hivemall_tpu_torch/analysis): its engine and its
+concurrency (G012-G016) and FFI (G022-G026) rules, held against the JAX
+package's analyzer on that analyzer's own rule fixtures, and run over the
+port's tree and both of its C ABIs (the host library's .cpp, the CUDA
+kernels' extern "C" block).
+
+G013's two fixtures import jax; the port is held to them through
+line-for-line twins in tests/data/graftcheck_torch/ whose device sync is
+torch's. CLI runs go through ``_cli`` (the analyzer's ``main()`` in
+process, stdout captured); exactly one test starts a true subprocess, to
+prove ``python -m hivemall_tpu_torch.analysis`` itself and that a scan in
+a fresh interpreter imports neither jax nor the JAX package.
+"""
+
+import ast
+import contextlib
+import io
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+import textwrap
+
+import pytest
+
+from hivemall_tpu.analysis import analyze_paths as ref_analyze_paths
+from hivemall_tpu_torch.analysis import analyze_paths, analyze_source
+from hivemall_tpu_torch.analysis import config, modelcache
+from hivemall_tpu_torch.analysis.__main__ import main as _analysis_main
+from hivemall_tpu_torch.analysis.baseline import (diff_against_baseline,
+                                                  load_baseline)
+from hivemall_tpu_torch.analysis.ffi import get_ffi, scan_native_decls
+from hivemall_tpu_torch.analysis.findings import parse_suppressions
+from hivemall_tpu_torch.analysis.program import ProgramModel
+from hivemall_tpu_torch.analysis.rules import ALL_RULES, PROGRAM_RULES
+from hivemall_tpu_torch.analysis.rules.g025_ffi_abi_drift import \
+    compared_symbols
+
+TESTS = os.path.dirname(os.path.abspath(__file__))
+REPO = os.path.dirname(TESTS)
+PKG = os.path.join(REPO, "hivemall_tpu_torch")
+DATA = os.path.join(TESTS, "data", "graftcheck")
+TWINS = os.path.join(TESTS, "data", "graftcheck_torch")
+EXPECT_RE = re.compile(r"#\s*EXPECT:\s*([A-Z0-9,\s]+)")
+
+RULES = ["g012", "g013", "g014", "g015", "g016",
+         "g022", "g023", "g024", "g025", "g026"]
+RULE_IDS = [r.upper() for r in RULES]
+KERNEL_CU = os.path.join(PKG, "kernels", "csrc", "linear_scan.cu")
+KERNEL_PY = os.path.join(PKG, "kernels", "linear_scan.py")
+
+
+class _CliResult:
+    def __init__(self, returncode, stdout, stderr):
+        self.returncode = returncode
+        self.stdout = stdout
+        self.stderr = stderr
+
+
+def _cli(*argv, cwd=REPO):
+    """The analyzer's CLI in process: return code (argparse usage errors
+    land as SystemExit(2)), captured stdout/stderr, cwd-relative paths."""
+    out, err = io.StringIO(), io.StringIO()
+    prev = os.getcwd()
+    os.chdir(cwd)
+    try:
+        with contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(err):
+            try:
+                rc = _analysis_main(list(argv))
+            except SystemExit as e:
+                rc = e.code if isinstance(e.code, int) else 2
+    finally:
+        os.chdir(prev)
+    return _CliResult(rc, out.getvalue(), err.getvalue())
+
+
+def _expected(path):
+    out = []
+    with open(path, "r", encoding="utf-8") as fh:
+        for lineno, line in enumerate(fh, start=1):
+            m = EXPECT_RE.search(line)
+            if m:
+                out += [(lineno, r.strip()) for r in m.group(1).split(",")]
+    return sorted(out)
+
+
+def _port_fixture(rule, kind):
+    twin = os.path.join(TWINS, f"{rule}_{kind}.py")
+    return twin if os.path.exists(twin) else \
+        os.path.join(DATA, f"{rule}_{kind}.py")
+
+
+def _triples(findings):
+    return sorted((f.line, f.rule, f.severity) for f in findings)
+
+
+@pytest.fixture(scope="module")
+def tree_findings():
+    """One scan of the live package (it also leaves the port's disk
+    cache of module models up to date)."""
+    return analyze_paths([PKG])
+
+
+# ---------------------------------------------------------------------------
+# the reference's fixtures
+# ---------------------------------------------------------------------------
+
+def test_the_registry_holds_the_ten_rules():
+    assert sorted({**ALL_RULES, **PROGRAM_RULES}) == RULE_IDS
+
+
+@pytest.mark.parametrize("kind", ["pos", "neg"])
+@pytest.mark.parametrize("rule", RULES)
+def test_fixture_findings_equal_the_reference(rule, kind):
+    """The port on each fixture (G013 on its torch twin) reports exactly
+    the (line, rule, severity) set that the JAX package's analyzer reports
+    on the original, run here."""
+    original = os.path.join(DATA, f"{rule}_{kind}.py")
+    want = _triples(ref_analyze_paths([original], rules=RULE_IDS))
+    got = _triples(analyze_paths([_port_fixture(rule, kind)]))
+    assert got == want
+    if kind == "pos":
+        assert [(line, r) for line, r, _ in want] == _expected(original)
+    else:
+        assert want == []
+
+
+@pytest.mark.parametrize("kind", ["pos", "neg"])
+def test_g013_twins_follow_their_originals_line_for_line(kind):
+    """The twin differs from the original only in its docstring, its
+    import and the device sync (jax.device_get -> a torch sync), each on
+    the same line, and carries the same EXPECT markers."""
+    with open(os.path.join(DATA, f"g013_{kind}.py"), encoding="utf-8") as fh:
+        orig = fh.read().splitlines()
+    with open(os.path.join(TWINS, f"g013_{kind}.py"), encoding="utf-8") as fh:
+        twin = fh.read().splitlines()
+    assert len(twin) == len(orig)
+    doc_end = ast.parse("\n".join(orig)).body[0].end_lineno
+    for i, (a, b) in enumerate(zip(orig, twin), start=1):
+        if a != b and i > doc_end:
+            assert (a, b) == ("import jax", "import torch") or (
+                "jax.device_get(" in a and ".cpu()" in b
+                and len(a) - len(a.lstrip()) == len(b) - len(b.lstrip())), \
+                (i, a, b)
+    assert not any("jax" in line for line in twin)
+    assert _expected(os.path.join(TWINS, f"g013_{kind}.py")) == \
+        _expected(os.path.join(DATA, f"g013_{kind}.py"))
+
+
+@pytest.mark.parametrize("call", [
+    "torch.cuda.synchronize()", "stream.synchronize()", "loss.item()",
+    "scores.cpu()", "engine.warmup()", "servable.run_padded(rows, 8, 16)"])
+def test_g013_flags_the_port_syncs_under_a_lock(call):
+    """Each torch sync / device dispatch of config.BLOCKING_* is a G013
+    finding under a lock in the serving scope, and none outside it."""
+    under = ("import threading\n\nlock = threading.Lock()\n\n\n"
+             "def bad(torch, stream, loss, scores, engine, servable, rows):\n"
+             f"    with lock:\n        {call}\n")
+    free = under.replace("    with lock:\n        ", "    ")
+    path = "hivemall_tpu_torch/serving/fixture.py"
+    assert [(f.line, f.rule) for f in analyze_source(under, path)] == \
+        [(8, "G013")]
+    assert analyze_source(free, path) == []
+
+
+def test_observability_modules_are_concurrency_hot():
+    """The time-series sampler and the SLO engine are in G013's scope by
+    prefix, without a marker comment."""
+    for mod in ("hivemall_tpu_torch/runtime/timeseries.py",
+                "hivemall_tpu_torch/runtime/slo.py",
+                "hivemall_tpu_torch/serving/server.py",
+                "hivemall_tpu_torch/pipeline/loop.py"):
+        assert mod.startswith(config.CONCURRENCY_HOT_PREFIXES), mod
+    src = ("import threading\n\nlock = threading.Lock()\n\n\n"
+           "def bad(sock):\n    with lock:\n        sock.recv(1024)\n")
+    hits = [f.rule for f in analyze_source(
+        src, "hivemall_tpu_torch/runtime/timeseries.py")]
+    assert hits == ["G013"]
+    assert analyze_source(src, "hivemall_tpu_torch/models/fm.py") == []
+
+
+# ---------------------------------------------------------------------------
+# suppressions
+# ---------------------------------------------------------------------------
+
+def test_suppression_parser():
+    per_line, whole = parse_suppressions(
+        "x = 1  # graftcheck: disable=G012,G013 (reviewed lock-free read)\n"
+        "# graftcheck: disable-file=G015\n"
+        "y = 2  # graftcheck: disable=all\n")
+    assert per_line[1] == {"G012", "G013"}
+    assert per_line[3] == {"ALL"}
+    assert whole == {"G015"}
+
+
+_LEAK = ("import threading\n\n\n"
+         "def go(work):\n"
+         "    threading.Thread(target=work).start(){}\n")
+
+
+@pytest.mark.parametrize("comment,silenced", [
+    ("", False),
+    ("  # graftcheck: disable=G015 (fixture)", True),
+    ("  # graftcheck: disable=G012 (another rule)", False),
+    ("  # graftcheck: disable=all", True),
+])
+def test_inline_suppressions_silence_findings(comment, silenced):
+    found = analyze_source(_LEAK.format(comment), "leak.py")
+    assert [f.rule for f in found] == ([] if silenced else ["G015"])
+
+
+def test_file_suppression_silences_the_rule():
+    src = "# graftcheck: disable-file=G015 (fixture)\n" + _LEAK.format("")
+    assert analyze_source(src, "leak.py") == []
+
+
+def test_every_port_suppression_carries_a_reason():
+    """Inline suppressions in the port's tree name their reason in
+    parentheses, like the JAX package's."""
+    bare = []
+    pattern = re.compile(r"#\s*graftcheck:\s*disable(-file)?=[A-Za-z0-9_,]+"
+                         r"(?P<rest>.*)$")
+    for root, _, files in os.walk(PKG):
+        for name in files:
+            if not name.endswith(".py") or "analysis" in root.split(os.sep):
+                continue
+            path = os.path.join(root, name)
+            with open(path, encoding="utf-8") as fh:
+                for i, line in enumerate(fh, start=1):
+                    m = pattern.search(line)
+                    if m and not re.match(r"\s*\(.+\)", m.group("rest")):
+                        bare.append(f"{path}:{i}")
+    assert not bare, bare
+
+
+# ---------------------------------------------------------------------------
+# the port's tree
+# ---------------------------------------------------------------------------
+
+def test_live_tree_matches_baseline_exactly(tree_findings):
+    new, stale = diff_against_baseline(tree_findings, load_baseline())
+    assert not new, "\n".join(f.format() for f in new)
+    assert not stale, [(b.rule, b.path, b.snippet) for b in stale]
+
+
+def test_hot_paths_are_clean_without_baseline(tree_findings):
+    """Nothing of the ten rules in serving/, pipeline/, runtime/,
+    kernels/ or native/ — fixed or suppressed with a reason, never
+    baselined."""
+    scopes = ("hivemall_tpu_torch/serving/", "hivemall_tpu_torch/pipeline/",
+              "hivemall_tpu_torch/runtime/", "hivemall_tpu_torch/kernels/",
+              "hivemall_tpu_torch/native/")
+    hot = [f for f in list(tree_findings) + load_baseline()
+           if f.path.startswith(scopes)]
+    assert hot == [], "\n".join(f.format() for f in hot)
+
+
+def test_smoke_script_and_examples_are_clean():
+    paths = [os.path.join(REPO, "chip_smoke.py")] + sorted(
+        os.path.join(REPO, "examples", n)
+        for n in os.listdir(os.path.join(REPO, "examples"))
+        if n.startswith("torch_") and n.endswith(".py"))
+    found = analyze_paths(paths)
+    assert found == [], "\n".join(f.format() for f in found)
+
+
+def test_cli_exits_zero_against_baseline():
+    proc = _cli("--format", "json")
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    payload = json.loads(proc.stdout)
+    assert payload["new"] == [] and payload["stale"] == []
+
+
+def test_g025_compares_every_bound_symbol():
+    """The symbols whose ctypes declarations G025 holds against a C
+    definition are all the hm_ symbols the port binds: 8 of the CUDA
+    kernels' extern "C" block, 14 of the host library — each with every
+    argtype and the restype of a known width."""
+    program = ProgramModel({})
+    bound = set()
+    for rel in ("kernels/linear_scan.py", "native/__init__.py"):
+        with open(os.path.join(PKG, *rel.split("/")), encoding="utf-8") as fh:
+            bound |= set(re.findall(r"\blib\.(hm_\w+)\.argtypes\s*=",
+                                    fh.read()))
+    defined = {}
+    for src in (KERNEL_CU, os.path.join(REPO, "native",
+                                        "hivemall_native.cpp")):
+        with open(src, encoding="utf-8") as fh:
+            text = re.sub(r"//[^\n]*", "", fh.read())
+        for sym in re.findall(r"\b(hm_\w+)\s*\([^;{]*\)\s*\{", text):
+            defined[sym] = os.path.basename(src)
+    compared = compared_symbols(program, set(program.modules))
+    assert compared == bound
+    assert bound <= set(defined)
+    per_file = {}
+    for sym in bound:
+        per_file[defined[sym]] = per_file.get(defined[sym], 0) + 1
+    assert per_file == {"linear_scan.cu": 8, "hivemall_native.cpp": 14}
+    cdecls = scan_native_decls()
+    for mod in get_ffi(program).modules.values():
+        for sym, decl in mod.decls.items():
+            if sym in bound:
+                assert decl.argtypes_kinds == \
+                    [p.kind for p in cdecls.sigs[sym].params], sym
+                assert "other" not in decl.argtypes_kinds, sym
+                assert decl.restype_kind == cdecls.sigs[sym].ret, sym
+
+
+def test_c_scanner_reads_the_kernel_block():
+    """The .cu block's kinds: void* stream, long long extents, int32_t*
+    tables and const char* returns."""
+    sigs = scan_native_decls(KERNEL_CU).sigs
+    scan = sigs["hm_linear_scan"]
+    assert [p.kind for p in scan.params] == \
+        ["i32", "ptr", "i32"] + ["ptr"] * 12 + \
+        ["i32", "i32", "i64", "i32", "i32", "ptr"]
+    assert scan.params[1].const and not scan.params[9].const
+    assert scan.ret == "i32"
+    assert sigs["hm_cuda_error_string"].ret == "ptr"
+    assert sigs["hm_linear_scan_stage_names"].params == []
+    assert sigs["hm_linear_scan_stage_cycles"].params[16].kind == "ptr"
+
+
+@pytest.mark.parametrize("old,new,what", [
+    ("int step0, int depth, void* stream) {\n  Hyper hp;\n  int rc = "
+     "check_and_pack(rule,", "int step0, long long depth, void* stream) {\n"
+     "  Hyper hp;\n  int rc = check_and_pack(rule,",
+     "argument 19 is declared as a 32-bit int in Python but the C "
+     "definition takes a 64-bit int"),
+    ("long long D, int step0, int depth, void* stream) {\n  Hyper hp;\n"
+     "  int rc = check_and_pack(rule,", "long long D, int depth, void* "
+     "stream) {\n  Hyper hp;\n  int rc = check_and_pack(rule,",
+     "declares 21 argtypes but the C definition takes 20 parameters"),
+])
+def test_g025_catches_seeded_kernel_abi_drift(tmp_path, monkeypatch, old,
+                                              new, what):
+    """A parameter of hm_linear_scan changed in a copy of the kernel
+    source: G025 reports it on the Python declaration, with the copy's C
+    definition as its second location (also in SARIF)."""
+    with open(KERNEL_CU, encoding="utf-8") as fh:
+        text = fh.read()
+    assert text.count(old) == 1
+    drifted = tmp_path / "linear_scan.cu"
+    drifted.write_text(text.replace(old, new))
+    monkeypatch.setenv(config.FFI_KERNEL_CU_ENV, str(drifted))
+    found = [f for f in analyze_paths([KERNEL_PY]) if f.rule == "G025"]
+    assert len(found) == 1, [f.format() for f in found]
+    f = found[0]
+    assert f.path == "hivemall_tpu_torch/kernels/linear_scan.py"
+    assert f.snippet == "lib.hm_linear_scan.argtypes = ["
+    assert what in f.message and "hm_linear_scan" in f.message
+    ((r_path, r_line, r_snippet),) = f.related
+    assert r_path == str(drifted).replace(os.sep, "/")
+    assert r_snippet.startswith("int hm_linear_scan(int rule")
+    assert text.splitlines()[r_line - 1] == r_snippet
+    proc = _cli(KERNEL_PY, "--no-baseline", "--format", "sarif")
+    assert proc.returncode == 1
+    (res,) = [r for r in json.loads(proc.stdout)["runs"][0]["results"]
+              if r["ruleId"] == "G025"]
+    uris = [loc["physicalLocation"]["artifactLocation"]["uri"]
+            for loc in res["locations"]]
+    assert uris == [f.path, r_path]
+    monkeypatch.delenv(config.FFI_KERNEL_CU_ENV)
+    assert [f for f in analyze_paths([KERNEL_PY]) if f.rule == "G025"] == []
+
+
+# ---------------------------------------------------------------------------
+# fixer, SARIF, --jobs, baseline, callers
+# ---------------------------------------------------------------------------
+
+def _fix_round_trip(tmp_path, fixture, rule):
+    target = tmp_path / os.path.basename(fixture)
+    shutil.copy(fixture, target)
+    proc = _cli(str(target), "--fix", "--no-baseline")
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "--- a/" in proc.stdout, "fix must print a diff preview"
+    fixed = target.read_text()
+    remaining = [f for f in analyze_paths([str(target)]) if f.rule == rule]
+    assert all(f.fix is None for f in remaining)
+    proc2 = _cli(str(target), "--fix", "--no-baseline")
+    assert proc2.returncode == 0, proc2.stdout + proc2.stderr
+    assert "no applicable fixes" in proc2.stdout
+    assert target.read_text() == fixed
+    assert _cli(str(target), "--fix-check", "--no-baseline").returncode == 0
+    return fixed, remaining
+
+
+def test_fixer_round_trip_g014_wait_loop(tmp_path):
+    fixed, remaining = _fix_round_trip(
+        tmp_path, os.path.join(DATA, "g014_pos.py"), "G014")
+    assert "while not self._ready:" in fixed
+    assert "if not self._ready:" not in fixed
+    assert len(remaining) == 2  # notify unheld, double acquire
+
+
+def test_fixer_round_trip_g015_daemon(tmp_path):
+    fixed, remaining = _fix_round_trip(
+        tmp_path, os.path.join(DATA, "g015_pos.py"), "G015")
+    assert "t = threading.Thread(target=work, daemon=True)" in fixed
+    assert "threading.Thread(target=work, daemon=True).start()" in fixed
+    assert len(remaining) == 1  # the multi-line constructor
+
+
+def test_fixer_round_trip_g022_ascontiguousarray(tmp_path):
+    fixed, remaining = _fix_round_trip(
+        tmp_path, os.path.join(DATA, "g022_pos.py"), "G022")
+    assert "np.ascontiguousarray(vals, dtype=np.float32)" in fixed
+    assert "np.asarray(vals, dtype=np.float32)" not in fixed
+    assert len(remaining) == 3
+
+
+def test_fixer_round_trip_g024_restype(tmp_path):
+    fixed, remaining = _fix_round_trip(
+        tmp_path, os.path.join(DATA, "g024_pos.py"), "G024")
+    assert ("lib.hm_fx_scale.restype = ctypes.c_int64; "
+            "lib.hm_fx_scale.argtypes") in fixed
+    assert len(remaining) == 2  # no argtypes; called under a lock
+
+
+def test_fixer_g024_declares_the_kernel_return_width(tmp_path):
+    """For a symbol a C source defines, the spliced restype is its return
+    width: the kernels' launches return int, so ctypes.c_int — which G025
+    then holds against the definition without a finding."""
+    (tmp_path / "src").mkdir()
+    target = tmp_path / "src" / "binding.py"
+    target.write_text(
+        "import ctypes\n\nlib = ctypes.CDLL('liblinear_scan.so')\n"
+        "lib.hm_linear_scan_max_k.argtypes = []\n\n\n"
+        "def max_k():\n    return lib.hm_linear_scan_max_k()\n")
+    fixed, remaining = _fix_round_trip(tmp_path, str(target), "G024")
+    assert "lib.hm_linear_scan_max_k.restype = ctypes.c_int; " \
+           "lib.hm_linear_scan_max_k.argtypes = []" in fixed
+    assert remaining == []
+    assert analyze_paths([str(tmp_path / "binding.py")]) == []
+
+
+def test_sarif_output_is_valid_2_1_0(tmp_path):
+    """--format sarif: schema/version pinned, rules indexed by every
+    result, 1-based physical locations, stable fingerprints; --output
+    writes it to a file and keeps the text on stdout."""
+    args = (os.path.join(DATA, "g012_pos.py"),
+            os.path.join(TWINS, "g013_pos.py"), "--no-baseline",
+            "--format", "sarif")
+    proc = _cli(*args)
+    assert proc.returncode == 1, proc.stdout + proc.stderr
+    payload = json.loads(proc.stdout)
+    assert payload["version"] == "2.1.0"
+    assert payload["$schema"].endswith("sarif-schema-2.1.0.json")
+    run = payload["runs"][0]
+    assert run["tool"]["driver"]["name"] == "graftcheck"
+    rule_ids = [r["id"] for r in run["tool"]["driver"]["rules"]]
+    assert rule_ids == RULE_IDS
+    results = run["results"]
+    assert {r["ruleId"] for r in results} == {"G012", "G013"}
+    for r in results:
+        assert rule_ids[r["ruleIndex"]] == r["ruleId"]
+        assert r["level"] in ("error", "warning")
+        loc = r["locations"][0]["physicalLocation"]
+        assert loc["artifactLocation"]["uri"].endswith(".py")
+        assert loc["region"]["startLine"] >= 1
+        assert r["partialFingerprints"]["graftcheckKey/v1"]
+    assert json.loads(_cli(*args).stdout) == payload
+    out = tmp_path / "analysis.sarif"
+    proc3 = _cli(*args, "--output", str(out))
+    assert proc3.returncode == 1
+    assert "G012" in proc3.stdout and f"sarif written to {out}" in \
+        proc3.stdout
+    assert json.loads(out.read_text()) == payload
+    proc4 = _cli(os.path.join(DATA, "g012_pos.py"), "--output",
+                 str(tmp_path / "nope.txt"))
+    assert proc4.returncode == 2
+    assert "--output requires --format" in proc4.stderr
+
+
+def test_jobs_parallel_findings_match_serial():
+    paths = [os.path.join(DATA, f"{r}_pos.py") for r in RULES
+             if r != "g013"] + [os.path.join(TWINS, "g013_pos.py")]
+    serial = [f.format() for f in analyze_paths(paths, jobs=1)]
+    threaded = [f.format() for f in analyze_paths(paths, jobs=4)]
+    assert serial and threaded == serial
+    from hivemall_tpu_torch.analysis.sarif import render_sarif
+    assert json.dumps(render_sarif(analyze_paths(paths, jobs=4)),
+                      sort_keys=True) == \
+        json.dumps(render_sarif(analyze_paths(paths, jobs=1)),
+                   sort_keys=True)
+
+
+def test_cli_usage_and_rule_list(tmp_path):
+    proc = _cli("--list-rules")
+    assert proc.returncode == 0
+    assert [line.split()[0] for line in proc.stdout.splitlines()] == \
+        RULE_IDS
+    assert _cli(str(tmp_path / "nowhere")).returncode == 2
+    proc = _cli(os.path.join(DATA, "g015_pos.py"), "--no-baseline",
+                "--rules", "G012")
+    assert proc.returncode == 0, proc.stdout
+
+
+def test_partial_update_baseline_carries_unscanned_debt(tmp_path):
+    """--update-baseline over one file keeps accepted entries of files it
+    did not scan."""
+    base = tmp_path / "baseline.json"
+    carried = {"rule": "G012", "path": "hivemall_tpu_torch/serving/server.py",
+               "line": 1, "severity": "error", "message": "accepted",
+               "snippet": "x = 1"}
+    base.write_text(json.dumps({"version": 1, "findings": [carried]}))
+    proc = _cli("hivemall_tpu_torch/models/fm.py", "--baseline", str(base),
+                "--update-baseline")
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert [b.key for b in load_baseline(str(base))] == \
+        [("G012", "hivemall_tpu_torch/serving/server.py", "x = 1")]
+
+
+def test_expand_to_callers_pulls_in_importers():
+    from hivemall_tpu_torch.analysis.runner import (expand_to_callers,
+                                                    normalize_path)
+
+    got = {normalize_path(p) for p in expand_to_callers([KERNEL_PY])}
+    assert "hivemall_tpu_torch/kernels/linear_scan.py" in got
+    # a direct (function-local) importer, and one of its importers
+    assert "hivemall_tpu_torch/models/base.py" in got
+    assert "hivemall_tpu_torch/models/classifier.py" in got
+
+
+def test_model_cache_is_the_ports_own(tmp_path):
+    """The memory layer returns the same model for an unchanged file and
+    rebuilds on change; the disk layer is a file of the port's own beside
+    the JAX package's analyzer's, which it never reads."""
+    from hivemall_tpu.analysis import modelcache as ref_cache
+
+    assert os.path.dirname(modelcache.cache_file()) == \
+        os.path.dirname(ref_cache.cache_file())
+    assert modelcache.cache_file() != ref_cache.cache_file()
+    assert modelcache._MAGIC != ref_cache._MAGIC
+    src = tmp_path / "mod.py"
+    src.write_text("X = 1\n")
+    m1 = modelcache.cached_model(str(src), "mod.py")
+    assert modelcache.cached_model(str(src), "mod.py") is m1
+    src.write_text("X = 2  # grew\n")
+    m3 = modelcache.cached_model(str(src), "mod.py")
+    assert m3 is not m1
+    m3._graftcheck_probe = object()
+    assert not any(k.startswith("_graftcheck_")
+                   for k in vars(modelcache._stripped(m3)))
+    assert hasattr(m3, "_graftcheck_probe")
+
+
+def test_analysis_imports_only_the_stdlib_and_itself():
+    bad = []
+    root = os.path.join(PKG, "analysis")
+    for dirpath, _, files in os.walk(root):
+        for name in files:
+            if not name.endswith(".py"):
+                continue
+            path = os.path.join(dirpath, name)
+            with open(path, encoding="utf-8") as fh:
+                tree = ast.parse(fh.read())
+            for node in ast.walk(tree):
+                if isinstance(node, ast.Import):
+                    mods = [a.name for a in node.names]
+                elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                    mods = [node.module]
+                else:
+                    continue
+                bad += [f"{path}: {m}" for m in mods
+                        if m.split(".")[0] not in sys.stdlib_module_names]
+    assert not bad, bad
+
+
+def test_python_m_entrypoint_in_a_fresh_interpreter(tree_findings):
+    """The one true subprocess: ``python -m hivemall_tpu_torch.analysis``
+    (run the way -m runs it) exits 0 against the baseline, reading its
+    models from the port's disk cache, and leaves neither jax, the JAX
+    package nor torch imported."""
+    assert os.path.exists(modelcache.cache_file())
+    code = textwrap.dedent("""
+        import json, runpy, sys
+        sys.argv = ["hivemall_tpu_torch.analysis"]
+        try:
+            runpy.run_module("hivemall_tpu_torch.analysis",
+                             run_name="__main__", alter_sys=True)
+            rc = 0
+        except SystemExit as e:
+            rc = e.code
+        from hivemall_tpu_torch.analysis import modelcache
+        print(json.dumps({
+            "rc": rc,
+            "foreign": sorted(m for m in sys.modules
+                              if m.split(".")[0] in ("jax", "jaxlib",
+                                                     "hivemall_tpu",
+                                                     "torch")),
+            "disk": len(modelcache._DISK or {}),
+            "rebuilt": modelcache._DIRTY}))
+    """)
+    env = dict(os.environ, GRAFTCHECK_CACHE="1")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    lines = proc.stdout.strip().splitlines()
+    assert lines[0] == "graftcheck: clean", proc.stdout
+    got = json.loads(lines[-1])
+    assert got["rc"] == 0
+    assert got["foreign"] == []
+    assert got["disk"] > 100 and got["rebuilt"] is False
