@@ -2,8 +2,8 @@
 
 The twin of the JAX package's graftcheck, with its engine (module and
 whole-program models, suppressions, baseline, SARIF, the fixer, the
-parallel runner) and its language-level concurrency and FFI rules, which
-apply to torch code as they stand. Runnable as
+parallel runner) and its language-level concurrency, FFI and
+exception-flow rules, which apply to torch code as they stand. Runnable as
 
     python -m hivemall_tpu_torch.analysis [paths]
 
@@ -36,9 +36,25 @@ Rules:
                                   kernels' ``extern "C"`` block
                                   (``kernels/csrc/linear_scan.cu``).
 - G026 ffi-unchecked-return     — a native status code dropped.
+- G027 future-leak              — a handed-out Future that a raise can
+                                  unwind past unresolved.
+- G028 silent-fallback          — a handler that switches to degraded work
+                                  without a LOUD reason (warn, log, a
+                                  trace instant, a counter).
+- G029 swallowed-exception      — a broad ``except`` that discards the
+                                  error.
+- G030 unwind-under-lock        — a manual acquire() whose release an
+                                  unwind skips, or a raise between two
+                                  writes of self state under a lock.
+- G031 unbounded-retry          — a retry loop with no cap or no backoff.
 
-The JAX package's other rules (exception flow G027-G031, and the
-JAX-idiom rules G001-G011, G017-G021, G032-G036) are still its own.
+G027-G031 scan serving/, pipeline/ and runtime/, and the modules that opt
+in with ``# graftcheck: failure-path-module``: the kernels' build and
+launch, the device choice and the native host library, where no code may
+carry on on the CPU or on a plain version when a kernel fails.
+
+The JAX package's JAX-idiom rules (G001-G011, G017-G021, G032-G036) are
+still its own.
 
 Suppress a line with ``# graftcheck: disable=G0XX (reason)`` (or
 ``disable=all``); accepted pre-existing findings live in

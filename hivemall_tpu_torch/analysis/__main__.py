@@ -84,8 +84,11 @@ def main(argv: List[str] = None) -> int:
                     "leaks, lock-ordering cycles) and FFI boundary safety "
                     "G022-G026 (unvalidated and borrowed pointers, missing "
                     "prototypes, ABI drift against the C and CUDA sources, "
-                    "dropped status codes) — with a --fix autofix engine "
-                    "and SARIF output")
+                    "dropped status codes) and exception-flow / "
+                    "failure-path safety G027-G031 (future leaks, silent "
+                    "fallbacks, swallowed exceptions, unwind-unsafe "
+                    "locking, unbounded retries) — with a --fix autofix "
+                    "engine and SARIF output")
     ap.add_argument("paths", nargs="*", default=None,
                     help="files or directories (default: hivemall_tpu_torch)")
     ap.add_argument("--baseline", default=DEFAULT_BASELINE,

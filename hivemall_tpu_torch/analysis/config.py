@@ -2,8 +2,9 @@
 
 Only the constants that this package's modules read: the module model's
 trace and taint vocabulary, the concurrency rules' scope and blocking-call
-tables, and the FFI rules' symbol prefix, validators and C sources — all
-pointed at the port's tree (``hivemall_tpu_torch/``).
+tables, the FFI rules' symbol prefix, validators and C sources, and the
+exception-flow rules' scope, loud surfaces and backoff calls — all pointed
+at the port's tree (``hivemall_tpu_torch/``).
 """
 
 from __future__ import annotations
@@ -126,3 +127,39 @@ FFI_NATIVE_CPP_ENV = "GRAFTCHECK_NATIVE_CPP"
 FFI_NATIVE_CPP_DEFAULT = "native/hivemall_native.cpp"
 FFI_KERNEL_CU_ENV = "GRAFTCHECK_KERNEL_CU"
 FFI_KERNEL_CU_DEFAULT = "hivemall_tpu_torch/kernels/csrc/linear_scan.cu"
+
+# --- G027-G031: exception flow / failure paths ------------------------------
+# Failure-path scope: the serving request path, the continuous-training
+# pipeline, and the whole runtime package (recovery driver, fault injector,
+# tracing, metrics, debug bundles) — the code whose exception paths the
+# port's reliability depends on. A Future leaked on an unwind here hangs a
+# client forever; a silent fallback hides a degradation until a run
+# regresses. Modules outside the prefixes opt in with the marker comment:
+# the kernels' build and launch, the device choice and the native host
+# library carry it, so that no code there carries on on the CPU or on a
+# plain version when a kernel fails to build or launch.
+EXCEPTION_HOT_PREFIXES = (
+    "hivemall_tpu_torch/serving/",
+    "hivemall_tpu_torch/pipeline/",
+    "hivemall_tpu_torch/runtime/",
+)
+EXCEPTION_MARKER = "# graftcheck: failure-path-module"
+
+# Handler calls that count as a LOUD surface for G028: the fallback names
+# its reason somewhere an operator can see (warnings / logging / the trace
+# ring's `TRACER.instant` / the metrics registry's `increment`).
+LOUD_CALL_TAILS = ("warn", "warning", "warn_explicit", "error", "exception",
+                   "critical", "fatal", "instant", "increment")
+LOUD_CALL_ROOTS = ("warnings", "logging")
+
+# Handler types whose silent fallback is the sanctioned API-probing idiom
+# (compat shims, optional libraries) — a handler catching ONLY these is
+# never a G028 degraded path.
+PROBE_EXCEPTION_TYPES = frozenset({
+    "ImportError", "ModuleNotFoundError", "AttributeError",
+})
+
+# Retry backoff classification for G031 (tails of dotted callees).
+# cv.wait(timeout) counts: blocking on a condition variable IS the
+# well-behaved form of waiting between attempts.
+BACKOFF_CALL_TAILS = ("sleep", "wait")

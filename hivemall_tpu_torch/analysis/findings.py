@@ -32,9 +32,8 @@ class Edit:
 
 @dataclass(frozen=True)
 class WrapFinally:
-    """A multi-line try/finally repair (the JAX package's G030; no rule
-    here emits one yet): indent lines `start`..`release_line-1` one level
-    under an inserted ``try:`` and turn the release statement at
+    """A multi-line repair for G030: indent lines `start`..`release_line-1`
+    one level under an inserted ``try:`` and turn the release statement at
     `release_line` into ``finally:`` + the indented release.
     `release_text` is the stripped source of the release line at plan
     time — the fixer re-validates it so a stale plan never rewrites
@@ -60,7 +59,7 @@ class Fix:
 class Finding:
     path: str  # repo-relative, forward slashes
     line: int  # 1-based
-    rule: str  # "G012".."G026" ("G000" = parse failure)
+    rule: str  # "G012".."G031" ("G000" = parse failure)
     severity: str  # Severity.*
     message: str
     snippet: str  # stripped source of the flagged line (baseline key)

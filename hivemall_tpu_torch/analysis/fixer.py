@@ -8,9 +8,8 @@ buys two properties the rules rely on:
   every fix collected in a single scan applies against the same line
   numbering; import insertion (which does add a line) runs last, per
   file, against the already-edited source;
-- **ordered multi-line wraps**: a try/finally wrap (findings.WrapFinally,
-  the repair of the JAX package's G030, which no rule here emits yet)
-  DOES insert lines, so wraps apply after every within-line edit,
+- **ordered multi-line wraps**: G030's try/finally wrap
+  (findings.WrapFinally) DOES insert lines, so wraps apply after every within-line edit,
   bottom-up by start line (lower wraps first never shift an upper wrap's
   numbering), each re-validated against the release line's current text;
 - **idempotence**: an applied fix removes its own finding, so a second

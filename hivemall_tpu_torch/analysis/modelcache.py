@@ -8,8 +8,9 @@ model construction a single cached path with two layers:
   shared by package context AND scanned files. Because the SAME
   ModuleModel object is returned while the file is unchanged, per-module
   analysis products attached as ``_graftcheck_*`` attributes (concurrency
-  class tables, FFI decls) survive across scans — that cache-attachment
-  contract is what keeps repeated scans cheap.
+  class tables, FFI decls, raised-exception summaries) survive across
+  scans — that cache-attachment contract is what keeps repeated scans
+  cheap.
 - **disk** (``.graftcheck_cache/torch-models-pyXY.pkl`` at the repo root):
   pickled models keyed on each file's **sha256**, so invalidation is per
   file and a fresh process (each CLI run, each pytest worker) skips

@@ -3,7 +3,8 @@
 Module rules export ``RULE_ID`` and ``check(model)``; program rules export
 ``RULE_ID`` and ``check_program(program, scanned)`` — the runner dispatches
 each tier (runner._run_rules). The port has the JAX package's concurrency
-rules (G012-G016) and FFI rules (G022-G026)."""
+rules (G012-G016), FFI rules (G022-G026) and exception-flow rules
+(G027-G031), each in the reference's tier."""
 
 from __future__ import annotations
 
@@ -15,14 +16,18 @@ from . import (g012_unguarded_shared_field, g013_blocking_under_lock,
                g014_cv_misuse, g015_thread_leak, g016_lock_order_cycle,
                g022_ffi_unvalidated_pointer, g023_ffi_borrowed_buffer,
                g024_ffi_missing_prototype, g025_ffi_abi_drift,
-               g026_ffi_unchecked_return)
+               g026_ffi_unchecked_return, g027_future_leak,
+               g028_silent_fallback, g029_swallowed_exception,
+               g030_unwind_under_lock, g031_unbounded_retry)
 
 _MODULE_RULES = (g015_thread_leak,)
 _PROGRAM_RULES = (g012_unguarded_shared_field, g013_blocking_under_lock,
                   g014_cv_misuse, g016_lock_order_cycle,
                   g022_ffi_unvalidated_pointer, g023_ffi_borrowed_buffer,
                   g024_ffi_missing_prototype, g025_ffi_abi_drift,
-                  g026_ffi_unchecked_return)
+                  g026_ffi_unchecked_return, g027_future_leak,
+                  g028_silent_fallback, g029_swallowed_exception,
+                  g030_unwind_under_lock, g031_unbounded_retry)
 
 ALL_RULES: Dict[str, Callable[[ModuleModel], List[Finding]]] = {
     m.RULE_ID: m.check for m in _MODULE_RULES

@@ -4,6 +4,12 @@ Every entry point (``fit_linear``, ``train_*``, ``make_train_fn`` steps,
 the kernel wrappers) runs on the CUDA device unless the caller asks for the
 CPU by name. A missing GPU is an error, never a quiet switch to the CPU:
 a CPU run measures PyTorch's CPU kernels, not the port.
+
+Nothing here switches to the CPU when the card is missing: the module
+opts into graftcheck's exception-flow rules, whose G028/G029 flag a
+quiet fallback.
+
+# graftcheck: failure-path-module
 """
 
 from __future__ import annotations

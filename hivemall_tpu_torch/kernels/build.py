@@ -8,6 +8,12 @@ build writes to a temporary name and renames it into place, so concurrent
 first uses cannot load a half-written file.
 
 Nothing here runs at import time; `load(name)` builds (if needed) and loads.
+
+No code here carries on on the CPU or on a plain version when a kernel
+fails to build or launch: the module opts into graftcheck's
+exception-flow rules, whose G028/G029 flag a quiet fallback.
+
+# graftcheck: failure-path-module
 """
 
 from __future__ import annotations

@@ -25,6 +25,12 @@ tables in->out; here the input state's tensors are the output's) and return
 (new_state, per_row_losses). `touched` marks every live lane of every row,
 as the Pallas path does (hivemall_tpu/kernels/linear_scan.py:293) — unlike
 the engine's scan mode, which marks only rows where the rule fired.
+
+No code here carries on on the CPU or on a plain version when a kernel
+fails to build or launch: the module opts into graftcheck's
+exception-flow rules, whose G028/G029 flag a quiet fallback.
+
+# graftcheck: failure-path-module
 """
 
 from __future__ import annotations

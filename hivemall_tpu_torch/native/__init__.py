@@ -33,6 +33,12 @@ fallback.
 Not bound here: the sanitizer variants (a build of the JAX package's
 scripts, not of the port's `native/build.py`), and `pack_block`: the
 port's `core/batch.pack_rows` is a vectorised numpy pack (PERF.md).
+
+No binding carries on in numpy when the library fails to build or load:
+the module opts into graftcheck's exception-flow rules, whose G028/G029
+flag a quiet fallback.
+
+# graftcheck: failure-path-module
 """
 
 from __future__ import annotations

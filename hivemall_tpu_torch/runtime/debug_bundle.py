@@ -71,7 +71,7 @@ def _sanitize(obj):
     if callable(item):  # numpy scalars and 0-d tensors
         try:
             return _sanitize(item())
-        except Exception:  # best effort: repr below is the fallback
+        except Exception:  # graftcheck: disable=G029 (best-effort serialization: repr below is the documented degrade)
             pass
     return repr(obj)
 
@@ -92,14 +92,10 @@ def _versions() -> dict:
     for mod in ("torch", "numpy"):
         try:
             out[mod] = __import__(mod).__version__
-        except Exception:  # an absent dependency is recorded as absent
+        except Exception:  # graftcheck: disable=G028,G029 (version probe: an absent dep is recorded as absent, not an error)
             out[mod] = None
-    try:
-        import torch
-
-        out["cuda"] = torch.version.cuda
-    except Exception:
-        out["cuda"] = None
+    torch = sys.modules.get("torch")  # imported by the probe above
+    out["cuda"] = None if torch is None else torch.version.cuda
     return out
 
 
@@ -111,7 +107,7 @@ def _power_limits() -> Optional[list]:
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
             timeout=10, check=True).stdout
-    except Exception:  # no nvidia-smi here: the field records None
+    except (OSError, subprocess.SubprocessError):  # no nvidia-smi, or no answer
         return None
     return [line.strip() for line in out.splitlines() if line.strip()]
 
@@ -134,7 +130,7 @@ def _device_set() -> dict:
                 "device_kinds": sorted({torch.cuda.get_device_name(i)
                                         for i in range(n)}),
                 "power_limits": _power_limits() if cuda else None}
-    except Exception:  # a bundle written mid-teardown records the absence
+    except Exception:  # graftcheck: disable=G028,G029 (probe: a bundle written before/without torch init records the absence instead of failing the crash path)
         return {"platform": None}
 
 
@@ -207,5 +203,5 @@ def write_crash_bundle(path: str, reason: str,
     failed."""
     try:
         return write_bundle(path, registry=registry, reason=reason)
-    except Exception:  # the caller's exception is already the signal
+    except Exception:  # graftcheck: disable=G028,G029 (crash path: the original exception re-raised by the caller is the signal; a bundle-write error must not replace it)
         return None

@@ -113,7 +113,7 @@ def _hyper_jsonable(hyper) -> object:
     try:
         json.dumps(hyper)
         return hyper
-    except TypeError:  # documentation: repr is the documented conversion
+    except TypeError:  # graftcheck: disable=G028 (hyper is documentation: repr is the documented conversion)
         if isinstance(hyper, dict):
             return {k: v if _is_jsonable(v) else repr(v)
                     for k, v in hyper.items()}
@@ -234,7 +234,7 @@ def peek_manifest(path: str) -> Optional[dict]:
     try:
         _, manifest = load_elastic(path)
         return manifest
-    except Exception:  # a probe: None is the documented no-checkpoint answer
+    except Exception:  # graftcheck: disable=G028 (peek probe: None is the documented no-usable-checkpoint answer)
         return None
 
 
@@ -647,7 +647,7 @@ def _rebuilt(recoverable, res: dict) -> BaseException:
                 return cls(n_lost=res["n_lost"], step=res["completed"])
             try:
                 return cls(res["message"])
-            except TypeError:  # a constructor without a message argument
+            except TypeError:  # graftcheck: disable=G028 (not degraded: a constructor without a message argument; the RuntimeError below names the cause and the message, and the caller raises it)
                 break
     return RuntimeError(f"{res['cause']}: {res['message']}")
 
@@ -682,7 +682,7 @@ def _supervise(make_trainer, data_fn, n_steps, path, checkpoint_every,
                   threads=1 if devices[0].type == "cpu" else None,
                   timeout=ATTEMPT_TIMEOUT_S)
             failure = None
-        except Exception as e:  # a rank failed: its report says how
+        except Exception as e:  # graftcheck: disable=G031 (a rank failed: its report says how; the loop is capped below, giving up and raising past max_restarts restarts, and sleeps min(RESTART_BACKOFF_S * restarts, 1 s) before each restart)
             failure = e
         res = _read_outcome(adir, len(devices))
         if res is None:

@@ -325,7 +325,7 @@ class ModelRegistry:
             try:
                 return entry, entry.batcher.submit(
                     instances, priority=priority, deadline_ms=deadline_ms)
-            except BatcherClosed:  # retry rebinds to the NEW batcher
+            except BatcherClosed:  # graftcheck: disable=G031 (retry rebinds to the NEW batcher; waiting adds only latency)
                 continue
         raise BatcherClosed(
             f"model {name!r}: {self._SWAP_RETRIES} consecutive version "
@@ -347,7 +347,7 @@ class ModelRegistry:
             try:
                 return entry, entry.retrieval_batcher.submit(
                     rows, priority=priority, deadline_ms=deadline_ms)
-            except BatcherClosed:  # retry rebinds to the NEW batcher
+            except BatcherClosed:  # graftcheck: disable=G031 (retry rebinds to the NEW batcher; waiting adds only latency)
                 continue
         raise BatcherClosed(
             f"model {name!r}: {self._SWAP_RETRIES} consecutive version "

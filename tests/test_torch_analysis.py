@@ -1,15 +1,16 @@
 """graftcheck for the port (hivemall_tpu_torch/analysis): its engine and its
-concurrency (G012-G016) and FFI (G022-G026) rules, held against the JAX
-package's analyzer on that analyzer's own rule fixtures, and run over the
-port's tree and both of its C ABIs (the host library's .cpp, the CUDA
-kernels' extern "C" block).
+concurrency (G012-G016), FFI (G022-G026) and exception-flow (G027-G031)
+rules, held against the JAX package's analyzer on that analyzer's own rule
+fixtures, and run over the port's tree, both of its C ABIs (the host
+library's .cpp, the CUDA kernels' extern "C" block) and its failure paths.
 
 G013's two fixtures import jax; the port is held to them through
 line-for-line twins in tests/data/graftcheck_torch/ whose device sync is
 torch's. CLI runs go through ``_cli`` (the analyzer's ``main()`` in
 process, stdout captured); exactly one test starts a true subprocess, to
 prove ``python -m hivemall_tpu_torch.analysis`` itself and that a scan in
-a fresh interpreter imports neither jax nor the JAX package.
+a fresh interpreter imports neither jax nor the JAX package, and one runs
+``scripts/lint_torch.sh --all`` on a copy of the tree.
 """
 
 import ast
@@ -46,7 +47,9 @@ TWINS = os.path.join(TESTS, "data", "graftcheck_torch")
 EXPECT_RE = re.compile(r"#\s*EXPECT:\s*([A-Z0-9,\s]+)")
 
 RULES = ["g012", "g013", "g014", "g015", "g016",
-         "g022", "g023", "g024", "g025", "g026"]
+         "g022", "g023", "g024", "g025", "g026",
+         "g027", "g028", "g029", "g030", "g031"]
+FLOW_RULES = ("G027", "G028", "G029", "G030", "G031")
 RULE_IDS = [r.upper() for r in RULES]
 KERNEL_CU = os.path.join(PKG, "kernels", "csrc", "linear_scan.cu")
 KERNEL_PY = os.path.join(PKG, "kernels", "linear_scan.py")
@@ -109,6 +112,8 @@ def tree_findings():
 # ---------------------------------------------------------------------------
 
 def test_the_registry_holds_the_ten_rules():
+    """The registry holds the port's fifteen rules: G012-G016, G022-G031."""
+    assert len(RULE_IDS) == 15
     assert sorted({**ALL_RULES, **PROGRAM_RULES}) == RULE_IDS
 
 
@@ -247,7 +252,7 @@ def test_live_tree_matches_baseline_exactly(tree_findings):
 
 
 def test_hot_paths_are_clean_without_baseline(tree_findings):
-    """Nothing of the ten rules in serving/, pipeline/, runtime/,
+    """Nothing of the fifteen rules in serving/, pipeline/, runtime/,
     kernels/ or native/ — fixed or suppressed with a reason, never
     baselined."""
     scopes = ("hivemall_tpu_torch/serving/", "hivemall_tpu_torch/pipeline/",
@@ -571,7 +576,8 @@ def test_analysis_imports_only_the_stdlib_and_itself():
 
 
 def test_python_m_entrypoint_in_a_fresh_interpreter(tree_findings):
-    """The one true subprocess: ``python -m hivemall_tpu_torch.analysis``
+    """The one true subprocess of the CLI: ``python -m
+    hivemall_tpu_torch.analysis``
     (run the way -m runs it) exits 0 against the baseline, reading its
     models from the port's disk cache, and leaves neither jax, the JAX
     package nor torch imported."""
@@ -605,3 +611,183 @@ def test_python_m_entrypoint_in_a_fresh_interpreter(tree_findings):
     assert got["rc"] == 0
     assert got["foreign"] == []
     assert got["disk"] > 100 and got["rebuilt"] is False
+
+
+# ---------------------------------------------------------------------------
+# exception flow (G027-G031): the port's failure paths
+# ---------------------------------------------------------------------------
+
+def _ref_fix(path):
+    """The JAX package's analyzer's --fix on ``path``, in process."""
+    from hivemall_tpu.analysis.__main__ import main as ref_main
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert ref_main([str(path), "--fix", "--no-baseline"]) == 0
+
+
+def test_fixer_round_trip_g028_warn_splice(tmp_path):
+    """--fix splices a warnings.warn() ahead of each silent fallback of the
+    G028 fixture and adds the import — the reference's repair, byte for
+    byte; the re-scan is G028-clean and a second run is a no-op."""
+    fixed, remaining = _fix_round_trip(
+        tmp_path, os.path.join(DATA, "g028_pos.py"), "G028")
+    assert "from warnings import warn" in fixed
+    assert fixed.count("warn(") >= 2, "both handlers must become loud"
+    assert remaining == []
+    ref = tmp_path / "ref" / "g028_pos.py"
+    ref.parent.mkdir()
+    shutil.copy(os.path.join(DATA, "g028_pos.py"), ref)
+    _ref_fix(ref)
+    assert ref.read_text() == fixed
+
+
+def test_fixer_round_trip_g030_wrap_finally(tmp_path):
+    """--fix wraps G030's manual acquire()..release() region in
+    try/finally (findings.WrapFinally) as the reference does; the
+    torn-state finding has no machine fix and survives."""
+    fixed, remaining = _fix_round_trip(
+        tmp_path, os.path.join(DATA, "g030_pos.py"), "G030")
+    assert "    try:" in fixed and "    finally:" in fixed
+    assert "        _LOCK.release()" in fixed, \
+        "release must move under finally"
+    assert len(remaining) == 1, "only the torn-state finding may remain"
+    ref = tmp_path / "ref" / "g030_pos.py"
+    ref.parent.mkdir()
+    shutil.copy(os.path.join(DATA, "g030_pos.py"), ref)
+    _ref_fix(ref)
+    assert ref.read_text() == fixed
+
+
+def test_failure_path_sarif_fingerprints_stable():
+    """G027-G031 ship in the SARIF rules array under tool version 7.0, and
+    their results carry partialFingerprints that are byte-stable across
+    runs."""
+    fixtures = [os.path.join(DATA, "g027_pos.py"),
+                os.path.join(DATA, "g030_pos.py")]
+    proc = _cli(*fixtures, "--no-baseline", "--format", "sarif")
+    assert proc.returncode == 1, proc.stdout + proc.stderr
+    payload = json.loads(proc.stdout)
+    driver = payload["runs"][0]["tool"]["driver"]
+    assert driver["version"] == "7.0"
+    rule_ids = [r["id"] for r in driver["rules"]]
+    assert set(FLOW_RULES) <= set(rule_ids)
+    results = payload["runs"][0]["results"]
+    assert {r["ruleId"] for r in results} == {"G027", "G030"}
+    for r in results:
+        assert rule_ids[r["ruleIndex"]] == r["ruleId"]
+        assert r["partialFingerprints"]["graftcheckKey/v1"]
+    assert json.loads(_cli(*fixtures, "--no-baseline", "--format",
+                           "sarif").stdout) == payload
+
+
+def test_serving_pipeline_runtime_are_failure_path_clean():
+    """serving/, pipeline/ and runtime/ carry no G027-G031 finding: each
+    handler is loud, re-raises, or carries an inline suppression with its
+    reason; none of it hides in the baseline."""
+    paths = [os.path.join(PKG, d) for d in ("serving", "pipeline",
+                                              "runtime")]
+    flow = [f for f in analyze_paths(paths) if f.rule in FLOW_RULES]
+    assert flow == [], "\n".join(f.format() for f in flow)
+    assert [b for b in load_baseline() if b.rule in FLOW_RULES] == [], \
+        "failure-path debt must be fixed, not baselined"
+
+
+def test_g031_dogfood_restart_loops_back_off():
+    """Both restart supervisors of the port (the pipeline's trainer loop
+    and the elastic recovery driver) pace their restarts with a capped
+    linear backoff."""
+    import dataclasses
+
+    from hivemall_tpu_torch.pipeline.loop import PipelineConfig
+    from hivemall_tpu_torch.runtime import recovery
+
+    backoff = {f.name: f for f in
+               dataclasses.fields(PipelineConfig)}["restart_backoff_s"]
+    assert backoff.default > 0
+    assert recovery.RESTART_BACKOFF_S > 0
+    for rel in (("pipeline", "loop.py"), ("runtime", "recovery.py")):
+        with open(os.path.join(PKG, *rel), encoding="utf-8") as fh:
+            assert "time.sleep(min(" in fh.read(), "/".join(rel)
+
+
+FAILURE_PATH_MODULES = ("kernels/linear_scan.py", "kernels/build.py",
+                        "device.py", "native/__init__.py")
+
+
+def test_kernel_and_device_modules_opt_into_the_failure_path_rules():
+    """The modules that build, load and launch the kernels and choose the
+    device carry the failure-path marker, and G027-G031 find nothing in
+    them."""
+    paths = [os.path.join(PKG, *rel.split("/"))
+             for rel in FAILURE_PATH_MODULES]
+    for path in paths:
+        with open(path, encoding="utf-8") as fh:
+            assert config.EXCEPTION_MARKER in fh.read(), path
+    found = analyze_paths(paths, rules=list(FLOW_RULES))
+    assert found == [], "\n".join(f.format() for f in found)
+
+
+def test_g028_catches_a_planted_kernel_fallback(tmp_path):
+    """A copy of kernels/linear_scan.py whose wrapper, when the kernel
+    reports an error, quietly replays the block on the plain version: G028
+    flags the handler (the marker puts the copy in scope), the untouched
+    copy is clean."""
+    with open(KERNEL_PY, encoding="utf-8") as fh:
+        text = fh.read()
+    check = '    _check(lib, rc, "linear_scan")\n'
+    assert text.count(check) == 1
+    clean = tmp_path / "clean_scan.py"
+    clean.write_text(text)
+    assert analyze_paths([str(clean)], rules=list(FLOW_RULES)) == []
+    planted = tmp_path / "planted_scan.py"
+    planted.write_text(text.replace(check, (
+        "    try:\n"
+        "        _check(lib, rc, \"linear_scan\")\n"
+        "    except Exception:\n"
+        "        return linear_scan_reference(rule, hyper, state, indices,\n"
+        "                                     values, labels)\n")))
+    line = planted.read_text().splitlines().index(
+        "    except Exception:") + 1
+    found = analyze_paths([str(planted)], rules=list(FLOW_RULES))
+    assert [(f.line, f.rule) for f in found] == [(line, "G028")], \
+        [f.format() for f in found]
+    assert "silent fallback" in found[0].message
+
+
+def test_lint_torch_script_all_on_a_copy(tmp_path):
+    """``scripts/lint_torch.sh --all`` on a copy of the port's tree exits 0,
+    writes its SARIF to analysis_torch.sarif (never the reference's
+    analysis.sarif) and changes no file of the tree."""
+    ignore = shutil.ignore_patterns("_build", "__pycache__")
+    shutil.copytree(PKG, tmp_path / "hivemall_tpu_torch", ignore=ignore)
+    (tmp_path / "scripts").mkdir()
+    (tmp_path / "native").mkdir()
+    shutil.copy(os.path.join(REPO, "scripts", "lint_torch.sh"),
+                tmp_path / "scripts")
+    shutil.copy(os.path.join(REPO, "native", "hivemall_native.cpp"),
+                tmp_path / "native")
+
+    def snapshot():
+        out = {}
+        for dirpath, _, files in os.walk(tmp_path):
+            for name in files:
+                path = os.path.join(dirpath, name)
+                with open(path, "rb") as fh:
+                    out[os.path.relpath(path, tmp_path)] = fh.read()
+        return out
+
+    before = snapshot()
+    env = dict(os.environ, GRAFTCHECK_CACHE="0", PYTHONDONTWRITEBYTECODE="1")
+    proc = subprocess.run(["bash", str(tmp_path / "scripts" /
+                                       "lint_torch.sh"), "--all"],
+                          cwd=tmp_path, env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "graftcheck: clean" in proc.stdout
+    assert "sarif written to analysis_torch.sarif" in proc.stdout
+    after = snapshot()
+    sarif = json.loads(after.pop("analysis_torch.sarif"))
+    assert after == before
+    run = sarif["runs"][0]
+    assert [r["id"] for r in run["tool"]["driver"]["rules"]] == RULE_IDS
+    assert run["results"] == []

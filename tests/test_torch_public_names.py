@@ -43,29 +43,24 @@ NOTHING_TO_PORT_NAMES = {
         "against hm_pack_block by chip_smoke's phase native",
 }
 # reference modules of a later slice of the port: graftcheck's analyses
-# and rules beyond its engine, concurrency (G012-G016) and FFI (G022-G026)
+# and rules beyond its engine, concurrency (G012-G016), FFI (G022-G026)
+# and exception flow (G027-G031)
 STILL_TO_PORT = {
-    "analysis/exceptionflow.py", "analysis/traceflow.py",
-    "analysis/dtypeflow.py", "analysis/apicompat.py",
+    "analysis/traceflow.py", "analysis/dtypeflow.py",
+    "analysis/apicompat.py",
     *(f"analysis/rules/{name}.py" for name in (
         "g001_recompile", "g002_host_sync", "g003_dtype", "g004_axis",
         "g005_donation", "g006_side_effect", "g007_collective_axis",
         "g008_spec_mesh", "g009_api_compat", "g010_unreduced_output",
         "g011_divergent_collective", "g017_hot_promotion", "g018_f64_leak",
         "g019_cast_in_loop", "g020_artifact_dtype",
-        "g021_low_precision_accum", "g027_future_leak",
-        "g028_silent_fallback", "g029_swallowed_exception",
-        "g030_unwind_under_lock", "g031_unbounded_retry",
-        "g032_jit_cache_churn", "g033_host_branch_traced",
+        "g021_low_precision_accum", "g032_jit_cache_churn", "g033_host_branch_traced",
         "g034_unbucketed_shape", "g035_donated_reuse",
         "g036_hot_loop_sync")),
 }
 # names of a ported module that only a later slice's modules read, each
 # group with its reason
 _LATER_CONFIG = {
-    "read only by the exception-flow rules G027-G031 (exceptionflow.py)": (
-        "EXCEPTION_HOT_PREFIXES", "EXCEPTION_MARKER", "LOUD_CALL_TAILS",
-        "LOUD_CALL_ROOTS", "PROBE_EXCEPTION_TYPES", "BACKOFF_CALL_TAILS"),
     "read only by the dtype-flow rules G003, G017-G021 (dtypeflow.py)": (
         "DTYPE_MODULE_PREFIXES", "DTYPE_MATH_MODULES",
         "DTYPEFLOW_HOT_PREFIXES", "DTYPEFLOW_HOT_MODULES", "HOT_MARKER",
