@@ -2,8 +2,9 @@
 
 The twin of the JAX package's graftcheck, with its engine (module and
 whole-program models, suppressions, baseline, SARIF, the fixer, the
-parallel runner) and its language-level concurrency, FFI and
-exception-flow rules, which apply to torch code as they stand. Runnable as
+parallel runner), its language-level concurrency, FFI and exception-flow
+rules, which apply to torch code as they stand, and its dtype-flow layer
+(``dtypeflow.py``), rewritten for torch's promotion rules. Runnable as
 
     python -m hivemall_tpu_torch.analysis [paths]
 
@@ -14,6 +15,9 @@ unless asked for the CPU does not apply to it.
 
 Rules:
 
+- G003 dtype-drift              — float64 (``torch.float64``,
+                                  ``.double()``, ``np.float64``) or an
+                                  unpinned float literal in update math.
 - G012 unguarded-shared-field   — a field two threads touch with no
                                   common lock.
 - G013 blocking-under-lock      — a device sync (``torch.cuda.synchronize``,
@@ -24,6 +28,22 @@ Rules:
                                   notify() unheld, a Lock re-acquired.
 - G015 thread-leak              — a non-daemon thread never joined.
 - G016 lock-order-cycle         — two locks taken in opposite orders.
+- G017 hot-promotion            — a bf16/f16/int8 tensor silently widened
+                                  by a dimensioned f32/f64 operand in a hot
+                                  path (torch's table: scalars and 0-dim
+                                  tensors never widen it).
+- G018 f64-leak                 — float64 on the serving path, and a
+                                  float64 numpy value handed to
+                                  ``torch.as_tensor`` / ``from_numpy``.
+- G019 cast-in-loop             — a loop-invariant ``.to(dtype)`` /
+                                  ``.float()`` per iteration, or a whole
+                                  16-bit table widened at once.
+- G020 artifact-dtype           — ``torch.as_tensor(pack[...])`` reloads
+                                  with no pinned dtype.
+- G021 low-precision-accum      — an accumulation whose running sum is
+                                  16-bit on the card (``index_add_``,
+                                  ``scatter_add_``, ``cumprod``, numpy's
+                                  sums).
 - G022 ffi-unvalidated-pointer  — a numpy pointer crosses the ctypes ABI
                                   with no dtype+contiguity proof.
 - G023 ffi-borrowed-buffer      — a temporary's or a view's pointer.
@@ -53,7 +73,7 @@ in with ``# graftcheck: failure-path-module``: the kernels' build and
 launch, the device choice and the native host library, where no code may
 carry on on the CPU or on a plain version when a kernel fails.
 
-The JAX package's JAX-idiom rules (G001-G011, G017-G021, G032-G036) are
+The JAX package's JAX-idiom rules (G001, G002, G004-G011, G032-G036) are
 still its own.
 
 Suppress a line with ``# graftcheck: disable=G0XX (reason)`` (or

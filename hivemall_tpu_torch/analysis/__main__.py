@@ -78,7 +78,12 @@ def main(argv: List[str] = None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m hivemall_tpu_torch.analysis",
         description="graftcheck for the port: static analysis of "
-                    "hivemall_tpu_torch — concurrency/serving safety "
+                    "hivemall_tpu_torch — dtype and precision flow G003, "
+                    "G017-G021 (float64 in update math, silent promotion "
+                    "in hot paths, float64 reaching the card, casts in "
+                    "loops, unpinned artifact reloads, 16-bit "
+                    "accumulation) under torch's promotion rules, "
+                    "concurrency/serving safety "
                     "G012-G016 (unguarded shared fields, blocking calls "
                     "under a lock, condition-variable misuse, thread "
                     "leaks, lock-ordering cycles) and FFI boundary safety "

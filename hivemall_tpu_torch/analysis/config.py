@@ -1,10 +1,11 @@
 """Codebase-specific knobs for the port's graftcheck rules.
 
 Only the constants that this package's modules read: the module model's
-trace and taint vocabulary, the concurrency rules' scope and blocking-call
-tables, the FFI rules' symbol prefix, validators and C sources, and the
-exception-flow rules' scope, loud surfaces and backoff calls — all pointed
-at the port's tree (``hivemall_tpu_torch/``).
+trace and taint vocabulary, the dtype-flow rules' scopes, the concurrency
+rules' scope and blocking-call tables, the FFI rules' symbol prefix,
+validators and C sources, and the exception-flow rules' scope, loud
+surfaces and backoff calls — all pointed at the port's tree
+(``hivemall_tpu_torch/``).
 """
 
 from __future__ import annotations
@@ -37,10 +38,79 @@ TRACING_TRANSFORMS = (
 UNTAINT_CALLS = ("device_get", "shape", "len", "range", "eval_shape",
                  "tree_structure")
 
+# Methods with these names receive device state / blocks by contract; the
+# dtype-flow rules count them as per-step code (dtypeflow.in_hot_scope).
+HOT_FN_RE = re.compile(r"^(step|_step|train_step|epoch)$")
+
 # --- program model (program.py) ---------------------------------------------
 # Collective calls whose axis argument the per-function summaries record.
 COLLECTIVE_CALLS = ("psum", "pmean", "pmax", "pmin", "all_gather",
                     "axis_index", "ppermute", "psum_scatter", "pcast")
+
+# --- G003: dtype-sensitive scopes ------------------------------------------
+# Modules whose math feeds weight updates: float64 here doubles the bytes
+# every step moves, and an unpinned literal can turn an integer operand into
+# the default float (models/base.py keeps tables f32, bf16 above 2^24 dims).
+DTYPE_MODULE_PREFIXES = (
+    "hivemall_tpu_torch/ops/",
+    "hivemall_tpu_torch/core/",
+    "hivemall_tpu_torch/models/",
+    "hivemall_tpu_torch/kernels/",
+)
+# Update-math modules where even host-side helper functions are checked for
+# unpinned float literals (their outputs flow straight into rule updates).
+DTYPE_MATH_MODULES = (
+    "hivemall_tpu_torch/ops/eta.py",
+    "hivemall_tpu_torch/ops/losses.py",
+)
+
+# --- G017-G021: dtype / precision flow --------------------------------------
+# Hot-path scopes for the dtype-flow rules: a silent widening here doubles
+# the card's memory traffic on every step/request. The kernel/op packages
+# and the serving score path are always hot; elsewhere in the
+# dtype-sensitive packages only traced / step-shaped functions are
+# (dtypeflow.in_hot_scope).
+DTYPEFLOW_HOT_PREFIXES = (
+    "hivemall_tpu_torch/ops/",
+    "hivemall_tpu_torch/kernels/",
+)
+# The reference's seven always-hot modules, at the port's paths: the
+# dequant-free score path (engine.py's int8 / bf16 scorers, the sharded
+# and top-K retrieval scorers), the hot-row score cache (cached values are
+# the engine's predictions, bit for bit), the quantization pack/unpack
+# helpers of io/checkpoint.py, the segment-sum batched trainer and the
+# native-apply staging layer, whose host f32 tables cross the ctypes ABI —
+# a silent widening or a float64 temporary in any of them doubles the very
+# traffic the module exists to cut.
+DTYPEFLOW_HOT_MODULES = ("hivemall_tpu_torch/serving/engine.py",
+                         "hivemall_tpu_torch/serving/cache.py",
+                         "hivemall_tpu_torch/serving/sharded.py",
+                         "hivemall_tpu_torch/serving/retrieval.py",
+                         "hivemall_tpu_torch/io/checkpoint.py",
+                         "hivemall_tpu_torch/core/batch_update.py",
+                         "hivemall_tpu_torch/core/native_batch.py")
+HOT_MARKER = "# graftcheck: hot-module"
+
+# G018 scope: the serving/request path plus checkpoint IO — a float64 numpy
+# value (or a float64-by-default constructor) here doubles payload and table
+# bandwidth, and `torch.as_tensor` carries it to the card as float64.
+# Modules outside opt in with the serving-module marker (shared with G013 —
+# both guard the same request path).
+DTYPEFLOW_SERVING_PREFIXES = (
+    "hivemall_tpu_torch/serving/",
+    "hivemall_tpu_torch/io/",
+)
+
+# G020 scope: artifact/checkpoint save->load modules whose reloads must pin
+# the manifest dtype (a bf16 table widened to f32 at rest must narrow back
+# on load, not silently serve wide).
+ARTIFACT_IO_MODULES = (
+    "hivemall_tpu_torch/io/checkpoint.py",
+    "hivemall_tpu_torch/serving/artifact.py",
+    "hivemall_tpu_torch/serving/engine.py",
+    "hivemall_tpu_torch/serving/sharded.py",
+)
+ARTIFACT_MARKER = "# graftcheck: artifact-io"
 
 # --- G012-G016: concurrency / serving safety --------------------------------
 # Constructors whose result is a lock object; the kind decides reentrancy

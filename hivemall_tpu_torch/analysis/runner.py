@@ -5,8 +5,8 @@ without torch, a card or a CUDA toolkit.
 
 Two rule tiers run over every scan:
 
-- **module rules** (G015) see one ModuleModel at a time;
-- **program rules** (G012-G014, G016, G022-G031) see the whole-program
+- **module rules** (G003, G015) see one ModuleModel at a time;
+- **program rules** (G012-G014, G016-G031) see the whole-program
   model (program.py), which is always built with the full package tree
   as context — a single-file scan resolves cross-module call edges
   exactly like a full scan, but only *emits* findings for the scanned

@@ -473,7 +473,7 @@ def _tree_from_numpy(t) -> TreeArrays:
 
 
 def _bins_from_numpy(bins) -> List[BinInfo]:
-    return [BinInfo(bool(b.nominal), np.array(b.edges, np.float64),
+    return [BinInfo(bool(b.nominal), np.array(b.edges, np.float64),  # graftcheck: disable=G003 (bin edges stay float64, as binning.py keeps them)
                     int(b.n_bins)) for b in bins]
 
 
@@ -505,5 +505,5 @@ def gbt_from_numpy(trees, intercept, shrinkage: float, classes, bins,
     none)."""
     return TrainedGBT(
         [[_tree_from_numpy(t) for t in round_trees] for round_trees in trees],
-        np.array(intercept, np.float64), float(shrinkage),
+        np.array(intercept, np.float64), float(shrinkage),  # graftcheck: disable=G003 (the intercept stays float64, as the reference's)
         np.array(classes), _bins_from_numpy(bins), resolve_device(device))

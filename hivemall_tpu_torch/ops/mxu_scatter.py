@@ -168,8 +168,8 @@ def _run_sums(sid: torch.Tensor, su: torch.Tensor) -> torch.Tensor:
     device-wide pass, where a scan down the rows of an [N, kl] tensor
     runs each column serially."""
     n, kl = su.shape
-    cols = torch.cat([su.new_zeros((kl, 1), dtype=torch.float64),
-                      su.t().double()], dim=1)         # [kl, N + 1]
+    cols = torch.cat([su.new_zeros((kl, 1), dtype=torch.float64),  # graftcheck: disable=G003 (float64 run sums: two card runs are bit-equal)
+                      su.t().double()], dim=1)  # [kl, N + 1]  # graftcheck: disable=G003 (float64 run sums: two card runs are bit-equal)
     pre = torch.cumsum(cols.reshape(-1), dim=0).view(kl, n + 1)
     first = torch.searchsorted(sid, sid, side="left")
     end = torch.searchsorted(sid, sid, side="right")
@@ -207,7 +207,7 @@ def scatter_add(table: torch.Tensor, ids_flat, upd: torch.Tensor,
     # scratch entry E that is dropped
     out = torch.cat([t2.float(), t2.new_zeros((1, c), dtype=torch.float32)])
     target = torch.where(valid, sid, torch.full_like(sid, e))
-    new = (out[target, :kl].double() + tot).float()
+    new = (out[target, :kl].double() + tot).float()  # graftcheck: disable=G003 (float64 run sums: two card runs are bit-equal)
     out[target[:, None], torch.arange(kl, device=out.device)] = new
     out = out[:e].to(table.dtype)
     return out[:, 0] if squeeze else out

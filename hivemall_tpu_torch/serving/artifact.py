@@ -191,7 +191,7 @@ def _pack_bins(bins, arrays: dict, meta: dict) -> None:
     for f, b in enumerate(bins):
         # the training-precision edges at rest; the serving engine narrows
         # them to f32 at load where no two edges collapse (_TreeServable)
-        arrays[f"bin{f}__edges"] = np.asarray(b.edges, np.float64)
+        arrays[f"bin{f}__edges"] = np.asarray(b.edges, np.float64)  # graftcheck: disable=G018 (at-rest precision; serving narrows at load)
 
 
 def _unpack_bins(meta: dict, arrays: dict):
@@ -223,7 +223,7 @@ def _build_payload(model):
         flat = [t for round_trees in model.trees for t in round_trees]
         _pack_trees("tree", flat, arrays)
         _pack_bins(model.bins, arrays, meta)
-        arrays["intercept"] = np.asarray(model.intercept, np.float64)
+        arrays["intercept"] = np.asarray(model.intercept, np.float64)  # graftcheck: disable=G018 (at-rest training dtype; serving narrows at load)
         arrays["classes"] = np.asarray(model.classes)
         meta.update(n_rounds=len(model.trees),
                     n_class_trees=len(model.trees[0]) if model.trees else 0,

@@ -704,7 +704,7 @@ class _TreeServable(_Servable):
 
         if any(np.unique(np.asarray(b.edges, np.float32)).size
                != len(b.edges) for b in bins):
-            self.stage_dtype = np.float64
+            self.stage_dtype = np.float64  # graftcheck: disable=G018 (distinct bin edges collapse under f32; binning parity needs f64)
             self.bins = bins
         else:
             self.stage_dtype = np.float32
@@ -816,7 +816,8 @@ def _fm_serving_state(w0, w, v, dev: torch.device):
         return torch.tensor(np.asarray(x, np.float32), device=dev)
 
     return FMState(w0=f32(w0), w=w.to(dev), v=v.to(dev), lambda_w0=f32(0.0),
-                   lambda_w=f32(0.0), lambda_v=f32(np.zeros(v.shape[1])),
+                   lambda_w=f32(0.0),
+                   lambda_v=f32(np.zeros(v.shape[1], dtype=np.float32)),
                    touched=torch.ones(w.shape[0], dtype=torch.int8,
                                       device=dev), step=0)
 

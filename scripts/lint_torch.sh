@@ -1,7 +1,8 @@
 #!/usr/bin/env bash
 # graftcheck gate for the PyTorch/CUDA port (hivemall_tpu_torch/analysis):
-# concurrency G012-G016, FFI G022-G026 and exception flow G027-G031 over
-# hivemall_tpu_torch/. The twin of scripts/lint.sh, in the same modes:
+# dtype flow G003/G017-G021, concurrency G012-G016, FFI G022-G026 and
+# exception flow G027-G031 over hivemall_tpu_torch/. The twin of
+# scripts/lint.sh, in the same modes:
 #
 #   scripts/lint_torch.sh              # changed-files mode: files touched vs
 #                                      # HEAD (staged + unstaged + untracked)
@@ -14,6 +15,12 @@
 #                                      # changed files; combine with --all
 #                                      # for the full tree
 #   scripts/lint_torch.sh FILES...     # explicit file list
+#
+# The dtype-flow rules (G017-G021) treat the quantized-serving modules —
+# serving/engine.py (dequant-free scorers) and io/checkpoint.py (quant
+# pack/unpack helpers), with the rest of analysis/config.py
+# DTYPEFLOW_HOT_MODULES — as ALWAYS hot, so every gating scan here prices
+# a widened full-table dequant or a silent promotion in the quant plumbing.
 #
 # Exits non-zero on any finding not covered by
 # hivemall_tpu_torch/analysis/baseline.json. Accepted debt is refreshed with:

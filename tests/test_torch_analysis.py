@@ -1,13 +1,17 @@
 """graftcheck for the port (hivemall_tpu_torch/analysis): its engine and its
-concurrency (G012-G016), FFI (G022-G026) and exception-flow (G027-G031)
-rules, held against the JAX package's analyzer on that analyzer's own rule
-fixtures, and run over the port's tree, both of its C ABIs (the host
-library's .cpp, the CUDA kernels' extern "C" block) and its failure paths.
+dtype-flow (G003, G017-G021), concurrency (G012-G016), FFI (G022-G026) and
+exception-flow (G027-G031) rules, held against the JAX package's analyzer
+on that analyzer's own rule fixtures, and run over the port's tree, both
+of its C ABIs (the host library's .cpp, the CUDA kernels' extern "C"
+block) and its failure paths.
 
-G013's two fixtures import jax; the port is held to them through
-line-for-line twins in tests/data/graftcheck_torch/ whose device sync is
-torch's. CLI runs go through ``_cli`` (the analyzer's ``main()`` in
-process, stdout captured); exactly one test starts a true subprocess, to
+The dtype rules' fixtures and G013's import jax; the port is held to them
+through line-for-line twins in tests/data/graftcheck_torch/ whose hazard
+takes torch's channel (TORCH_DEPARTURES names the lines where torch has
+none). tests/test_torch_analysis_dtype.py holds the dtype-flow model
+against torch's own promotion. CLI runs go through ``_cli`` (the
+analyzer's ``main()`` in process, stdout captured); exactly one test
+starts a true subprocess, to
 prove ``python -m hivemall_tpu_torch.analysis`` itself and that a scan in
 a fresh interpreter imports neither jax nor the JAX package, and one runs
 ``scripts/lint_torch.sh --all`` on a copy of the tree.
@@ -46,9 +50,22 @@ DATA = os.path.join(TESTS, "data", "graftcheck")
 TWINS = os.path.join(TESTS, "data", "graftcheck_torch")
 EXPECT_RE = re.compile(r"#\s*EXPECT:\s*([A-Z0-9,\s]+)")
 
-RULES = ["g012", "g013", "g014", "g015", "g016",
+RULES = ["g003", "g012", "g013", "g014", "g015", "g016",
+         "g017", "g018", "g019", "g020", "g021",
          "g022", "g023", "g024", "g025", "g026",
          "g027", "g028", "g029", "g030", "g031"]
+DTYPE_RULES = ("g003", "g017", "g018", "g019", "g020", "g021")
+# (twin, line): a finding of the reference on the original that the port
+# rightly does not report on the twin, because torch has no such hazard.
+# On an H100 these kernels keep a bf16/f16 running sum in float32 and
+# round once (scripts/torch_accum_probe.py; dtypeflow.
+# TORCH_WIDE_ACCUMULATORS).
+TORCH_DEPARTURES = {
+    ("g021_pos", 11): "torch.sum of a bf16 tensor accumulates in float32",
+    ("g021_pos", 16): "cumsum of an f16 tensor accumulates in float32",
+    ("g021_pos", 21): "mean of a bf16 tensor accumulates in float32",
+    ("g021_pos", 31): "segment_reduce 'sum' of bf16 accumulates in float32",
+}
 FLOW_RULES = ("G027", "G028", "G029", "G030", "G031")
 RULE_IDS = [r.upper() for r in RULES]
 KERNEL_CU = os.path.join(PKG, "kernels", "csrc", "linear_scan.cu")
@@ -111,26 +128,33 @@ def tree_findings():
 # the reference's fixtures
 # ---------------------------------------------------------------------------
 
-def test_the_registry_holds_the_ten_rules():
-    """The registry holds the port's fifteen rules: G012-G016, G022-G031."""
-    assert len(RULE_IDS) == 15
+def test_the_registry_holds_the_ports_rules():
+    """The registry holds the port's 21 rules: G003 and G012-G031."""
+    assert len(RULE_IDS) == 21
     assert sorted({**ALL_RULES, **PROGRAM_RULES}) == RULE_IDS
 
 
 @pytest.mark.parametrize("kind", ["pos", "neg"])
 @pytest.mark.parametrize("rule", RULES)
 def test_fixture_findings_equal_the_reference(rule, kind):
-    """The port on each fixture (G013 on its torch twin) reports exactly
-    the (line, rule, severity) set that the JAX package's analyzer reports
-    on the original, run here."""
+    """The port on each fixture (G013's and the dtype rules' on their torch
+    twins) reports exactly the (line, rule, severity) set that the JAX
+    package's analyzer reports on the original, run here — less the named
+    TORCH_DEPARTURES, each a finding of the reference."""
     original = os.path.join(DATA, f"{rule}_{kind}.py")
-    want = _triples(ref_analyze_paths([original], rules=RULE_IDS))
+    ref = _triples(ref_analyze_paths([original], rules=RULE_IDS))
+    gone = {line for (name, line) in TORCH_DEPARTURES
+            if name == f"{rule}_{kind}"}
+    assert gone <= {line for line, _, _ in ref}
+    want = [t for t in ref if t[0] not in gone]
     got = _triples(analyze_paths([_port_fixture(rule, kind)]))
     assert got == want
     if kind == "pos":
-        assert [(line, r) for line, r, _ in want] == _expected(original)
+        assert [(line, r) for line, r, _ in ref] == _expected(original)
+        assert [(line, r) for line, r, _ in want] == \
+            _expected(_port_fixture(rule, kind))
     else:
-        assert want == []
+        assert ref == []
 
 
 @pytest.mark.parametrize("kind", ["pos", "neg"])
@@ -153,6 +177,42 @@ def test_g013_twins_follow_their_originals_line_for_line(kind):
     assert not any("jax" in line for line in twin)
     assert _expected(os.path.join(TWINS, f"g013_{kind}.py")) == \
         _expected(os.path.join(DATA, f"g013_{kind}.py"))
+
+
+_REF_CHANNEL = re.compile(r"jax|jnp|\bnp\.|\.astype\(|\.at\[")
+_HEADER = ("", "import torch", "import numpy as np", "import jax",
+           "import jax.numpy as jnp")
+
+
+@pytest.mark.parametrize("kind", ["pos", "neg"])
+@pytest.mark.parametrize("rule", DTYPE_RULES)
+def test_dtype_twins_follow_their_originals_line_for_line(rule, kind):
+    """Each dtype twin has its original's lines and docstring; it differs
+    only in its imports and on the lines that carry the hazard's channel
+    (a jax / jnp / np. / astype / .at[] line, or an EXPECT line), each at the
+    same indent; it holds no jax and carries the original's EXPECT markers
+    less the named departures."""
+    name = f"{rule}_{kind}"
+    with open(os.path.join(DATA, name + ".py"), encoding="utf-8") as fh:
+        orig = fh.read().splitlines()
+    with open(os.path.join(TWINS, name + ".py"), encoding="utf-8") as fh:
+        twin = fh.read().splitlines()
+    assert len(twin) == len(orig)
+    doc_end = ast.parse("\n".join(orig)).body[0].end_lineno
+    assert twin[:doc_end] == orig[:doc_end]
+    for i, (a, b) in enumerate(zip(orig, twin), start=1):
+        if a == b:
+            continue
+        if a in _HEADER and b in _HEADER:
+            continue
+        assert (_REF_CHANNEL.search(a) or EXPECT_RE.search(a)) and \
+            len(a) - len(a.lstrip()) == len(b) - len(b.lstrip()), (i, a, b)
+    assert not any("jax" in line or "jnp" in line for line in twin)
+    assert any("torch" in line for line in twin)
+    gone = {line for (n, line) in TORCH_DEPARTURES if n == name}
+    assert _expected(os.path.join(TWINS, name + ".py")) == [
+        e for e in _expected(os.path.join(DATA, name + ".py"))
+        if e[0] not in gone]
 
 
 @pytest.mark.parametrize("call", [
@@ -252,7 +312,7 @@ def test_live_tree_matches_baseline_exactly(tree_findings):
 
 
 def test_hot_paths_are_clean_without_baseline(tree_findings):
-    """Nothing of the fifteen rules in serving/, pipeline/, runtime/,
+    """Nothing of the port's rules in serving/, pipeline/, runtime/,
     kernels/ or native/ — fixed or suppressed with a reason, never
     baselined."""
     scopes = ("hivemall_tpu_torch/serving/", "hivemall_tpu_torch/pipeline/",
@@ -481,8 +541,7 @@ def test_sarif_output_is_valid_2_1_0(tmp_path):
 
 
 def test_jobs_parallel_findings_match_serial():
-    paths = [os.path.join(DATA, f"{r}_pos.py") for r in RULES
-             if r != "g013"] + [os.path.join(TWINS, "g013_pos.py")]
+    paths = [_port_fixture(r, "pos") for r in RULES]
     serial = [f.format() for f in analyze_paths(paths, jobs=1)]
     threaded = [f.format() for f in analyze_paths(paths, jobs=4)]
     assert serial and threaded == serial
@@ -515,8 +574,12 @@ def test_partial_update_baseline_carries_unscanned_debt(tmp_path):
     proc = _cli("hivemall_tpu_torch/models/fm.py", "--baseline", str(base),
                 "--update-baseline")
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert [b.key for b in load_baseline(str(base))] == \
+    keys = [b.key for b in load_baseline(str(base))]
+    scanned = "hivemall_tpu_torch/models/fm.py"
+    assert [k for k in keys if k[1] != scanned] == \
         [("G012", "hivemall_tpu_torch/serving/server.py", "x = 1")]
+    assert [k for k in keys if k[1] == scanned] == \
+        [b.key for b in load_baseline() if b.path == scanned]
 
 
 def test_expand_to_callers_pulls_in_importers():
@@ -606,7 +669,8 @@ def test_python_m_entrypoint_in_a_fresh_interpreter(tree_findings):
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     lines = proc.stdout.strip().splitlines()
-    assert lines[0] == "graftcheck: clean", proc.stdout
+    assert lines[0] == (f"graftcheck: clean ({len(load_baseline())} "
+                        f"baselined finding(s), 0 stale)"), proc.stdout
     got = json.loads(lines[-1])
     assert got["rc"] == 0
     assert got["foreign"] == []

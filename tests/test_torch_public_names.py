@@ -43,31 +43,23 @@ NOTHING_TO_PORT_NAMES = {
         "against hm_pack_block by chip_smoke's phase native",
 }
 # reference modules of a later slice of the port: graftcheck's analyses
-# and rules beyond its engine, concurrency (G012-G016), FFI (G022-G026)
-# and exception flow (G027-G031)
+# and rules beyond its engine, dtype flow (G003, G017-G021), concurrency
+# (G012-G016), FFI (G022-G026) and exception flow (G027-G031)
 STILL_TO_PORT = {
-    "analysis/traceflow.py", "analysis/dtypeflow.py",
-    "analysis/apicompat.py",
+    "analysis/traceflow.py", "analysis/apicompat.py",
     *(f"analysis/rules/{name}.py" for name in (
-        "g001_recompile", "g002_host_sync", "g003_dtype", "g004_axis",
+        "g001_recompile", "g002_host_sync", "g004_axis",
         "g005_donation", "g006_side_effect", "g007_collective_axis",
         "g008_spec_mesh", "g009_api_compat", "g010_unreduced_output",
-        "g011_divergent_collective", "g017_hot_promotion", "g018_f64_leak",
-        "g019_cast_in_loop", "g020_artifact_dtype",
-        "g021_low_precision_accum", "g032_jit_cache_churn", "g033_host_branch_traced",
-        "g034_unbucketed_shape", "g035_donated_reuse",
-        "g036_hot_loop_sync")),
+        "g011_divergent_collective", "g032_jit_cache_churn",
+        "g033_host_branch_traced", "g034_unbucketed_shape",
+        "g035_donated_reuse", "g036_hot_loop_sync")),
 }
 # names of a ported module that only a later slice's modules read, each
 # group with its reason
 _LATER_CONFIG = {
-    "read only by the dtype-flow rules G003, G017-G021 (dtypeflow.py)": (
-        "DTYPE_MODULE_PREFIXES", "DTYPE_MATH_MODULES",
-        "DTYPEFLOW_HOT_PREFIXES", "DTYPEFLOW_HOT_MODULES", "HOT_MARKER",
-        "DTYPEFLOW_SERVING_PREFIXES", "ARTIFACT_IO_MODULES",
-        "ARTIFACT_MARKER"),
     "read only by the JAX-idiom module rules G002, G004-G006": (
-        "HOT_LOOP_MODULES", "HOT_FN_RE", "SYNC_NP_CALLS", "MESH_FILE",
+        "HOT_LOOP_MODULES", "SYNC_NP_CALLS", "MESH_FILE",
         "DEFAULT_AXIS_NAMES", "STEP_NAME_RE", "SIDE_EFFECT_CALLS",
         "SIDE_EFFECT_ATTR_ROOTS", "SIDE_EFFECT_METHODS",
         "SIDE_EFFECT_NP_RANDOM"),
