@@ -360,6 +360,20 @@ Phases (any failure exits non-zero; nothing is caught):
              walkthroughs pass no -pallas). movielens_cv (~1.7 M rows of the
              exact MF scan) and elastic_ctr_training (8 and then 4 rank
              processes) run apart from the smoke.
+26. retrace — the dynamic twin of the port's retrace rules: G032 run on
+             tests/data/graftcheck_torch/planted_churn.py (2 findings, the
+             capture site naming the churned closure), then that source
+             run on the card for 3 iterations of its loop under
+             alloc_segment_guard: the per-call capture adds >= 1 allocator
+             segment each iteration, the memoised capture of the same
+             function 0 after its first, and the captured function is the
+             one G032 names; main's -pallas model's servable warmed at 3
+             batch buckets adds 0 segments at a warmed bucket, and a
+             length beyond every bucket adds segments and makes
+             alloc_segment_guard(expect_stable=True) raise (G034); a
+             graphed callable's output kept across a second replay holds
+             the second replay's values while a .clone() keeps the first's
+             (G005 / G035). No launch of a hand kernel.
 Prints a kernels JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 """
@@ -1515,7 +1529,7 @@ def fm_card_vs_cpu(seed, dev, data):
             def run():
                 step(st, ti, tv, ty, tva)
 
-            block_ms = (cuda_ms(run, 20), graph_ms(run, 20))
+            block_ms = (cuda_ms(run, 20), graph_ms(run, 20))  # graftcheck: disable=G032 (a timing capture of a different step each pass, replayed then dropped)
         print(f"[fm] minibatch block B={b} D={FULL_DIMS} "
               f"mini_batch_average={avg}: card == CPU, max|err| {e:.3g}")
 
@@ -1562,7 +1576,7 @@ def fm_scorer_ms(state, h_idx, h_val, dev):
             _fm_scores(state, ti, tv)
 
         out.append(f"batch {b}: {cuda_ms(run, 50):.4f} eager, "
-                   f"{graph_ms(run, 50):.4f} as one CUDA graph")
+                   f"{graph_ms(run, 50):.4f} as one CUDA graph")  # graftcheck: disable=G032 (a timing capture of a different step each pass, replayed then dropped)
     print("[fm] f32 scorer on the card, ms per call (CUDA events): "
           + "; ".join(out))
 
@@ -2452,8 +2466,8 @@ def mf_card_vs_cpu(dev, train):
         def run():
             step(st, *cols)
 
-        eager, graph, ops = cuda_ms(run, 20), graph_ms(run, 20), \
-            device_ops(run)
+        eager, graph, ops = (cuda_ms(run, 20), graph_ms(run, 20),  # graftcheck: disable=G032 (a timing capture of a different step each pass, replayed then dropped)
+                             device_ops(run))
         nu, ni = len(np.unique(u)), len(np.unique(i))
         # ids and ratings read once; each unique user's and item's row,
         # bias and touched byte read and written once
@@ -3427,7 +3441,7 @@ def ffm_card_vs_cpu(dev, hyper, staged):
         def run():
             step(st, *args)
 
-        timing[chunk] = (cuda_ms(run, 10), graph_ms(run, 10),
+        timing[chunk] = (cuda_ms(run, 10), graph_ms(run, 10),  # graftcheck: disable=G032 (a timing capture of a different step each pass, replayed then dropped)
                          device_ops(run), peak)
         eager, graph, ops, _ = timing[chunk]
         print(f"[ffm] minibatch step row_chunk={chunk} (B={FFM_BLOCK}, "
@@ -5934,7 +5948,7 @@ def mxu_step_timing(seed, dev, data):
         def run():
             step(st, ti, tv, yy)
 
-        out[backend] = (cuda_ms(run, MXU_REPS), graph_ms(run, MXU_REPS),
+        out[backend] = (cuda_ms(run, MXU_REPS), graph_ms(run, MXU_REPS),  # graftcheck: disable=G032 (a timing capture of a different step each pass, replayed then dropped)
                         *steady_ops(run))
     for backend, (eager, graph, ops, windows) in out.items():
         print(f"[mxu] AROW minibatch step ({backend}), B = 4096, K = {WIDTH}"
@@ -6585,6 +6599,145 @@ def phase_examples(dev, smi):
                   f"rows/s; {smi}")
 
 
+RETRACE_PLANTED = "tests/data/graftcheck_torch/planted_churn.py"
+RETRACE_ITERS = 3  # iterations of the planted loop, per path
+RETRACE_WIDTH = 64
+RETRACE_BUCKETS = (8, 64, 512)  # the batch buckets phase retrace warms
+RETRACE_NOVEL = 1 << 17  # rows beyond every warmed bucket
+
+
+def retrace_scale(v):
+    """The graphed callable of phase retrace's static-output check."""
+    return v * 2.0
+
+
+def retrace_rows(rng, n, dims):
+    """n pre-parsed rows of RETRACE_WIDTH ids each, in the flat
+    (ids, values, lengths) form a servable stages without a row loop."""
+    k = n * RETRACE_WIDTH
+    return (rng.integers(0, dims, k, dtype=np.int64),
+            np.ones(k, np.float32), np.full(n, RETRACE_WIDTH, np.int64))
+
+
+def retrace_churn(seed, dev):
+    """G032 on the planted source (its program alone), then the source run
+    on the card: per-call and memoised capture, new allocator segments per
+    iteration of each, and the names of the functions captured."""
+    import os
+    import runpy
+    from unittest import mock
+
+    import torch
+
+    from hivemall_tpu_torch.analysis.modmodel import build_model
+    from hivemall_tpu_torch.analysis.program import ProgramModel
+    from hivemall_tpu_torch.analysis.rules import g032_jit_cache_churn
+    from hivemall_tpu_torch.runtime.metrics import alloc_segment_guard
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        *RETRACE_PLANTED.split("/"))
+    with open(path, encoding="utf-8") as fh:
+        source = fh.read()
+    program = ProgramModel({RETRACE_PLANTED: build_model(RETRACE_PLANTED,
+                                                         source)},
+                           with_package_context=False)
+    found = g032_jit_cache_churn.check_program(program, {RETRACE_PLANTED})
+    sites = [f for f in found if "make_graphed_callables" in f.snippet]
+    assert len(found) == 2 and len(sites) == 1, [f.format() for f in found]
+    planted = runpy.run_path(path)
+    captured = []
+    real = torch.cuda.make_graphed_callables
+
+    def recording(fn, *args, **kw):
+        captured.append(fn.__name__)
+        return real(fn, *args, **kw)
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    blocks = [torch.randn(1024, device=dev, generator=gen)
+              for _ in range(RETRACE_ITERS)]
+    segments = {"drive": [], "drive_memo": []}
+    with mock.patch.object(torch.cuda, "make_graphed_callables", recording):
+        for fn, segs in segments.items():
+            for b in blocks:
+                with alloc_segment_guard(f"retrace.{fn}", dev) as g:
+                    (out,) = planted[fn]([b])
+                segs.append(g.segments)
+                torch.testing.assert_close(out, torch.sum(b * 2.0),
+                                           rtol=1e-6, atol=1e-5)
+    return sites[0], captured, segments
+
+
+def phase_retrace(seed, dev, smi, linear_model):
+    """The dynamic twin of the port's retrace rules on the card (phase 26
+    of the module docstring); prints each count on its own line."""
+    import torch
+
+    from hivemall_tpu_torch.runtime.metrics import alloc_segment_guard
+    from hivemall_tpu_torch.serving.engine import make_servable
+
+    t0 = time.perf_counter()
+    site, captured, segs = retrace_churn(seed, dev)
+    name = captured[0]
+    assert captured == [name] * (RETRACE_ITERS + 1), captured
+    assert name in site.snippet, (name, site.snippet)
+    assert all(n >= 1 for n in segs["drive"]), segs
+    assert all(n == 0 for n in segs["drive_memo"][1:]), segs
+    print(f"[retrace] G032 on {RETRACE_PLANTED}: 2 findings; the capture "
+          f"site (line {site.line}) captures {name}")
+    print(f"[retrace] per-call capture of {name}, {RETRACE_ITERS} "
+          f"iterations: new allocator segments {segs['drive']} (>= 1 "
+          f"each, {RETRACE_ITERS} captures)")
+    print(f"[retrace] memoised capture of {name}, {RETRACE_ITERS} "
+          f"iterations: new allocator segments {segs['drive_memo']} (0 "
+          f"after the first, 1 capture)")
+
+    servable = make_servable(linear_model)
+    rng = np.random.default_rng(seed)
+    for b in RETRACE_BUCKETS:
+        servable.finalize(servable.run_padded(
+            retrace_rows(rng, b, servable.dims), b, RETRACE_WIDTH), b)
+    n_warm = RETRACE_BUCKETS[-1] * 3 // 5
+    rows = retrace_rows(rng, n_warm, servable.dims)
+    with alloc_segment_guard("retrace.warm", dev, expect_stable=True) as g:
+        servable.finalize(servable.run_padded(rows, RETRACE_BUCKETS[-1],
+                                              RETRACE_WIDTH), n_warm)
+    print(f"[retrace] run_padded of {n_warm} rows at the warmed bucket "
+          f"{RETRACE_BUCKETS[-1]} x {RETRACE_WIDTH}: {g.segments} new "
+          f"allocator segments")
+    rows = retrace_rows(rng, RETRACE_NOVEL, servable.dims)
+    novel = alloc_segment_guard("retrace.novel", dev, expect_stable=True)
+    raised = None
+    try:
+        with novel:
+            servable.finalize(servable.run_padded(rows, RETRACE_NOVEL,
+                                                  RETRACE_WIDTH),
+                              RETRACE_NOVEL)
+    except RuntimeError as e:
+        raised = str(e)
+    assert novel.segments > 0 and raised is not None, novel.segments
+    print(f"[retrace] run_padded of {RETRACE_NOVEL} rows, beyond every "
+          f"warmed bucket {RETRACE_BUCKETS}: {novel.segments} new allocator "
+          f"segments; expect_stable=True raised: {raised[:72]}...")
+
+    # the sample is the graph's static input: each call copies into it
+    sample = torch.zeros(1024, device=dev)
+    x1 = torch.full((1024,), 1.0, device=dev)
+    x2 = torch.full((1024,), 3.0, device=dev)
+    graphed = torch.cuda.make_graphed_callables(retrace_scale, (sample,))
+    first = graphed(x1)
+    kept = first.clone()
+    second = graphed(x2)
+    held = first  # graftcheck: disable=G005 (reads the overwritten output on purpose: the hazard's dynamic witness)
+    same = held.data_ptr() == second.data_ptr()
+    overwritten = torch.equal(held, x2 * 2.0)
+    cloned = torch.equal(kept, x1 * 2.0)
+    assert overwritten and same and cloned, (overwritten, same, cloned)
+    print(f"[retrace] graphed output kept across a second replay: holds "
+          f"the second replay's values {overwritten} (one static buffer: "
+          f"{same}); its .clone() keeps the first's {cloned}")
+    print(f"[retrace] phase took {time.perf_counter() - t0:.2f} s; {smi}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6773,6 +6926,10 @@ def main(argv=None) -> int:
     print(f"[examples] phase took {time.perf_counter() - t_ex:.1f} s; kernel "
           f"launches during it: {dict(LAUNCHES)} (the walkthroughs reach no "
           f"pallas_call in the JAX package and pass no -pallas)")
+    phase_retrace(args.seed, dev, smi, served[0])
+    assert not any(LAUNCHES.values()), dict(LAUNCHES)
+    print(f"[retrace] kernel launches during it: {dict(LAUNCHES)} (captures "
+          f"and a servable's padded run; no hand kernel)")
     source = "hivemall_tpu_torch/kernels/csrc/linear_scan.cu"
     replaces = "hivemall_tpu/kernels/linear_scan.py:44"
     kernels = [

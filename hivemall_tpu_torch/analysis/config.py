@@ -1,23 +1,96 @@
 """Codebase-specific knobs for the port's graftcheck rules.
 
 Only the constants that this package's modules read: the module model's
-trace and taint vocabulary, the dtype-flow rules' scopes, the concurrency
-rules' scope and blocking-call tables, the FFI rules' symbol prefix,
-validators and C sources, and the exception-flow rules' scope, loud
-surfaces and backoff calls — all pointed at the port's tree
-(``hivemall_tpu_torch/``).
+capture and taint vocabulary, the retrace rules' scopes and tables, the
+dtype-flow rules' scopes, the concurrency rules' scope and blocking-call
+tables, the FFI rules' symbol prefix, validators and C sources, and the
+exception-flow rules' scope, loud surfaces and backoff calls — all pointed
+at the port's tree (``hivemall_tpu_torch/``).
 """
 
 from __future__ import annotations
 
 import re
 
-# --- module model (modmodel.py): traced functions and device-value taint ---
-# The model keeps the JAX package's trace/taint walker so that its rules
-# read the same facts; no torch code is traced, so in the port these mark
-# only a stray jax-style wrapper. G013 reads JITTED_ATTR_CALLEES too.
+# --- G002: modules whose loops are per-step hot paths -----------------------
+# The per-step loops of these modules drive every trainer; an implicit
+# device->host sync there stalls the launch stream once per step.
+HOT_LOOP_MODULES = (
+    "hivemall_tpu_torch/core/engine.py",
+    "hivemall_tpu_torch/parallel/sharded_train.py",
+    "hivemall_tpu_torch/parallel/mix.py",
+    "hivemall_tpu_torch/models/trees/grow.py",
+    # the epoch/convergence loop over the engine's steps
+    "hivemall_tpu_torch/models/base.py",
+)
+
+# --- module model (modmodel.py): captures and device-value taint ------------
+# A capture is code whose host Python runs once and whose device work is
+# replayed: the port's counterpart of a jitted function (traceflow.py's
+# docstring). The model's traced set holds the captured defs, beside the
+# JAX package's jit/vmap/scan forms, which it keeps. G013 reads
+# JITTED_ATTR_CALLEES too.
+#
+# Calls that force a device->host copy when applied to a device value.
+# ``.cpu()`` / ``.tolist()`` of a whole value is the port's batched
+# boundary read (jax.device_get's part): G002 flags it only per element
+# (BOUNDARY_READ_METHODS); ``.item()`` / ``.numpy()`` are per value.
 SYNC_CALLS = ("float", "int", "bool")
-SYNC_METHODS = ("item", "tolist")
+SYNC_NP_CALLS = ("asarray", "array")
+SYNC_METHODS = ("item", "tolist", "cpu", "numpy")
+BOUNDARY_READ_METHODS = ("cpu", "tolist")
+# A call with this tail waits for the card whatever its arguments
+# (``torch.cuda.synchronize()``, ``stream.synchronize()``).
+SYNC_WAIT_TAILS = ("synchronize",)
+
+# Wrappers whose function argument (or decorated def) is captured: its
+# host Python runs once, at capture, and its device work is replayed.
+CAPTURE_WRAPPERS = ("torch.compile", "torch.jit.script", "torch.jit.trace",
+                    "torch.cuda.make_graphed_callables",
+                    "make_graphed_callables")
+# ``with torch.cuda.graph(g):`` — the block's body is a capture.
+CAPTURE_CONTEXTS = ("torch.cuda.graph",)
+# Calls that build a capture (G001(b), traceflow's sites): each one takes a
+# fresh private memory pool, so one built per call or per iteration adds
+# allocator segments every time.
+CAPTURE_CONSTRUCTORS = ("torch.cuda.CUDAGraph", "torch.cuda.graph",
+                        "torch.cuda.make_graphed_callables",
+                        "make_graphed_callables", "torch.compile")
+# torch.compile modes that replay CUDA graphs: their outputs are static
+# buffers that the next call overwrites, like make_graphed_callables'.
+GRAPHED_COMPILE_MODES = ("reduce-overhead", "max-autotune")
+# Parameters of a captured def annotated with one of these are Python
+# constants per capture (torch.compile guards on them), the port's
+# counterpart of static_argnums.
+STATIC_ANNOTATIONS = ("str", "bool", "int", "float")
+
+# torch calls whose result is host data, and prefixes of torch namespaces
+# whose calls the taint walker does not classify (their results follow
+# their arguments); every other ``torch.*`` call yields a device value.
+# A ``device="cpu"`` literal makes any constructor's result host data.
+TORCH_HOST_CALLS = ("torch.from_numpy", "torch.device", "torch.Size",
+                    "torch.is_tensor", "torch.finfo", "torch.iinfo",
+                    "torch.get_default_dtype", "torch.manual_seed",
+                    "torch.initial_seed", "torch.seed", "torch.Generator",
+                    "torch.no_grad", "torch.inference_mode",
+                    "torch.set_grad_enabled", "torch.is_grad_enabled",
+                    "torch.promote_types", "torch.result_type")
+TORCH_UNTRACKED_PREFIXES = ("torch.cuda.", "torch.backends.",
+                            "torch.distributed.", "torch.utils.",
+                            "torch.profiler.", "torch.jit.",
+                            "torch.library.", "torch.testing.",
+                            "torch.multiprocessing.", "torch.compiler.",
+                            "torch._dynamo.")
+# Callee names that declare a host result: a helper named like this copies
+# its device input to the host in one read, so what it returns is host
+# data (models/trees/grow.py's _split_to_host, all_gather_host).
+HOST_RESULT_NAME_RE = re.compile(r"(to_host|device_get|gather_host)$")
+# Tensor methods and attributes that read metadata only: no copy, no sync.
+TENSOR_META_METHODS = ("size", "dim", "numel", "nelement", "element_size",
+                       "data_ptr", "stride", "is_contiguous", "get_device",
+                       "storage_offset", "is_floating_point")
+TENSOR_META_ATTRS = ("shape", "dtype", "device", "ndim", "is_cuda",
+                     "requires_grad", "layout")
 
 # `step = make_train_step(...)` / `predict = make_predict(...)`: calling the
 # result yields device values. Matched against the callee name.
@@ -38,9 +111,64 @@ TRACING_TRANSFORMS = (
 UNTAINT_CALLS = ("device_get", "shape", "len", "range", "eval_shape",
                  "tree_structure")
 
-# Methods with these names receive device state / blocks by contract; the
+# Methods with these names receive device state / blocks by contract, so
+# G002 treats their parameters as device values even outside a loop; the
 # dtype-flow rules count them as per-step code (dtypeflow.in_hot_scope).
 HOT_FN_RE = re.compile(r"^(step|_step|train_step|epoch)$")
+
+# --- G006: host side effects inside a capture --------------------------------
+SIDE_EFFECT_CALLS = ("print",)
+SIDE_EFFECT_ATTR_ROOTS = ("time", "logging")
+SIDE_EFFECT_METHODS = ("increment", "set_gauge", "record")
+SIDE_EFFECT_NP_RANDOM = ("random",)
+# torch's host RNG: seeding it or building a CPU generator inside a
+# capture happens once, at capture.
+SIDE_EFFECT_TORCH_RNG = ("torch.manual_seed", "torch.seed",
+                         "torch.random.manual_seed", "torch.random.seed")
+
+# --- G032-G036: the retrace layer (traceflow.py) -----------------------------
+# Modules whose capture call graphs the retrace rules sweep by default: the
+# serving dispatch stack and the kernel/op layers every step and scorer
+# funnels through. Anything else opts in with the marker comment.
+TRACEFLOW_HOT_PREFIXES = (
+    "hivemall_tpu_torch/ops/",
+    "hivemall_tpu_torch/kernels/",
+)
+TRACEFLOW_HOT_MODULES = (
+    "hivemall_tpu_torch/serving/engine.py",
+    "hivemall_tpu_torch/serving/retrieval.py",
+    "hivemall_tpu_torch/serving/sharded.py",
+)
+TRACEFLOW_MARKER = "# graftcheck: jit-hot-module"
+
+# Module-level dicts recognized as sanctioned capture memos (the
+# get-or-build idiom, ``_SCORER_JIT`` / ``_STEP_GRAPHS``): a function that
+# both reads and writes one is a memo helper, and captures built under it
+# are built once per key, not once per call.
+TRACEFLOW_MEMO_NAME_RE = re.compile(r"^_[A-Z0-9_]*(JIT|GRAPH)[A-Z0-9_]*$")
+
+# Function names sanctioned to build captures per CALL of the factory:
+# factories invoked once at setup (make_*/build_*) and __init__. Calling one
+# of these per hot-loop iteration is still churn (G032c).
+TRACEFLOW_FACTORY_RE = re.compile(r"^_?(make|build)_\w+")
+
+# Calls that canonicalize an array's shape onto the bucket ladder before it
+# reaches a capture (G034): pad_to_bucket is the width calculator,
+# bucket_rows and pad_rows_to_multiple the array-level canonicalizers; a
+# bare pad is trusted as deliberate shape control.
+SHAPE_CANONICALIZERS = ("pad_to_bucket", "bucket_rows", "pad_rows_to_multiple",
+                        "pad")
+# The port's bucketed dispatch entry points (G034): a servable's padded
+# run is warmed per (batch, width) bucket, and a novel length reaching it
+# adds allocator segments after warmup (serving/engine.py run_padded).
+BUCKETED_DISPATCH_TAILS = ("run_padded",)
+
+# Callee names that declare themselves host-sync boundaries (G036): a
+# helper named like one of these syncs on purpose, as the loop's
+# sanctioned whole-value boundary read.
+TRACEFLOW_SYNC_NAME_RE = re.compile(
+    r"(sync|block_until|device_get|to_host|fetch|drain|gather_host)",
+    re.IGNORECASE)
 
 # --- program model (program.py) ---------------------------------------------
 # Collective calls whose axis argument the per-function summaries record.
@@ -156,6 +284,11 @@ CONCURRENCY_MARKER = "# graftcheck: serving-module"
 # the host are flagged too under a lock in scope. That costs a suppression
 # (with its reason) at such a line; the port's locked regions call neither.
 BLOCKING_DEVICE_TAILS = ("synchronize", "item", "cpu")
+# G036's callee walk (traceflow.sync_site) counts the same tails, with the
+# same cost: a helper that calls ``.item()`` on a numpy scalar or ``.cpu()``
+# on a host tensor, called in a hot loop, is a finding to rename
+# (*_fetch/*_sync), fix or suppress with its reason.
+TRACEFLOW_SYNC_CALL_TAILS = BLOCKING_DEVICE_TAILS
 BLOCKING_IO_TAILS = ("sleep", "urlopen", "connect", "accept", "recv",
                      "sendall", "getaddrinfo", "fsync")
 # Future/thread rendezvous: .result() blocks on completion; set_result /

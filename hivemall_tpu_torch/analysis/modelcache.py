@@ -49,7 +49,8 @@ from typing import Dict, Optional, Tuple
 
 from .modmodel import ModuleModel
 
-SCHEMA_VERSION = 1
+# 2: ModuleModel gained capture_regions and JitWrap.graphed (captures)
+SCHEMA_VERSION = 2
 _MAGIC = "graftcheck-torch-model-cache"
 
 _MEM: Dict[str, Tuple[float, int, str, Optional[ModuleModel]]] = {}

@@ -4,14 +4,33 @@ Builds, once per file:
 
 - parent links + enclosing-scope resolution (``enclosing_function``,
   ``resolve_def``), which the concurrency and FFI models walk;
-- the JAX package's trace/taint facts, kept so that the model is the same
-  object with the same fields as the reference's: *traced* functions
-  (defs wrapped by ``jit``/``vmap``/``scan``-shaped transforms, plus defs
-  nested in them), their static parameter names, jit aliases with their
-  ``donate_argnums``, and an intraprocedural *device-value taint* walker.
-  Torch code has no traced functions, so in the port these are empty
-  unless a module carries a jax-style wrapper; G013 reads ``traced`` to
-  name a call to one.
+- the *traced* set: the port's captures (traceflow.py's docstring) —
+  defs handed to ``torch.compile`` / ``torch.jit.script`` /
+  ``torch.jit.trace`` / ``torch.cuda.make_graphed_callables`` (as a call
+  or a decorator) and defs called by name inside a ``with
+  torch.cuda.graph(g):`` block — beside the JAX package's
+  ``jit``/``vmap``/``scan``-shaped forms, which it keeps; plus every def
+  nested in a traced def. The ``with`` blocks themselves are
+  ``capture_regions``;
+- per-def static parameter names: a literal ``static_argnums`` /
+  ``static_argnames``, or an annotation in ``config.STATIC_ANNOTATIONS``
+  (torch.compile guards on a ``str`` / ``bool`` / scalar argument, so it
+  is a Python constant per capture);
+- capture aliases (``jit_aliases``): ``name = torch.compile(fn, ...)``
+  (including ``self._step = ...`` and ``return``-ed wrappers, recorded
+  under the factory's name), each a ``JitWrap`` that says whether its
+  outputs are static graph buffers (``graphed``);
+- an intraprocedural *device-value taint* walker: ``torch.*`` results
+  (``config.TORCH_HOST_CALLS`` and a ``device="cpu"`` literal aside),
+  tensor methods on device values, ``.to(device)`` / ``.cuda()``, calls of
+  captures and of step factories (``config.JITTED_FACTORY_RE``), and the
+  JAX package's ``jnp.*`` / ``jax.*`` results; ``.cpu()`` / ``.numpy()``
+  / ``.item()`` / ``.tolist()``, numpy results and tensor metadata
+  (``.shape``, ``.size()``) are host values.
+
+Free (closure) variables are deliberately NOT tainted: at capture time
+they are Python constants, so branching on them is capture-safe.
+G003, G013 and the dtype-flow rules read ``traced`` too.
 """
 
 from __future__ import annotations
@@ -79,24 +98,44 @@ def _literal_strs(node: ast.expr) -> Optional[Tuple[str, ...]]:
     return None
 
 
+_JAX_JIT = ("jax.jit", "jit")
+
+
 def _is_jit_callee(node: ast.expr) -> bool:
+    """A capture wrapper of the port or the JAX package's jit."""
     name = dotted_name(node)
-    return name in ("jax.jit", "jit")
+    return name in _JAX_JIT or name in config.CAPTURE_WRAPPERS
 
 
 def _is_partial_jit(call: ast.Call) -> bool:
-    """partial(jax.jit, ...) / functools.partial(jax.jit, ...)."""
+    """partial(torch.compile, ...) / functools.partial(jax.jit, ...)."""
     name = dotted_name(call.func)
     if name not in ("partial", "functools.partial"):
         return False
     return bool(call.args) and _is_jit_callee(call.args[0])
 
 
-class JitWrap:
-    """One jax.jit(...) site: static/donate info + the wrapped expression."""
+def is_capture_constructor(call: ast.Call) -> bool:
+    """A call that builds a capture (config.CAPTURE_CONSTRUCTORS) or a
+    jax.jit wrapper."""
+    name = dotted_name(call.func)
+    return name in _JAX_JIT or name in config.CAPTURE_CONSTRUCTORS
 
-    __slots__ = ("call", "static_argnums", "static_argnames",
-                 "donate_argnums", "has_donate")
+
+def _is_capture_context(item: ast.withitem) -> bool:
+    """``with torch.cuda.graph(g):`` — its body is captured."""
+    expr = item.context_expr
+    return isinstance(expr, ast.Call) \
+        and dotted_name(expr.func) in config.CAPTURE_CONTEXTS
+
+
+class JitWrap:
+    """One capture wrapper (or jax.jit) site: its static arguments and
+    whether its outputs are static graph buffers that the next call
+    overwrites (``graphed``: make_graphed_callables, and torch.compile in
+    a CUDA-graph mode)."""
+
+    __slots__ = ("call", "static_argnums", "static_argnames", "graphed")
 
     def __init__(self, call: ast.Call):
         self.call = call
@@ -104,9 +143,11 @@ class JitWrap:
         self.static_argnums = _literal_ints(sn) if sn is not None else None
         sa = _call_kwarg(call, "static_argnames")
         self.static_argnames = _literal_strs(sa) if sa is not None else None
-        dn = _call_kwarg(call, "donate_argnums")
-        self.has_donate = dn is not None
-        self.donate_argnums = _literal_ints(dn) if dn is not None else None
+        name = dotted_name(call.func) or ""
+        mode = _call_kwarg(call, "mode")
+        self.graphed = name.endswith("make_graphed_callables") or (
+            name == "torch.compile" and isinstance(mode, ast.Constant)
+            and mode.value in config.GRAPHED_COMPILE_MODES)
 
 
 class ModuleModel:
@@ -133,8 +174,8 @@ class ModuleModel:
         self.static_params: Dict[ast.AST, Set[str]] = {}
         # alias ("step", "self._step") -> JitWrap
         self.jit_aliases: Dict[str, JitWrap] = {}
-        # jit call sites wrapping a step-shaped def without donate_argnums
-        self.jit_wraps: List[Tuple[JitWrap, Optional[str]]] = []
+        # `with torch.cuda.graph(g):` blocks
+        self.capture_regions: List[ast.With] = []
 
         self._collect_traced_roots()
         self._propagate_nested_traced()
@@ -166,10 +207,14 @@ class ModuleModel:
 
     def _mark_traced(self, fn: ast.AST, wrap: Optional[JitWrap]) -> None:
         self.traced.add(fn)
-        if wrap is None:
-            return
         statics = self.static_params.setdefault(fn, set())
         args = fn.args
+        for a in args.posonlyargs + args.args + args.kwonlyargs:
+            if isinstance(a.annotation, ast.Name) \
+                    and a.annotation.id in config.STATIC_ANNOTATIONS:
+                statics.add(a.arg)
+        if wrap is None:
+            return
         pos = [a.arg for a in args.posonlyargs + args.args]
         if wrap.static_argnums:
             for i in wrap.static_argnums:
@@ -189,29 +234,43 @@ class ModuleModel:
                         self._mark_traced(fn, JitWrap(dec))
                     elif _is_partial_jit(dec):
                         self._mark_traced(fn, JitWrap(dec))
-        # call sites: jax.jit(name) / jax.vmap(name) / jax.lax.scan(name, ..)
+        # call sites: torch.compile(name) / make_graphed_callables(name, ..)
+        # / jax.jit(name) / jax.vmap(name) / jax.lax.scan(name, ..); and
+        # `with torch.cuda.graph(g):` blocks
         for node in ast.walk(self.tree):
+            if isinstance(node, ast.With) \
+                    and any(_is_capture_context(i) for i in node.items):
+                self._mark_region(node)
+                continue
             if not isinstance(node, ast.Call):
                 continue
             callee = dotted_name(node.func)
             if callee is None:
                 continue
             tail = callee.rsplit(".", 1)[-1]
-            if tail not in config.TRACING_TRANSFORMS:
+            capture = callee in config.CAPTURE_WRAPPERS
+            if not capture and tail not in config.TRACING_TRANSFORMS:
                 continue
             fn_arg: Optional[ast.expr] = node.args[0] if node.args else None
-            wrap = JitWrap(node) if tail == "jit" else None
+            wrap = JitWrap(node) if tail == "jit" or capture else None
             if isinstance(fn_arg, ast.Name):
                 fn = self.resolve_def(fn_arg.id, node)
                 if fn is not None:
                     self._mark_traced(fn, wrap)
-            if tail == "jit" and wrap is not None:
-                self._record_jit_alias(node, wrap, fn_arg)
+            if wrap is not None:
+                self._record_jit_alias(node, wrap)
 
-    def _record_jit_alias(self, call: ast.Call, wrap: JitWrap,
-                          fn_arg: Optional[ast.expr]) -> None:
-        wrapped_name = dotted_name(fn_arg) if fn_arg is not None else None
-        self.jit_wraps.append((wrap, wrapped_name))
+    def _mark_region(self, region: ast.With) -> None:
+        """A ``with torch.cuda.graph(g):`` body runs its host code once, at
+        capture: record it, and trace the defs it calls by name."""
+        self.capture_regions.append(region)
+        for node in walk_region(region):
+            if isinstance(node, ast.Call) and isinstance(node.func, ast.Name):
+                fn = self.resolve_def(node.func.id, node)
+                if fn is not None:
+                    self._mark_traced(fn, None)
+
+    def _record_jit_alias(self, call: ast.Call, wrap: JitWrap) -> None:
         parent = getattr(call, "graftcheck_parent", None)
         if isinstance(parent, ast.Assign) and parent.value is call:
             for tgt in parent.targets:
@@ -306,10 +365,11 @@ class ModuleModel:
             else None
         if callee is not None:
             tail = callee.rsplit(".", 1)[-1]
-            # `step = make_train_step(...)` / `x = jax.jit(f)`:
-            # target is a jitted CALLABLE, not a device value
+            # `step = make_train_step(...)` / `x = torch.compile(f)`:
+            # target is a captured CALLABLE, not a device value
             if (config.JITTED_FACTORY_RE.match(tail)
-                    or callee in ("jax.jit", "jit")):
+                    or callee in _JAX_JIT
+                    or callee in config.CAPTURE_WRAPPERS):
                 for tgt in targets:
                     name = dotted_name(tgt)
                     if name:
@@ -333,11 +393,17 @@ class ModuleModel:
     def call_yields_device(self, call: ast.Call, tainted, callables) -> Optional[bool]:
         """True/False when the call's result is known device/host; None when
         unknown (propagate from arguments)."""
+        if _cpu_literal(call):
+            return False  # device="cpu" / .to("cpu")
         callee = dotted_name(call.func)
         if callee is None:
+            # a method of a computed value: `x.cpu().numpy()`, `f(x).sum()`
+            if isinstance(call.func, ast.Attribute):
+                return self._method_yields_device(call, tainted, callables)
             return None
         tail = callee.rsplit(".", 1)[-1]
-        if tail in config.UNTAINT_CALLS:
+        if tail in config.UNTAINT_CALLS \
+                or config.HOST_RESULT_NAME_RE.search(tail):
             return False
         if callee.startswith(("jnp.", "jax.numpy.")):
             return True
@@ -345,19 +411,45 @@ class ModuleModel:
             return None  # host pytrees stay host: propagate from args
         if callee.startswith("jax.") or callee in ("jit", "vmap"):
             return True
+        if callee.startswith("torch."):
+            if callee in config.TORCH_HOST_CALLS:
+                return False
+            if callee.startswith(config.TORCH_UNTRACKED_PREFIXES):
+                return None
+            return True
         if callee in callables or callee in self.jit_aliases:
             return True
         if tail in config.JITTED_ATTR_CALLEES and "." in callee:
             return True  # self._step(...) trainer convention
         if callee.startswith("np.") or callee.startswith("numpy."):
             return False
-        if tail in config.SYNC_CALLS or tail in config.SYNC_METHODS:
+        # `float(x)` is a host read; `x.float()` a tensor method
+        if callee in config.SYNC_CALLS or tail in config.SYNC_METHODS:
             return False
-        # call to a def jitted in this module
-        fn = self.resolve_def(callee, call) if "." not in callee else None
+        if "." in callee:
+            return self._method_yields_device(call, tainted, callables)
+        # call to a def captured in this module
+        fn = self.resolve_def(callee, call)
         if fn is not None and fn in self.traced:
             return True
         return None
+
+    def _method_yields_device(self, call: ast.Call, tainted,
+                              callables) -> Optional[bool]:
+        """A tensor method: metadata reads are host values; ``.to(...)``
+        with a device and ``.cuda()`` are device values; any other method
+        of a device value is one; else unknown."""
+        attr = call.func.attr
+        if attr in config.SYNC_METHODS or attr in config.TENSOR_META_METHODS:
+            return False
+        if attr == "cuda":
+            return True
+        receiver = self.expr_tainted(call.func.value, tainted, callables)
+        if attr == "to":
+            moves = [a for a in call.args if not _is_dtype(a)] + [
+                kw.value for kw in call.keywords if kw.arg == "device"]
+            return True if moves else receiver
+        return True if receiver else None
 
     def expr_tainted(self, expr: ast.expr, tainted, callables) -> bool:
         if isinstance(expr, ast.Name):
@@ -371,6 +463,8 @@ class ModuleModel:
                 self.expr_tainted(kw.value, tainted, callables)
                 for kw in expr.keywords)
         if isinstance(expr, ast.Attribute):
+            if expr.attr in config.TENSOR_META_ATTRS:
+                return False
             return self.expr_tainted(expr.value, tainted, callables)
         if isinstance(expr, ast.Subscript):
             return self.expr_tainted(expr.value, tainted, callables)
@@ -398,6 +492,41 @@ class ModuleModel:
         if isinstance(expr, ast.Starred):
             return self.expr_tainted(expr.value, tainted, callables)
         return False
+
+
+def _cpu_literal(call: ast.Call) -> bool:
+    """``device="cpu"`` / ``device=torch.device("cpu")`` / ``.to("cpu")``:
+    the result is host data whatever the inputs."""
+    values = [kw.value for kw in call.keywords if kw.arg == "device"]
+    if isinstance(call.func, ast.Attribute) and call.func.attr == "to":
+        values += call.args
+    for v in values:
+        if isinstance(v, ast.Call) and dotted_name(v.func) == "torch.device" \
+                and v.args:
+            v = v.args[0]
+        if isinstance(v, ast.Constant) and isinstance(v.value, str) \
+                and v.value.split(":")[0] == "cpu":
+            return True
+    return False
+
+
+def _is_dtype(expr: ast.expr) -> bool:
+    """``torch.float32`` / ``dtype=...``-shaped argument of ``.to()``."""
+    name = dotted_name(expr)
+    return name is not None and name.startswith("torch.") \
+        and name != "torch.device"
+
+
+def walk_region(region: ast.With):
+    """Walk a capture block's body, not descending into nested function /
+    class definitions (their bodies run when called, not at capture)."""
+    stack = list(region.body)
+    while stack:
+        node = stack.pop()
+        yield node
+        if isinstance(node, _FN_TYPES + (ast.ClassDef, ast.Lambda)):
+            continue
+        stack.extend(ast.iter_child_nodes(node))
 
 
 def walk_scope(fn: ast.AST):

@@ -2,7 +2,8 @@
 
 Module rules export ``RULE_ID`` and ``check(model)``; program rules export
 ``RULE_ID`` and ``check_program(program, scanned)`` — the runner dispatches
-each tier (runner._run_rules). The port has the JAX package's dtype rules
+each tier (runner._run_rules). The port has the JAX package's retrace
+rules (G001, G002, G005, G006, G032-G036) over captures, dtype rules
 (G003, G017-G021), concurrency rules (G012-G016), FFI rules (G022-G026)
 and exception-flow rules (G027-G031), each in the reference's tier but
 G018, which reads the dtype-flow model for torch's ``as_tensor`` channel
@@ -14,18 +15,23 @@ from typing import Callable, Dict, List
 
 from ..findings import Finding
 from ..modmodel import ModuleModel
-from . import (g003_dtype, g012_unguarded_shared_field,
-               g013_blocking_under_lock, g014_cv_misuse, g015_thread_leak,
-               g016_lock_order_cycle, g017_hot_promotion, g018_f64_leak,
-               g019_cast_in_loop, g020_artifact_dtype,
-               g021_low_precision_accum, g022_ffi_unvalidated_pointer,
-               g023_ffi_borrowed_buffer, g024_ffi_missing_prototype,
-               g025_ffi_abi_drift, g026_ffi_unchecked_return,
-               g027_future_leak, g028_silent_fallback,
-               g029_swallowed_exception, g030_unwind_under_lock,
-               g031_unbounded_retry)
+from . import (g001_recompile, g002_host_sync, g003_dtype,
+               g005_donation, g006_side_effect,
+               g012_unguarded_shared_field, g013_blocking_under_lock,
+               g014_cv_misuse, g015_thread_leak, g016_lock_order_cycle,
+               g017_hot_promotion, g018_f64_leak, g019_cast_in_loop,
+               g020_artifact_dtype, g021_low_precision_accum,
+               g022_ffi_unvalidated_pointer, g023_ffi_borrowed_buffer,
+               g024_ffi_missing_prototype, g025_ffi_abi_drift,
+               g026_ffi_unchecked_return, g027_future_leak,
+               g028_silent_fallback, g029_swallowed_exception,
+               g030_unwind_under_lock, g031_unbounded_retry,
+               g032_jit_cache_churn, g033_host_branch_traced,
+               g034_unbucketed_shape, g035_donated_reuse,
+               g036_hot_loop_sync)
 
-_MODULE_RULES = (g003_dtype, g015_thread_leak)
+_MODULE_RULES = (g001_recompile, g002_host_sync, g003_dtype,
+                 g005_donation, g006_side_effect, g015_thread_leak)
 _PROGRAM_RULES = (g012_unguarded_shared_field, g013_blocking_under_lock,
                   g014_cv_misuse, g016_lock_order_cycle,
                   g017_hot_promotion, g018_f64_leak, g019_cast_in_loop,
@@ -34,7 +40,10 @@ _PROGRAM_RULES = (g012_unguarded_shared_field, g013_blocking_under_lock,
                   g024_ffi_missing_prototype, g025_ffi_abi_drift,
                   g026_ffi_unchecked_return, g027_future_leak,
                   g028_silent_fallback, g029_swallowed_exception,
-                  g030_unwind_under_lock, g031_unbounded_retry)
+                  g030_unwind_under_lock, g031_unbounded_retry,
+                  g032_jit_cache_churn, g033_host_branch_traced,
+                  g034_unbucketed_shape, g035_donated_reuse,
+                  g036_hot_loop_sync)
 
 ALL_RULES: Dict[str, Callable[[ModuleModel], List[Finding]]] = {
     m.RULE_ID: m.check for m in _MODULE_RULES

@@ -428,7 +428,8 @@ def fit_linear(
             epoch_losses.append(loss)
             row_counter.increment(block.batch_size)
         iter_counter.increment()
-        conv.incr_loss(float(torch.stack(epoch_losses).sum()))
+        epoch_loss = float(torch.stack(epoch_losses).sum().cpu())
+        conv.incr_loss(epoch_loss)
         if iters > 1 and conv.is_converged(n):
             break
     return TrainedLinearModel(state=state, rule=rule, dims=dims, block_width=width)

@@ -580,7 +580,7 @@ def grow_tree(
         S_pad = _pow2(S)
         feat_ok = _on(_feature_subspace(S_pad, S, F, num_vars, rng),
                       torch.bool, dev)
-        sums = _sharded_hist(offsets, assign, S_pad, block, values,
+        sums = _sharded_hist(offsets, assign, S_pad, block, values,  # graftcheck: disable=G036 (psum copies through the host only when gloo reduces CUDA tensors; NCCL sums on the card)
                              row_shard)
         if classification:
             gain, bf, bb, counts = _split_to_host(_best_split_classification(
@@ -819,7 +819,7 @@ def grow_forest(
 
             slots = _group_slots(a_c, S_pad)
             if classification:
-                sums = _sharded_hist(offsets, slots, g * S_pad, block,
+                sums = _sharded_hist(offsets, slots, g * S_pad, block,  # graftcheck: disable=G036 (psum copies through the host only when gloo reduces CUDA tensors; NCCL sums on the card)
                                      (_lanes(W_c, F),), row_shard)
                 gain, bf, bb, counts = _split_to_host(
                     _best_split_classification(
@@ -828,7 +828,7 @@ def grow_forest(
                 node_sizes = counts.sum(-1)
             else:
                 y_c = yt[idx] if per_tree_y else yt[None, :].expand(g, N)
-                sums = _sharded_hist(offsets, slots, g * S_pad, block,
+                sums = _sharded_hist(offsets, slots, g * S_pad, block,  # graftcheck: disable=G036 (psum copies through the host only when gloo reduces CUDA tensors; NCCL sums on the card)
                                      _reg_values(W_c, y_c, F, group=True),
                                      row_shard)
                 gain, bf, bb, node_sizes, means = _split_to_host(

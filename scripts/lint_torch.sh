@@ -1,8 +1,8 @@
 #!/usr/bin/env bash
 # graftcheck gate for the PyTorch/CUDA port (hivemall_tpu_torch/analysis):
-# dtype flow G003/G017-G021, concurrency G012-G016, FFI G022-G026 and
-# exception flow G027-G031 over hivemall_tpu_torch/. The twin of
-# scripts/lint.sh, in the same modes:
+# retraces G001/G002/G005/G006/G032-G036, dtype flow G003/G017-G021,
+# concurrency G012-G016, FFI G022-G026 and exception flow G027-G031 over
+# hivemall_tpu_torch/. The twin of scripts/lint.sh, in the same modes:
 #
 #   scripts/lint_torch.sh              # changed-files mode: files touched vs
 #                                      # HEAD (staged + unstaged + untracked)
@@ -131,6 +131,31 @@ for e in ${existing[@]+"${existing[@]}"}; do
       add_present hivemall_tpu_torch/runtime/faults.py \
         hivemall_tpu_torch/runtime/recovery.py \
         hivemall_tpu_torch/pipeline/loop.py
+      break ;;
+  esac
+done
+# the capture-hot surface and the hot loops are one retrace domain: an
+# op/kernel/serving edit can add a capture, a novel shape or a sync that a
+# dispatch module or a step loop reaches, so edits there pull the serving
+# dispatch modules and the hot-loop modules into the scan — the retrace
+# rules (G002, G032-G036) prove churn, unbucketed shapes and callee syncs
+# ACROSS that boundary, in callers that did not move
+for e in ${existing[@]+"${existing[@]}"}; do
+  case "$e" in
+    hivemall_tpu_torch/ops/*|hivemall_tpu_torch/kernels/*|\
+    hivemall_tpu_torch/serving/*|hivemall_tpu_torch/core/engine.py|\
+    hivemall_tpu_torch/parallel/sharded_train.py|\
+    hivemall_tpu_torch/parallel/mix.py|\
+    hivemall_tpu_torch/models/trees/grow.py|hivemall_tpu_torch/models/base.py)
+      echo "graftcheck: capture-hot surface changed — scanning the dispatch and hot-loop modules"
+      add_present hivemall_tpu_torch/serving/engine.py \
+        hivemall_tpu_torch/serving/retrieval.py \
+        hivemall_tpu_torch/serving/sharded.py \
+        hivemall_tpu_torch/core/engine.py \
+        hivemall_tpu_torch/parallel/sharded_train.py \
+        hivemall_tpu_torch/parallel/mix.py \
+        hivemall_tpu_torch/models/trees/grow.py \
+        hivemall_tpu_torch/models/base.py
       break ;;
   esac
 done

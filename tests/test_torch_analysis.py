@@ -1,14 +1,15 @@
 """graftcheck for the port (hivemall_tpu_torch/analysis): its engine and its
-dtype-flow (G003, G017-G021), concurrency (G012-G016), FFI (G022-G026) and
-exception-flow (G027-G031) rules, held against the JAX package's analyzer
-on that analyzer's own rule fixtures, and run over the port's tree, both
-of its C ABIs (the host library's .cpp, the CUDA kernels' extern "C"
-block) and its failure paths.
+retrace (G001, G002, G005, G006, G032-G036), dtype-flow (G003, G017-G021),
+concurrency (G012-G016), FFI (G022-G026) and exception-flow (G027-G031)
+rules, held against the JAX package's analyzer on that analyzer's own rule
+fixtures, and run over the port's tree, both of its C ABIs (the host
+library's .cpp, the CUDA kernels' extern "C" block) and its failure paths.
 
-The dtype rules' fixtures and G013's import jax; the port is held to them
-through line-for-line twins in tests/data/graftcheck_torch/ whose hazard
-takes torch's channel (TORCH_DEPARTURES names the lines where torch has
-none). tests/test_torch_analysis_dtype.py holds the dtype-flow model
+The retrace and dtype rules' fixtures and G013's import jax; the port is
+held to them through line-for-line twins in tests/data/graftcheck_torch/
+whose hazard takes torch's channel (TORCH_DEPARTURES names the lines where
+torch has none). tests/test_torch_analysis_trace.py holds the retrace
+twins line for line and the capture model against torch idioms. tests/test_torch_analysis_dtype.py holds the dtype-flow model
 against torch's own promotion. CLI runs go through ``_cli`` (the
 analyzer's ``main()`` in process, stdout captured); exactly one test
 starts a true subprocess, to
@@ -50,17 +51,24 @@ DATA = os.path.join(TESTS, "data", "graftcheck")
 TWINS = os.path.join(TESTS, "data", "graftcheck_torch")
 EXPECT_RE = re.compile(r"#\s*EXPECT:\s*([A-Z0-9,\s]+)")
 
-RULES = ["g003", "g012", "g013", "g014", "g015", "g016",
+RULES = ["g001", "g002", "g003", "g005", "g006",
+         "g012", "g013", "g014", "g015", "g016",
          "g017", "g018", "g019", "g020", "g021",
          "g022", "g023", "g024", "g025", "g026",
-         "g027", "g028", "g029", "g030", "g031"]
+         "g027", "g028", "g029", "g030", "g031",
+         "g032", "g033", "g034", "g035", "g036"]
 DTYPE_RULES = ("g003", "g017", "g018", "g019", "g020", "g021")
 # (twin, line): a finding of the reference on the original that the port
 # rightly does not report on the twin, because torch has no such hazard.
-# On an H100 these kernels keep a bf16/f16 running sum in float32 and
-# round once (scripts/torch_accum_probe.py; dtypeflow.
-# TORCH_WIDE_ACCUMULATORS).
+# G021: on an H100 these kernels keep a bf16/f16 running sum in float32
+# and round once (scripts/torch_accum_probe.py; dtypeflow.
+# TORCH_WIDE_ACCUMULATORS). G001(d), G005(a), G033(b): no per-value static
+# arguments and no donation in torch (traceflow.py's docstring).
 TORCH_DEPARTURES = {
+    ("g001_pos", 36): "a capture has no per-value static arguments",
+    ("g005_pos", 9): "the port's steps update tables in place: an "
+                     "undonated capture keeps no second copy",
+    ("g033_pos", 35): "no static positions to receive a device value",
     ("g021_pos", 11): "torch.sum of a bf16 tensor accumulates in float32",
     ("g021_pos", 16): "cumsum of an f16 tensor accumulates in float32",
     ("g021_pos", 21): "mean of a bf16 tensor accumulates in float32",
@@ -129,8 +137,9 @@ def tree_findings():
 # ---------------------------------------------------------------------------
 
 def test_the_registry_holds_the_ports_rules():
-    """The registry holds the port's 21 rules: G003 and G012-G031."""
-    assert len(RULE_IDS) == 21
+    """The registry holds the port's 30 rules: G001-G003, G005, G006,
+    G012-G036."""
+    assert len(RULE_IDS) == 30
     assert sorted({**ALL_RULES, **PROGRAM_RULES}) == RULE_IDS
 
 

@@ -41,33 +41,27 @@ NOTHING_TO_PORT_NAMES = {
     ("native/__init__.py", "pack_block"):
         "core/batch.pack_rows packs blocks in vectorised numpy, measured "
         "against hm_pack_block by chip_smoke's phase native",
+    ("analysis/config.py", "STEP_NAME_RE"):
+        "read only by G005(a), a step-shaped jit without donate_argnums, "
+        "which has no torch form: the port's steps update tables in place "
+        "(analysis/traceflow.py's departures)",
 }
-# reference modules of a later slice of the port: graftcheck's analyses
-# and rules beyond its engine, dtype flow (G003, G017-G021), concurrency
-# (G012-G016), FFI (G022-G026) and exception flow (G027-G031)
+# reference modules of a later slice of the port: graftcheck's collective
+# rules (G004, G007, G008, G010, G011) and its API-compatibility rule G009
+# with apicompat.py; the engine, retrace, dtype-flow, concurrency, FFI and
+# exception-flow layers are ported
 STILL_TO_PORT = {
-    "analysis/traceflow.py", "analysis/apicompat.py",
+    "analysis/apicompat.py",
     *(f"analysis/rules/{name}.py" for name in (
-        "g001_recompile", "g002_host_sync", "g004_axis",
-        "g005_donation", "g006_side_effect", "g007_collective_axis",
-        "g008_spec_mesh", "g009_api_compat", "g010_unreduced_output",
-        "g011_divergent_collective", "g032_jit_cache_churn",
-        "g033_host_branch_traced", "g034_unbucketed_shape",
-        "g035_donated_reuse", "g036_hot_loop_sync")),
+        "g004_axis", "g007_collective_axis", "g008_spec_mesh",
+        "g009_api_compat", "g010_unreduced_output",
+        "g011_divergent_collective")),
 }
 # names of a ported module that only a later slice's modules read, each
 # group with its reason
 _LATER_CONFIG = {
-    "read only by the JAX-idiom module rules G002, G004-G006": (
-        "HOT_LOOP_MODULES", "SYNC_NP_CALLS", "MESH_FILE",
-        "DEFAULT_AXIS_NAMES", "STEP_NAME_RE", "SIDE_EFFECT_CALLS",
-        "SIDE_EFFECT_ATTR_ROOTS", "SIDE_EFFECT_METHODS",
-        "SIDE_EFFECT_NP_RANDOM"),
-    "read only by the traceflow rules G032-G036 (traceflow.py)": (
-        "TRACEFLOW_HOT_PREFIXES", "TRACEFLOW_HOT_MODULES",
-        "TRACEFLOW_MARKER", "TRACEFLOW_MEMO_NAME_RE",
-        "TRACEFLOW_FACTORY_RE", "SHAPE_CANONICALIZERS",
-        "TRACEFLOW_SYNC_NAME_RE", "TRACEFLOW_SYNC_CALL_TAILS"),
+    "read only by the collective rule G004 (g004_axis.py)": (
+        "MESH_FILE", "DEFAULT_AXIS_NAMES"),
 }
 STILL_TO_PORT_NAMES = {("analysis/config.py", name): reason
                        for reason, names in _LATER_CONFIG.items()
