@@ -2693,6 +2693,8 @@ def phase_knn(seed, dev, smi, mf_model):
 
     from hivemall_tpu_torch.knn.distance import (cosine_distance_batch,
                                                  euclid_distance_batch)
+    from hivemall_tpu_torch.runtime.torch_compat import (set_tf32_matmul,
+                                                         tf32_matmul_enabled)
 
     Q = mf_model.state.Q
     assert Q.device.type == dev.type and Q.dtype == torch.float32
@@ -2705,18 +2707,31 @@ def phase_knn(seed, dev, smi, mf_model):
     bound_ms = 1e3 * max((out_bytes + in_bytes) / HBM_BYTES_PER_S,
                          2 * KNN_QUERIES * m * k / FP32_FLOPS)
     a_np, q_np = A[:KNN_CHECK].cpu().numpy(), Q.cpu().numpy()
+    refusals = []
     if dev.type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = True
-        try:
-            euclid_distance_batch(A[:2], Q[:2])
-            raise AssertionError("knn ran with TF32 on")
-        except RuntimeError as e:
-            assert "allow_tf32" in str(e)
-        finally:
-            torch.backends.cuda.matmul.allow_tf32 = False
+        # TF32 set through each of torch's spellings: the guard refuses
+        # with its own message both times, never torch's mixed-API error
+        for spelling in ("allow_tf32", "fp32_precision"):
+            if spelling == "allow_tf32":
+                torch.backends.cuda.matmul.allow_tf32 = True  # graftcheck: disable=G009 (sets the legacy spelling on purpose: the guard must refuse it)
+            else:
+                torch.backends.cuda.matmul.fp32_precision = "tf32"  # graftcheck: disable=G009 (sets the new spelling on purpose: the guard must refuse it)
+            try:
+                assert tf32_matmul_enabled(), spelling
+                euclid_distance_batch(A[:2], Q[:2])
+                raise AssertionError(f"knn ran with TF32 on ({spelling})")
+            except RuntimeError as e:
+                assert "knn batch distances compute in float32" in str(e) \
+                    and "allow_tf32" in str(e) \
+                    and "fp32_precision" in str(e), (spelling, str(e))
+                refusals.append(spelling)
+            finally:
+                set_tf32_matmul(False)
+            assert not tf32_matmul_enabled(), spelling
     print(f"[knn] card: {smi}; {KNN_QUERIES} item rows x the {m} x {k} "
           f"float32 item factors of train_mf_sgd"
-          + ("; refuses to run with TF32 on" if dev.type == "cuda" else ""))
+          + (f"; refuses to run with TF32 on, set through "
+             f"{' and '.join(refusals)}" if dev.type == "cuda" else ""))
     for kind, fn in (("euclid", euclid_distance_batch),
                      ("cosine", cosine_distance_batch)):
         calls = 0
@@ -2942,12 +2957,11 @@ def phase_topk(seed, dev, smi, held, mf_arts, fm_model, fm_rows):
     import torch
 
     from hivemall_tpu_torch.runtime.metrics import REGISTRY
+    from hivemall_tpu_torch.runtime.torch_compat import tf32_matmul_enabled
     from hivemall_tpu_torch.serving import RetrievalEngine
 
-    print(f"[topk] card: {smi}; torch.backends.cuda.matmul.allow_tf32 = "
-          f"{torch.backends.cuda.matmul.allow_tf32}, "
-          f"float32_matmul_precision = "
-          f"{torch.get_float32_matmul_precision()}")
+    print(f"[topk] card: {smi}; TF32 for float32 matmuls: "
+          f"{tf32_matmul_enabled()}")
     queries = [int(x) for x in held[0][:TOPK_QUERIES]]
     # the probe's expected union, 1 + planes buckets of ~n / 2^planes
     # items, doubled for bucket skew (the reference bench's sizing)
@@ -6749,9 +6763,11 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     import hivemall_tpu_torch  # noqa: F401  (fails outside the repo)
+    from hivemall_tpu_torch.runtime.torch_compat import (set_tf32_cudnn,
+                                                         set_tf32_matmul)
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    set_tf32_matmul(False)
+    set_tf32_cudnn(False)
     dev = torch.device("cuda")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

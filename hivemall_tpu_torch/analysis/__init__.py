@@ -2,9 +2,13 @@
 
 The twin of the JAX package's graftcheck, with its engine (module and
 whole-program models, suppressions, baseline, SARIF, the fixer, the
-parallel runner), its language-level concurrency, FFI and exception-flow
-rules, which apply to torch code as they stand, and its dtype-flow layer
-(``dtypeflow.py``), rewritten for torch's promotion rules. Runnable as
+parallel runner) and all 36 of its rules: the language-level concurrency,
+FFI and exception-flow rules, which apply to torch code as they stand,
+and the JAX-idiom rules, each designed anew for torch — the retrace layer
+(``traceflow.py``) over captures, the dtype-flow layer (``dtypeflow.py``)
+under torch's promotion rules, the collective rules over the port's
+process meshes (``program.py``'s mesh resolution) and the API-compatibility
+rule over torch's moved spellings (``apicompat.py``). Runnable as
 
     python -m hivemall_tpu_torch.analysis [paths]
 
@@ -15,9 +19,28 @@ unless asked for the CPU does not apply to it.
 
 Rules:
 
+- G001 recompile                — a branch on a tensor in a capture, a
+                                  capture built in a loop.
+- G002 host-sync                — a per-value device->host read in a hot
+                                  loop.
 - G003 dtype-drift              — float64 (``torch.float64``,
                                   ``.double()``, ``np.float64``) or an
                                   unpinned float literal in update math.
+- G004 axis-name-mismatch       — a collective's literal axis that no
+                                  mesh declares.
+- G005 donation                 — a graphed callable's output read after a
+                                  later replay.
+- G006 side-effect              — host effects inside a capture.
+- G007 collective-axis          — a collective over an axis the mesh it
+                                  receives does not bind.
+- G008 mesh-lookup              — ``mesh.index`` / ``mesh.shape[...]`` of
+                                  an axis the mesh does not bind.
+- G009 torch-api-compat         — a torch spelling that moved (the TF32
+                                  flags, ``torch.cuda.amp``, ...).
+- G010 unreduced-output         — a reduction over a rank's own stripe
+                                  returned without a psum.
+- G011 divergent-collective     — a collective under a branch on the
+                                  rank or on its own tensor data.
 - G012 unguarded-shared-field   — a field two threads touch with no
                                   common lock.
 - G013 blocking-under-lock      — a device sync (``torch.cuda.synchronize``,
@@ -67,14 +90,15 @@ Rules:
                                   unwind skips, or a raise between two
                                   writes of self state under a lock.
 - G031 unbounded-retry          — a retry loop with no cap or no backoff.
+- G032-G036 retrace            — a capture built per call, a host
+                                  branch on a traced value, an unbucketed
+                                  shape, a graphed output kept across
+                                  replays, a sync in a hot loop.
 
 G027-G031 scan serving/, pipeline/ and runtime/, and the modules that opt
 in with ``# graftcheck: failure-path-module``: the kernels' build and
 launch, the device choice and the native host library, where no code may
 carry on on the CPU or on a plain version when a kernel fails.
-
-The JAX package's JAX-idiom rules (G001, G002, G004-G011, G032-G036) are
-still its own.
 
 Suppress a line with ``# graftcheck: disable=G0XX (reason)`` (or
 ``disable=all``); accepted pre-existing findings live in

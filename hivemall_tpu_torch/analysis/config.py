@@ -2,8 +2,9 @@
 
 Only the constants that this package's modules read: the module model's
 capture and taint vocabulary, the retrace rules' scopes and tables, the
-dtype-flow rules' scopes, the concurrency rules' scope and blocking-call
-tables, the FFI rules' symbol prefix, validators and C sources, and the
+collective rules' mesh file, axes and collective table, the dtype-flow
+rules' scopes, the concurrency rules' scope and blocking-call tables, the
+FFI rules' symbol prefix, validators and C sources, and the
 exception-flow rules' scope, loud surfaces and backoff calls — all pointed
 at the port's tree (``hivemall_tpu_torch/``).
 """
@@ -170,10 +171,58 @@ TRACEFLOW_SYNC_NAME_RE = re.compile(
     r"(sync|block_until|device_get|to_host|fetch|drain|gather_host)",
     re.IGNORECASE)
 
-# --- program model (program.py) ---------------------------------------------
-# Collective calls whose axis argument the per-function summaries record.
-COLLECTIVE_CALLS = ("psum", "pmean", "pmax", "pmin", "all_gather",
-                    "axis_index", "ppermute", "psum_scatter", "pcast")
+# --- G004, G007, G008, G010, G011: the port's process meshes ----------------
+# The module that declares the mesh axes (its *_AXIS string constants) and
+# builds the meshes: make_mesh(axis_name=) and make_mesh_2d(replica_axis=,
+# shard_axis=).
+MESH_FILE = "hivemall_tpu_torch/parallel/mesh.py"
+DEFAULT_AXIS_NAMES = frozenset({"workers", "shards"})
+
+# The port's collective callees (core/collectives.py, and torch.distributed
+# called directly), each with the positions of its axis and mesh arguments:
+# psum(x, mesh, axis), pmean(x, mesh, axis), all_gather_host(x, mesh,
+# axis), gather_fields(state, names, mesh, axis) and mesh.index(axis),
+# JAX's axis_index, whose mesh is its receiver. An ``axis=`` /
+# ``axis_name=`` / ``mesh=`` keyword wins over the position. The
+# torch.distributed calls name a ``group=``, not an axis (None, None).
+MESH_RECEIVER = "receiver"
+COLLECTIVE_CALLS = {
+    "psum": (2, 1),
+    "pmean": (2, 1),
+    "all_gather_host": (2, 1),
+    "gather_fields": (3, 2),
+    "index": (0, MESH_RECEIVER),
+    "all_reduce": (None, None),
+    "all_gather": (None, None),
+    "all_gather_object": (None, None),
+    "broadcast": (None, None),
+    "barrier": (None, None),
+    "reduce_scatter": (None, None),
+}
+# torch.distributed's collectives count only when called on the module
+# (``dist.all_reduce``), and ``index`` only on a receiver named like a mesh
+# (``mesh.index``, ``self.mesh.index``): a list's or a string's ``index``
+# is no collective.
+DIST_MODULES = ("dist", "torch.distributed")
+DIST_COLLECTIVES = ("all_reduce", "all_gather", "all_gather_object",
+                    "broadcast", "barrier", "reduce_scatter")
+MESH_RECEIVER_RE = re.compile(r"(^|[._])mesh$", re.IGNORECASE)
+# The collectives every rank of the group must reach (G011): all but the
+# rank's own coordinate. The reducing ones (G010) combine the ranks'
+# values into a whole.
+RENDEZVOUS_COLLECTIVES = ("psum", "pmean", "all_gather_host",
+                          "gather_fields") + DIST_COLLECTIVES
+REDUCING_COLLECTIVES = ("psum", "pmean", "all_gather_host", "gather_fields",
+                        "all_reduce", "all_gather", "all_gather_object",
+                        "reduce_scatter")
+# A mesh's per-axis lookups (G008): ``mesh.shape[axis]``,
+# ``mesh.coords[axis]`` and ``mesh.groups[axis]`` raise KeyError on the
+# ranks for an axis the mesh does not bind, as ``mesh.index(axis)`` does.
+MESH_AXIS_MAPS = ("shape", "coords", "groups")
+# Calls whose value is this rank's place in the world (G011): a test on
+# one diverges across ranks. ``mesh.index(...)`` and ``mesh.coords[...]``
+# are the mesh's own.
+RANK_CALLS = ("get_rank",)
 
 # --- G003: dtype-sensitive scopes ------------------------------------------
 # Modules whose math feeds weight updates: float64 here doubles the bytes

@@ -10,16 +10,30 @@ stdlib-only:
   aliases, including function-local imports);
 - a **constant registry** (module-level string constants, resolved through
   import chains);
-- per-function **summaries**: outgoing calls (and collective calls with
-  their axis expression) plus parameter defaults;
-- def resolution (``resolve_fn``, ``resolve_callable``) and call-edge
-  environments, with a depth-bounded interprocedural **walk**;
-- the JAX package's ``shard_map`` site and mesh-axes resolution, kept so
-  that the model is the reference's; the port's collectives are
-  ``torch.distributed`` calls, which no rule here reads yet.
+- per-function **summaries**: outgoing calls, the collective calls with
+  their axis and mesh expressions (``config.COLLECTIVE_CALLS``: the port's
+  ``psum(x, mesh, axis)`` family, ``mesh.index(axis)`` and
+  ``torch.distributed``'s own), a mesh's per-axis lookups
+  (``mesh.shape[axis]``, ``.coords``, ``.groups``), and parameter
+  defaults;
+- def resolution (``resolve_fn``, and ``self.method`` within its class)
+  and call-edge environments, with a depth-bounded interprocedural
+  **walk**;
+- **mesh resolution**, the port's counterpart of the reference's
+  ``shard_map`` sites: the mesh a collective receives, traced to its
+  ``make_mesh`` / ``make_mesh_2d`` / ``Mesh(...)`` construction, gives the
+  axis-name set it binds. The trace follows a local assignment, a
+  ``self.<attr>`` assigned once in the class, and parameters across call
+  edges (a mesh argument binds the callee's parameter, as a string does).
+  A mesh travels in a variable named like one (``config.MESH_RECEIVER_RE``:
+  ``mesh``, ``self.mesh``, ``row_mesh``), as in every module of the port;
+  an argument named otherwise is not traced as a mesh.
 
 Resolution is deliberately conservative: every rule built on this model
-flags only what it can *prove*; anything dynamic is trusted.
+flags only what it can *prove*; anything dynamic is trusted. A name
+assigned more than once, or assigned in a function that also takes it as
+a parameter, resolves to nothing; an argument passed explicitly that does
+not resolve unbinds the parameter's default.
 
 The model is always built with the full ``hivemall_tpu_torch`` package
 tree as context (parsed once per process and cached, see modelcache.py),
@@ -39,7 +53,8 @@ from .modmodel import ModuleModel, _FN_TYPES, dotted_name, walk_scope
 MAX_CALL_DEPTH = 8
 
 # env values: ("str", value) for resolved axis-name strings,
-#             ("fn", module_path, fn_node, closure_env) for function values
+#             ("fn", module_path, fn_node, closure_env) for function values,
+#             ("mesh", frozenset of axis names) for resolved meshes
 StrVal = Tuple[str, str]
 
 
@@ -85,58 +100,114 @@ def _in_package(dotted: str) -> bool:
     return dotted == pkg or dotted.startswith(pkg + ".")
 
 
+
 # --------------------------------------------------------------------------
-# shard_map call sites
+# collective calls
 # --------------------------------------------------------------------------
 
-class ShardMapSite:
-    """One shard_map(...) call: the body/mesh/specs expressions plus the
-    module and enclosing function they appear in."""
-
-    __slots__ = ("module", "call", "fn_expr", "mesh_expr", "in_specs_expr",
-                 "out_specs_expr")
-
-    def __init__(self, module: str, call: ast.Call):
-        self.module = module
-        self.call = call
-        args = list(call.args)
-        self.fn_expr = args[0] if args else None
-        kw = {k.arg: k.value for k in call.keywords}
-        self.mesh_expr = kw.get("mesh", args[1] if len(args) > 1 else None)
-        self.in_specs_expr = kw.get("in_specs",
-                                    args[2] if len(args) > 2 else None)
-        self.out_specs_expr = kw.get("out_specs",
-                                     args[3] if len(args) > 3 else None)
+def collective_tail(callee: str) -> Optional[str]:
+    """The ``config.COLLECTIVE_CALLS`` key of a dotted callee, or None: a
+    ``torch.distributed`` collective only on the module (``dist.barrier``),
+    ``index`` only on a receiver named like a mesh (``mesh.index``)."""
+    tail = callee.rsplit(".", 1)[-1]
+    sig = config.COLLECTIVE_CALLS.get(tail)
+    if sig is None:
+        return None
+    receiver = callee[:-len(tail) - 1] if "." in callee else ""
+    if tail in config.DIST_COLLECTIVES:
+        return tail if receiver in config.DIST_MODULES else None
+    if sig[1] == config.MESH_RECEIVER:
+        return tail if config.MESH_RECEIVER_RE.search(receiver) else None
+    return tail
 
 
-class FnSummary:
-    """What one function does that sharding rules care about."""
-
-    __slots__ = ("collectives", "calls", "param_defaults")
-
-    def __init__(self):
-        # (call node, collective tail, axis_kind, axis_value)
-        #   axis_kind: "str" (resolved literal), "name" (identifier to
-        #   resolve through params/constants), None (dynamic)
-        self.collectives: List[Tuple[ast.Call, str, Optional[str],
-                                     Optional[str]]] = []
-        self.calls: List[Tuple[ast.Call, str]] = []  # (node, dotted callee)
-        self.param_defaults: Dict[str, ast.expr] = {}
+def _positional(call: ast.Call, pos: Optional[int]) -> Optional[ast.expr]:
+    if pos is None or pos >= len(call.args) or any(
+            isinstance(a, ast.Starred) for a in call.args[:pos + 1]):
+        return None
+    return call.args[pos]
 
 
 def collective_axis_expr(call: ast.Call, tail: str) -> Optional[ast.expr]:
-    """The axis-name expression of a collective call, mirroring G004:
-    ``axis_index(axis)`` takes it first, ``psum(x, axis)`` second,
-    ``axis_name=``/``axis=`` kwargs win."""
-    cand = None
-    if tail == "axis_index":
-        cand = call.args[0] if call.args else None
-    elif len(call.args) >= 2:
-        cand = call.args[1]
+    """The axis-name expression of a collective call, from the position
+    ``config.COLLECTIVE_CALLS`` gives it (``psum(x, mesh, axis)`` third,
+    ``gather_fields(s, names, mesh, axis)`` fourth, ``mesh.index(axis)``
+    first); an ``axis_name=`` / ``axis=`` keyword wins. None for the
+    ``torch.distributed`` calls, which name a group, not an axis."""
+    pos = config.COLLECTIVE_CALLS[tail][0]
+    if pos is None:
+        return None
+    cand = _positional(call, pos)
     for kw in call.keywords:
         if kw.arg in ("axis_name", "axis"):
             cand = kw.value
     return cand
+
+
+def collective_mesh_expr(call: ast.Call, tail: str) -> Optional[ast.expr]:
+    """The mesh expression a collective call receives: its second
+    positional (``gather_fields``' third), or the receiver of
+    ``mesh.index``; a ``mesh=`` keyword wins."""
+    pos = config.COLLECTIVE_CALLS[tail][1]
+    if pos is None:
+        return None
+    if pos == config.MESH_RECEIVER:
+        return call.func.value if isinstance(call.func, ast.Attribute) \
+            else None
+    cand = _positional(call, pos)
+    for kw in call.keywords:
+        if kw.arg == "mesh":
+            cand = kw.value
+    return cand
+
+
+def mesh_lookup(node: ast.AST) -> Optional[Tuple[str, ast.expr, ast.expr]]:
+    """(map name, mesh expression, axis expression) of a
+    ``mesh.shape[axis]`` / ``mesh.coords[axis]`` / ``mesh.groups[axis]``
+    subscript on a receiver named like a mesh; None otherwise."""
+    if not isinstance(node, ast.Subscript) \
+            or not isinstance(node.value, ast.Attribute) \
+            or node.value.attr not in config.MESH_AXIS_MAPS:
+        return None
+    receiver = dotted_name(node.value.value)
+    if receiver is None or not config.MESH_RECEIVER_RE.search(receiver):
+        return None
+    return node.value.attr, node.value.value, node.slice
+
+
+def axis_ref(expr: Optional[ast.expr]) -> Tuple[Optional[str],
+                                                Optional[str]]:
+    """(kind, value) of an axis expression: ("str", literal), ("name",
+    identifier to resolve through the env, parameters and constants),
+    ("self", attribute assigned in the class), or (None, None)."""
+    if isinstance(expr, ast.Constant) and isinstance(expr.value, str):
+        return "str", expr.value
+    if isinstance(expr, ast.Name):
+        return "name", expr.id
+    if isinstance(expr, ast.Attribute) and isinstance(expr.value, ast.Name) \
+            and expr.value.id == "self":
+        return "self", expr.attr
+    return None, None
+
+
+class FnSummary:
+    """What one function does that the collective and interprocedural
+    rules care about."""
+
+    __slots__ = ("collectives", "mesh_lookups", "calls", "param_defaults")
+
+    def __init__(self):
+        # (call node, collective tail, axis_kind, axis_value, mesh expr):
+        #   axis_kind as axis_ref gives it; the mesh expression is None
+        #   for torch.distributed's calls
+        self.collectives: List[Tuple[ast.Call, str, Optional[str],
+                                     Optional[str],
+                                     Optional[ast.expr]]] = []
+        # (subscript node, map name, axis_kind, axis_value, mesh expr)
+        self.mesh_lookups: List[Tuple[ast.Subscript, str, Optional[str],
+                                      Optional[str], ast.expr]] = []
+        self.calls: List[Tuple[ast.Call, str]] = []  # (node, dotted callee)
+        self.param_defaults: Dict[str, ast.expr] = {}
 
 
 class ProgramModel:
@@ -150,7 +221,7 @@ class ProgramModel:
         self._imports: Dict[str, Dict[str, Tuple[Optional[str], str]]] = {}
         self._constants: Dict[str, Dict[str, str]] = {}
         self._summaries: Dict[Tuple[str, int], FnSummary] = {}
-        self._sites: Optional[List[ShardMapSite]] = None
+        self._mesh_walks: Optional[List[tuple]] = None
 
     # -- imports / constants ----------------------------------------------
 
@@ -284,6 +355,21 @@ class ProgramModel:
                 return imp[0], target
         return None
 
+    def resolve_method(self, path: str, fn: ast.AST, callee: str
+                       ) -> Optional[Tuple[str, ast.AST]]:
+        """(module, def) of a ``self.<name>(...)`` call made in a method of
+        a class that defines ``<name>`` itself."""
+        if not callee.startswith("self.") or callee.count(".") != 1:
+            return None
+        cls = _enclosing_class(fn)
+        if cls is None:
+            return None
+        name = callee.split(".", 1)[1]
+        for node in cls.body:
+            if isinstance(node, _FN_TYPES) and node.name == name:
+                return path, node
+        return None
+
     # -- summaries ---------------------------------------------------------
 
     def summary(self, path: str, fn: ast.AST) -> FnSummary:
@@ -300,22 +386,23 @@ class ProgramModel:
             if d is not None:
                 s.param_defaults[a.arg] = d
         for node in walk_scope(fn):
+            lookup = mesh_lookup(node)
+            if lookup is not None:
+                kind, value = axis_ref(lookup[2])
+                s.mesh_lookups.append((node, lookup[0], kind, value,
+                                       lookup[1]))
+                continue
             if not isinstance(node, ast.Call):
                 continue
             callee = dotted_name(node.func)
             if callee is None:
                 continue
             s.calls.append((node, callee))
-            tail = callee.rsplit(".", 1)[-1]
-            if tail in config.COLLECTIVE_CALLS:
-                cand = collective_axis_expr(node, tail)
-                if isinstance(cand, ast.Constant) \
-                        and isinstance(cand.value, str):
-                    s.collectives.append((node, tail, "str", cand.value))
-                elif isinstance(cand, ast.Name):
-                    s.collectives.append((node, tail, "name", cand.id))
-                else:
-                    s.collectives.append((node, tail, None, None))
+            tail = collective_tail(callee)
+            if tail is not None:
+                kind, value = axis_ref(collective_axis_expr(node, tail))
+                s.collectives.append((node, tail, kind, value,
+                                      collective_mesh_expr(node, tail)))
         self._summaries[key] = s
         return s
 
@@ -323,62 +410,43 @@ class ProgramModel:
         a = fn.args
         return [p.arg for p in a.posonlyargs + a.args + a.kwonlyargs]
 
-    # -- shard_map sites ---------------------------------------------------
-
-    def shard_map_sites(self) -> List[ShardMapSite]:
-        if self._sites is None:
-            self._sites = []
-            for path, model in self.modules.items():
-                if "shard_map" not in model.source:  # cheap pre-filter
-                    continue
-                for node in ast.walk(model.tree):
-                    if isinstance(node, ast.Call):
-                        callee = dotted_name(node.func) or ""
-                        if callee.rsplit(".", 1)[-1] == "shard_map":
-                            self._sites.append(ShardMapSite(path, node))
-        return self._sites
-
     # -- mesh-axes resolution ---------------------------------------------
 
     def mesh_axes(self, path: str, expr: Optional[ast.expr],
-                  scope: Optional[ast.AST], depth: int = 0
+                  scope: Optional[ast.AST],
+                  env: Optional[Dict[str, tuple]] = None, depth: int = 0
                   ) -> Optional[Set[str]]:
-        """Best-effort axis-name set of a mesh expression; None = unknown."""
+        """Axis-name set of a mesh expression; None = unknown."""
         if expr is None or depth > 6:
             return None
+        env = env or {}
         model = self.modules.get(path)
         if isinstance(expr, ast.Call):
-            return self._mesh_axes_of_call(path, expr, scope, depth)
+            return self._mesh_axes_of_call(path, expr, scope, env)
         if isinstance(expr, ast.IfExp):
-            a = self.mesh_axes(path, expr.body, scope, depth + 1)
-            b = self.mesh_axes(path, expr.orelse, scope, depth + 1)
+            a = self.mesh_axes(path, expr.body, scope, env, depth + 1)
+            b = self.mesh_axes(path, expr.orelse, scope, env, depth + 1)
             return (a | b) if a is not None and b is not None else None
-        if isinstance(expr, ast.BoolOp) and isinstance(expr.op, ast.Or):
-            vals = [self.mesh_axes(path, v, scope, depth + 1)
-                    for v in expr.values]
-            if all(v is not None for v in vals):
-                out: Set[str] = set()
-                for v in vals:
-                    out |= v  # type: ignore[arg-type]
-                return out
-            return None
         if isinstance(expr, ast.Name) and model is not None:
-            assign = self._find_assignment(model, expr.id, scope)
+            bound = env.get(expr.id)
+            if bound is not None:
+                return set(bound[1]) if bound[0] == "mesh" else None
+            assign = self._unique_assignment(model, expr.id, scope)
             if assign is not None:
-                return self.mesh_axes(path, assign, scope, depth + 1)
+                return self.mesh_axes(path, assign, scope, env, depth + 1)
             return None
         if isinstance(expr, ast.Attribute) and isinstance(expr.value,
                                                           ast.Name) \
                 and expr.value.id == "self" and model is not None:
-            assign, owner = self._find_self_assignment(model, scope,
-                                                       expr.attr)
+            assign, owner = self._find_self_assignment(scope, expr.attr)
             if assign is not None:
-                return self.mesh_axes(path, assign, owner, depth + 1)
+                return self.mesh_axes(path, assign, owner, {}, depth + 1)
         return None
 
     def _axis_arg(self, path: str, call: ast.Call, kwarg: str,
                   target: Optional[Tuple[str, ast.AST]],
-                  scope: Optional[ast.AST]) -> Tuple[bool, Optional[str]]:
+                  scope: Optional[ast.AST], env: Dict[str, tuple]
+                  ) -> Tuple[bool, Optional[str]]:
         """Resolve an axis-name argument of a mesh-constructor call:
         explicit kwarg, explicit positional (matched against the
         constructor def's signature), else the def's default. Returns
@@ -387,7 +455,7 @@ class ProgramModel:
         default."""
         for kw in call.keywords:
             if kw.arg == kwarg:
-                return True, self._str_of(path, kw.value, scope)
+                return True, self._str_of(path, kw.value, scope, env)
         if target is not None:
             t_path, t_fn = target
             params = [a.arg for a in
@@ -396,69 +464,52 @@ class ProgramModel:
                 i = params.index(kwarg)
                 if i < len(call.args) and not any(
                         isinstance(a, ast.Starred) for a in call.args):
-                    return True, self._str_of(path, call.args[i], scope)
+                    return True, self._str_of(path, call.args[i], scope,
+                                              env)
             default = self.summary(t_path, t_fn).param_defaults.get(kwarg)
             if default is not None:
-                return False, self._str_of(t_path, default, None)
+                return False, self._str_of(t_path, default, None, {})
         return False, None
 
     def _mesh_axes_of_call(self, path: str, call: ast.Call,
-                           scope: Optional[ast.AST], depth: int
+                           scope: Optional[ast.AST], env: Dict[str, tuple]
                            ) -> Optional[Set[str]]:
         callee = dotted_name(call.func) or ""
         tail = callee.rsplit(".", 1)[-1]
         if tail == "Mesh":
-            names = None
-            if len(call.args) >= 2:
-                names = call.args[1]
+            # core/collectives.Mesh(axis_names, shape, coords, groups, ...)
+            names = call.args[0] if call.args else None
             for kw in call.keywords:
                 if kw.arg == "axis_names":
                     names = kw.value
             if names is None:
                 return None
-            return self._axis_name_set(path, names, scope)
-        # the registry-default fallbacks below are the REPO's make_mesh /
-        # make_mesh_2d conventions: they apply only to the exact bare
-        # names (a dotted jax.make_mesh or a make_meshgrid must stay
-        # unknown, not default to 'workers')
+            return self._axis_name_set(path, names, scope, env)
+        # the registry-default fallbacks below are parallel/mesh.py's
+        # make_mesh / make_mesh_2d conventions: they apply only to the
+        # exact bare names (a dotted torch...make_mesh or a make_meshgrid
+        # must stay unknown, not default to 'workers')
         if tail == "make_mesh_2d" and "." not in callee:
             target = self.resolve_fn(path, callee, call)
             rep_given, rep = self._axis_arg(path, call, "replica_axis",
-                                            target, scope)
+                                            target, scope, env)
             shd_given, shd = self._axis_arg(path, call, "shard_axis",
-                                            target, scope)
+                                            target, scope, env)
             if (rep_given and rep is None) or (shd_given and shd is None):
                 return None  # explicitly passed but unresolvable: unknown
-            rep = rep or "workers"
-            shd = shd or "shards"
-            return {rep, shd}
+            return {rep or "workers", shd or "shards"}
         if tail == "make_mesh" and "." not in callee:
             target = self.resolve_fn(path, callee, call)
             given, axis = self._axis_arg(path, call, "axis_name", target,
-                                         scope)
+                                         scope, env)
             if given and axis is None:
                 return None  # explicitly passed but unresolvable: unknown
-            if axis is None:
-                axis = "workers"  # the stock make_mesh default
-            return {axis}
-        if tail == "named_mesh" and ("." not in callee
-                                     or "jax_compat" in callee):
-            # the serving-mesh helper (runtime/jax_compat.named_mesh):
-            # axis_names is the 2nd positional or keyword; its signature
-            # default is the serving convention ("batch", "model") — this
-            # is what lets G008 validate PartitionSpecs over the sharded
-            # SERVING load path (serving/placement.py, serving/sharded.py)
-            names = call.args[1] if len(call.args) >= 2 else None
-            for kw in call.keywords:
-                if kw.arg == "axis_names":
-                    names = kw.value
-            if names is None:
-                return {"batch", "model"}
-            return self._axis_name_set(path, names, scope)
+            return {axis or "workers"}  # the stock make_mesh default
         return None
 
     def _axis_name_set(self, path: str, names: ast.expr,
-                       scope: Optional[ast.AST]) -> Optional[Set[str]]:
+                       scope: Optional[ast.AST], env: Dict[str, tuple]
+                       ) -> Optional[Set[str]]:
         """Axis-name set of an explicit axis_names expression (tuple/list
         of resolvable strings, or a single name); None = unresolvable —
         an explicitly-passed-but-unknown spelling must make the whole
@@ -466,19 +517,19 @@ class ProgramModel:
         if isinstance(names, (ast.Tuple, ast.List)):
             out: Set[str] = set()
             for elt in names.elts:
-                s = self._str_of(path, elt, scope)
+                s = self._str_of(path, elt, scope, env)
                 if s is None:
                     return None
                 out.add(s)
             return out
-        s = self._str_of(path, names, scope)
+        s = self._str_of(path, names, scope, env)
         return {s} if s is not None else None
 
     def _find_assignment(self, model: ModuleModel, name: str,
                          scope: Optional[ast.AST]) -> Optional[ast.expr]:
         """Last single-target assignment (or param default) giving `name` a
         value, searched in the enclosing function chain then the module
-        body."""
+        body (the reference's reading, which G034 keeps)."""
         cur = scope
         while cur is not None:
             found = None
@@ -502,110 +553,104 @@ class ProgramModel:
                 return node.value
         return None
 
-    def _find_self_assignment(self, model: ModuleModel,
-                              scope: Optional[ast.AST], attr: str
+    def _unique_assignment(self, model: ModuleModel, name: str,
+                         scope: Optional[ast.AST]) -> Optional[ast.expr]:
+        """The one assignment (or parameter default) giving `name` its
+        value, searched in the enclosing function chain then the module
+        body. Two assignments in one scope, or an assignment in a function
+        that also takes `name` as a parameter, give None: the value
+        depends on the path taken."""
+        cur = scope
+        while cur is not None:
+            found = [node.value for node in walk_scope(cur)
+                     if isinstance(node, ast.Assign)
+                     and len(node.targets) == 1
+                     and isinstance(node.targets[0], ast.Name)
+                     and node.targets[0].id == name]
+            is_param = isinstance(cur, _FN_TYPES) \
+                and name in self.param_names(cur)
+            if found:
+                return found[0] if len(found) == 1 and not is_param \
+                    else None
+            if is_param:
+                return self.summary(model.rel_path, cur) \
+                    .param_defaults.get(name)
+            cur = model.enclosing_function(cur)
+        found = [node.value for node in model.tree.body
+                 if isinstance(node, ast.Assign) and len(node.targets) == 1
+                 and isinstance(node.targets[0], ast.Name)
+                 and node.targets[0].id == name]
+        return found[0] if len(found) == 1 else None
+
+    def _find_self_assignment(self, scope: Optional[ast.AST], attr: str
                               ) -> Tuple[Optional[ast.expr],
                                          Optional[ast.AST]]:
-        """rhs of ``self.<attr> = ...`` anywhere in the enclosing class
-        (searching __init__ first), plus the method it was found in."""
-        cls = scope
-        while cls is not None and not isinstance(cls, ast.ClassDef):
-            cls = getattr(cls, "graftcheck_parent", None)
+        """rhs of the one ``self.<attr> = ...`` in the enclosing class,
+        plus the method it is in; (None, None) when the class assigns it
+        more than once or as part of a tuple."""
+        cls = _enclosing_class(scope)
         if cls is None:
             return None, None
-        methods = [n for n in cls.body if isinstance(n, _FN_TYPES)]
-        methods.sort(key=lambda m: m.name != "__init__")
-        for m in methods:
+        found = []
+        for m in cls.body:
+            if not isinstance(m, _FN_TYPES):
+                continue
             for node in walk_scope(m):
-                if isinstance(node, ast.Assign) and len(node.targets) == 1:
-                    tgt = node.targets[0]
-                    if isinstance(tgt, ast.Attribute) \
-                            and isinstance(tgt.value, ast.Name) \
-                            and tgt.value.id == "self" and tgt.attr == attr:
-                        return node.value, m
-        return None, None
+                targets = node.targets if isinstance(node, ast.Assign) \
+                    else [node.target] if isinstance(
+                        node, (ast.AugAssign, ast.AnnAssign)) else []
+                for tgt in targets:
+                    for t in ast.walk(tgt):
+                        if isinstance(t, ast.Attribute) \
+                                and isinstance(t.value, ast.Name) \
+                                and t.value.id == "self" and t.attr == attr:
+                            found.append((tgt is t and isinstance(
+                                node, ast.Assign) and len(node.targets) == 1,
+                                getattr(node, "value", None), m))
+        if len(found) != 1 or not found[0][0]:
+            return None, None
+        return found[0][1], found[0][2]
 
-    def _str_of(self, path: str, expr: ast.expr,
-                scope: Optional[ast.AST]) -> Optional[str]:
+    def _str_of(self, path: str, expr: ast.expr, scope: Optional[ast.AST],
+                env: Optional[Dict[str, tuple]] = None) -> Optional[str]:
         if isinstance(expr, ast.Constant) and isinstance(expr.value, str):
             return expr.value
         if isinstance(expr, ast.Name):
+            bound = (env or {}).get(expr.id)
+            if bound is not None:
+                return bound[1] if bound[0] == "str" else None
             return self.resolve_str(path, expr.id)
-        return None
-
-    # -- body resolution ---------------------------------------------------
-
-    def resolve_callable(self, path: str, expr: Optional[ast.expr],
-                         env: Optional[Dict[str, tuple]] = None,
-                         depth: int = 0
-                         ) -> Optional[Tuple[str, ast.AST, Dict[str, tuple]]]:
-        """Resolve a callable expression to (module, def, closure_env).
-
-        Handles: bare names; ``partial(f, ...)``; factory calls whose def
-        ``return``s a nested def (the ``stripe_score(axis, shard)`` idiom)
-        — the factory's resolvable string arguments become the closure env
-        of the returned def, so axis names survive one factory hop."""
-        env = env or {}
-        if expr is None or depth > 4:
-            return None
-        if isinstance(expr, ast.Name):
-            bound = env.get(expr.id)
-            if bound is not None and bound[0] == "fn":
-                return bound[1], bound[2], bound[3]
-            got = self.resolve_fn(path, expr.id, expr)
-            if got is not None:
-                return got[0], got[1], {}
-            return None
-        if not isinstance(expr, ast.Call):
-            return None
-        callee = dotted_name(expr.func)
-        if callee in ("partial", "functools.partial") and expr.args:
-            return self.resolve_callable(path, expr.args[0], env, depth + 1)
-        if callee is None or "." in callee:
-            return None
-        got = self.resolve_fn(path, callee, expr)
-        if got is None:
-            return None
-        f_path, f_def = got
-        f_env = self.call_env(path, expr, f_path, f_def, env)
-        # factory: find `return <name>` where <name> is a def nested in it
-        f_model = self.modules.get(f_path)
-        if f_model is None:
-            return None
-        for node in walk_scope(f_def):
-            if isinstance(node, ast.Return) and node.value is not None:
-                inner = self.resolve_callable(f_path, node.value, f_env,
-                                              depth + 1)
-                if inner is not None:
-                    return inner
-                if isinstance(node.value, ast.Name):
-                    nested = f_model.resolve_def(node.value.id, node)
-                    if nested is not None:
-                        return f_path, nested, f_env
         return None
 
     # -- call-edge environments -------------------------------------------
 
     def call_env(self, caller_path: str, call: ast.Call, callee_path: str,
-                 callee: ast.AST, caller_env: Dict[str, tuple]
-                 ) -> Dict[str, tuple]:
+                 callee: ast.AST, caller_env: Dict[str, tuple],
+                 caller_fn: Optional[ast.AST] = None) -> Dict[str, tuple]:
         """Bind the callee's parameters to resolvable caller arguments:
-        string literals / constants propagate as ("str", v); names that
-        resolve to defs propagate as ("fn", module, def, env). Unresolvable
-        arguments stay unbound; callee defaults fill the rest."""
+        string literals / constants propagate as ("str", v), names that
+        resolve to defs as ("fn", module, def, env), meshes whose
+        construction resolves as ("mesh", axis frozenset). Callee defaults
+        fill the parameters the call does not pass; an argument passed
+        that does not resolve leaves its parameter unbound."""
         params = [a.arg for a in callee.args.posonlyargs + callee.args.args]
         env: Dict[str, tuple] = {}
         summ = self.summary(callee_path, callee)
         for p, d in summ.param_defaults.items():
-            v = self._value_of(callee_path, d, {})
+            v = self._value_of(callee_path, d, {}, None)
             if v is not None:
                 env[p] = v
         offset = 1 if params[:1] == ["self"] else 0
+        if caller_fn is None:
+            model = self.modules.get(caller_path)
+            caller_fn = model.enclosing_function(call) if model else None
 
         def bind(name: str, arg: ast.expr) -> None:
-            v = self._value_of(caller_path, arg, caller_env)
+            v = self._value_of(caller_path, arg, caller_env, caller_fn)
             if v is not None:
                 env[name] = v
+            else:
+                env.pop(name, None)
 
         for i, arg in enumerate(call.args):
             if isinstance(arg, ast.Starred):
@@ -618,8 +663,8 @@ class ProgramModel:
                 bind(kw.arg, kw.value)
         return env
 
-    def _value_of(self, path: str, expr: ast.expr,
-                  env: Dict[str, tuple]) -> Optional[tuple]:
+    def _value_of(self, path: str, expr: ast.expr, env: Dict[str, tuple],
+                  scope: Optional[ast.AST]) -> Optional[tuple]:
         if isinstance(expr, ast.Constant) and isinstance(expr.value, str):
             return ("str", expr.value)
         if isinstance(expr, ast.Name):
@@ -631,6 +676,10 @@ class ProgramModel:
             got = self.resolve_fn(path, expr.id, expr)
             if got is not None:
                 return ("fn", got[0], got[1], {})
+        if _names_a_mesh(expr):
+            axes = self.mesh_axes(path, expr, scope, env)
+            if axes is not None:
+                return ("mesh", frozenset(axes))
         return None
 
     # -- interprocedural walk ---------------------------------------------
@@ -641,8 +690,9 @@ class ProgramModel:
                    ) -> Iterator[Tuple[str, ast.AST, FnSummary,
                                        Dict[str, tuple]]]:
         """Yield (module, def, summary, env) for `fn` and every function
-        transitively reachable from it through resolvable call edges,
-        depth-bounded and cycle-safe."""
+        transitively reachable from it through resolvable call edges
+        (bare names, and ``self.method`` within the class), depth-bounded
+        and cycle-safe."""
         if _visited is None:
             _visited = set()
         key = (path, id(fn))
@@ -651,9 +701,9 @@ class ProgramModel:
         _visited.add(key)
         summ = self.summary(path, fn)
         yield path, fn, summ, env
-        # defs nested in fn run as part of the same traced computation
-        # (scan bodies, vmapped closures); their free variables see fn's
-        # bindings, so they inherit the env
+        # defs nested in fn run as part of the same computation (closures
+        # handed on, step bodies); their free variables see fn's bindings,
+        # so they inherit the env
         model = self.modules.get(path)
         if model is not None:
             for nested in model.functions:
@@ -661,30 +711,40 @@ class ProgramModel:
                     yield from self.walk_calls(path, nested, dict(env),
                                                depth + 1, _visited)
         for call, callee in summ.calls:
-            target: Optional[Tuple[str, ast.AST, Dict[str, tuple]]] = None
-            if "." not in callee:
-                bound = env.get(callee)
-                if bound is not None and bound[0] == "fn":
-                    target = (bound[1], bound[2], dict(bound[3]))
-                else:
-                    got = self.resolve_fn(path, callee, call)
-                    if got is not None:
-                        target = (got[0], got[1], {})
+            target = self.call_target(path, fn, call, callee, env)
             if target is None:
                 continue
             t_path, t_fn, t_closure = target
-            t_env = self.call_env(path, call, t_path, t_fn, env)
+            t_env = self.call_env(path, call, t_path, t_fn, env, fn)
             merged = dict(t_closure)
             merged.update(t_env)
             yield from self.walk_calls(t_path, t_fn, merged, depth + 1,
                                        _visited)
 
+    def call_target(self, path: str, fn: ast.AST, call: ast.Call,
+                    callee: str, env: Dict[str, tuple]
+                    ) -> Optional[Tuple[str, ast.AST, Dict[str, tuple]]]:
+        """(module, def, closure env) a call resolves to, or None."""
+        if "." not in callee:
+            bound = env.get(callee)
+            if bound is not None and bound[0] == "fn":
+                return bound[1], bound[2], dict(bound[3])
+            got = self.resolve_fn(path, callee, call)
+        else:
+            got = self.resolve_method(path, fn, callee)
+        return (got[0], got[1], {}) if got is not None else None
+
     def resolve_axis(self, path: str, fn: ast.AST, kind: Optional[str],
                      value: Optional[str], env: Dict[str, tuple]
                      ) -> Optional[str]:
-        """Axis string of a summarized collective, given the walk env."""
+        """Axis string of a summarized collective or lookup, given the
+        walk env."""
         if kind == "str":
             return value
+        if kind == "self" and value is not None:
+            assign, owner = self._find_self_assignment(fn, value)
+            return self._str_of(path, assign, owner) \
+                if assign is not None else None
         if kind != "name" or value is None:
             return None
         bound = env.get(value)
@@ -693,11 +753,49 @@ class ProgramModel:
         if value in self.param_names(fn):
             default = self.summary(path, fn).param_defaults.get(value)
             if default is not None:
-                v = self._value_of(path, default, {})
+                v = self._value_of(path, default, {}, None)
                 if v is not None and v[0] == "str":
                     return v[1]
             return None  # unbound dynamic parameter: trusted
+        model = self.modules.get(path)
+        if model is not None:
+            assign = self._unique_assignment(model, value, fn)
+            if assign is not None:
+                return self._str_of(path, assign, fn, env)
         return self.resolve_str(path, value)
+
+    # -- walks from the meshes' constructions -----------------------------
+
+    def mesh_walks(self) -> List[Tuple[str, ast.AST, FnSummary,
+                                       Dict[str, tuple]]]:
+        """Every (module, def, summary, env) reached from a function that
+        builds a mesh (a ``make_mesh`` / ``make_mesh_2d`` / ``Mesh(...)``
+        call), or from a method of a class that stores one on ``self``:
+        where a mesh's axis set can be known, and every callee it is
+        passed to. G007 and G008 read the collectives and lookups of these
+        walks against the mesh each one receives."""
+        if self._mesh_walks is not None:
+            return self._mesh_walks
+        out = []
+        for path, model in self.modules.items():
+            if "make_mesh" not in model.source \
+                    and "Mesh(" not in model.source:
+                continue
+            builders = {id(fn) for fn in model.functions
+                        if any(_builds_mesh(n) for n in walk_scope(fn))}
+            holders = set()
+            for fn in model.functions:
+                if id(fn) in builders:
+                    cls = _enclosing_class(fn)
+                    if cls is not None:
+                        holders.add(id(cls))
+            for fn in model.functions:
+                cls = _enclosing_class(fn)
+                if id(fn) in builders or (cls is not None
+                                          and id(cls) in holders):
+                    out.extend(self.walk_calls(path, fn, {}))
+        self._mesh_walks = out
+        return out
 
     # -- import graph (for --with-callers) --------------------------------
 
@@ -716,3 +814,34 @@ class ProgramModel:
                     out.add(path)
                     changed = True
         return out
+
+
+def _enclosing_class(node: Optional[ast.AST]) -> Optional[ast.ClassDef]:
+    """The class whose method (or a def nested in one) `node` is in."""
+    cur = node
+    while cur is not None and not isinstance(cur, ast.ClassDef):
+        cur = getattr(cur, "graftcheck_parent", None)
+    return cur
+
+
+def _builds_mesh(node: ast.AST) -> bool:
+    """A ``Mesh(...)`` call, or a bare ``make_mesh`` / ``make_mesh_2d``
+    call (parallel/mesh.py's constructors)."""
+    if not isinstance(node, ast.Call):
+        return False
+    callee = dotted_name(node.func) or ""
+    tail = callee.rsplit(".", 1)[-1]
+    return tail == "Mesh" or (tail in ("make_mesh", "make_mesh_2d")
+                              and "." not in callee)
+
+
+def _names_a_mesh(expr: ast.expr) -> bool:
+    """An argument the walk traces as a mesh: a mesh construction, or a
+    variable named like a mesh."""
+    if isinstance(expr, ast.IfExp):
+        return _names_a_mesh(expr.body) or _names_a_mesh(expr.orelse)
+    if _builds_mesh(expr):
+        return True
+    name = dotted_name(expr) if isinstance(expr, (ast.Name, ast.Attribute)) \
+        else None
+    return name is not None and bool(config.MESH_RECEIVER_RE.search(name))

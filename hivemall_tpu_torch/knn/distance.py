@@ -6,7 +6,8 @@ Python, a copy of the JAX package's); `*_batch` variants take dense
 [N, D] x [M, D] matrices and compute each distance matrix with one
 ``torch.matmul`` on the device, in the JAX package's form and in float32:
 TF32 would round the product's inputs to 10 mantissa bits, so they refuse
-to run on the card while ``torch.backends.cuda.matmul.allow_tf32`` is on.
+to run on the card while TF32 is on, through either of torch's spellings
+(``runtime/torch_compat.py``).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..runtime.torch_compat import refuse_tf32
 from ..utils.feature import parse_feature
 
 VecLike = Union[Sequence[str], Dict[Union[int, str], float]]
@@ -101,11 +103,7 @@ def _dense_f32(x, device: torch.device) -> torch.Tensor:
     t = x if isinstance(x, torch.Tensor) else torch.from_numpy(
         np.ascontiguousarray(x, np.float32))
     t = t.to(device=device, dtype=torch.float32)
-    if t.is_cuda and torch.backends.cuda.matmul.allow_tf32:
-        raise RuntimeError(
-            "knn batch distances compute in float32: set "
-            "torch.backends.cuda.matmul.allow_tf32 = False (TF32 rounds "
-            "the product's inputs and breaks parity with the reference)")
+    refuse_tf32(t, "knn batch distances compute")
     return t
 
 

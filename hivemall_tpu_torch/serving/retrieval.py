@@ -50,7 +50,7 @@ resolve to the lowest item id.
 per-block function at the same ``[B, block_items]`` shape: the product's
 kernel is chosen by shape, so a single ``[B, N]`` product could differ in
 its low bits. The product must be true f32: on CUDA the scorers raise if
-``torch.backends.cuda.matmul.allow_tf32`` is set.
+TF32 is on, through either of torch's spellings (``runtime/torch_compat.py``).
 
 **Indexing.** JAX's gathers read 0 past a table (``mode="fill"``); a
 torch gather out of range raises on the CPU and is undefined on CUDA. So
@@ -93,6 +93,7 @@ import torch
 from ..core.striping import stripe_grid, translate_to_stripe
 from ..device import DeviceLike, resolve_device
 from ..runtime.metrics import REGISTRY, alloc_segment_guard
+from ..runtime.torch_compat import refuse_tf32
 from ..runtime.tracing import TRACER
 from .artifact import Artifact, family_of, host_score_tables, load
 from .engine import LATENCY_BUCKETS
@@ -108,11 +109,7 @@ def _pow2_at_least(n: int) -> int:
 def _check_f32_product(t: torch.Tensor) -> None:
     """The catalog product must be f32, as the reference's is: TF32 would
     round the inputs to 10 mantissa bits on the card."""
-    if t.is_cuda and torch.backends.cuda.matmul.allow_tf32:
-        raise RuntimeError(
-            "top-K retrieval scores in float32: set "
-            "torch.backends.cuda.matmul.allow_tf32 = False (TF32 rounds "
-            "the product's inputs and breaks parity with the reference)")
+    refuse_tf32(t, "top-K retrieval scores")
 
 
 def _stable_topk(vals: torch.Tensor, ids: torch.Tensor, k: int):

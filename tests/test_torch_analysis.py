@@ -1,18 +1,22 @@
 """graftcheck for the port (hivemall_tpu_torch/analysis): its engine and its
 retrace (G001, G002, G005, G006, G032-G036), dtype-flow (G003, G017-G021),
+collective (G004, G007, G008, G010, G011), API-compatibility (G009),
 concurrency (G012-G016), FFI (G022-G026) and exception-flow (G027-G031)
 rules, held against the JAX package's analyzer on that analyzer's own rule
 fixtures, and run over the port's tree, both of its C ABIs (the host
 library's .cpp, the CUDA kernels' extern "C" block) and its failure paths.
 
-The retrace and dtype rules' fixtures and G013's import jax; the port is
-held to them through line-for-line twins in tests/data/graftcheck_torch/
-whose hazard takes torch's channel (TORCH_DEPARTURES names the lines where
-torch has none). tests/test_torch_analysis_trace.py holds the retrace
-twins line for line and the capture model against torch idioms. tests/test_torch_analysis_dtype.py holds the dtype-flow model
-against torch's own promotion. CLI runs go through ``_cli`` (the
-analyzer's ``main()`` in process, stdout captured); exactly one test
-starts a true subprocess, to
+The retrace, dtype, collective and G009 fixtures and G013's import jax;
+the port is held to them through twins in tests/data/graftcheck_torch/
+whose hazard takes torch's channel, each finding on its original's line
+(TORCH_DEPARTURES names the lines where torch has none).
+tests/test_torch_analysis_trace.py holds the retrace twins line for line
+and the capture model against torch idioms.
+tests/test_torch_analysis_dtype.py holds the dtype-flow model against
+torch's own promotion. tests/test_torch_analysis_collective.py holds the
+collective summaries, mesh resolution, the TF32 helper and the G009 table.
+CLI runs go through ``_cli`` (the analyzer's ``main()`` in process, stdout
+captured); exactly one test starts a true subprocess, to
 prove ``python -m hivemall_tpu_torch.analysis`` itself and that a scan in
 a fresh interpreter imports neither jax nor the JAX package, and one runs
 ``scripts/lint_torch.sh --all`` on a copy of the tree.
@@ -51,7 +55,8 @@ DATA = os.path.join(TESTS, "data", "graftcheck")
 TWINS = os.path.join(TESTS, "data", "graftcheck_torch")
 EXPECT_RE = re.compile(r"#\s*EXPECT:\s*([A-Z0-9,\s]+)")
 
-RULES = ["g001", "g002", "g003", "g005", "g006",
+RULES = ["g001", "g002", "g003", "g004", "g005", "g006",
+         "g007", "g008", "g008_serving", "g009", "g010", "g011",
          "g012", "g013", "g014", "g015", "g016",
          "g017", "g018", "g019", "g020", "g021",
          "g022", "g023", "g024", "g025", "g026",
@@ -63,8 +68,18 @@ DTYPE_RULES = ("g003", "g017", "g018", "g019", "g020", "g021")
 # G021: on an H100 these kernels keep a bf16/f16 running sum in float32
 # and round once (scripts/torch_accum_probe.py; dtypeflow.
 # TORCH_WIDE_ACCUMULATORS). G001(d), G005(a), G033(b): no per-value static
-# arguments and no donation in torch (traceflow.py's docstring).
+# arguments and no donation in torch (traceflow.py's docstring). G008's
+# serving case and G010's passthrough: nothing in torch names a serving
+# axis or declares an output replicated (the rules' docstrings).
+_NO_SERVING_AXES = ("the port's serving grid (serving/placement.py) is a "
+                    "list of device rows and names no axis")
 TORCH_DEPARTURES = {
+    ("g008_serving_pos", 26): _NO_SERVING_AXES,
+    ("g008_serving_pos", 34): _NO_SERVING_AXES,
+    ("g008_serving_pos", 39): _NO_SERVING_AXES,
+    ("g010_pos", 17): "no out_specs: a torch function declares no "
+                      "replicated output, and a rank's stripe returned as "
+                      "itself is that rank's stripe by design",
     ("g001_pos", 36): "a capture has no per-value static arguments",
     ("g005_pos", 9): "the port's steps update tables in place: an "
                      "undonated capture keeps no second copy",
@@ -75,7 +90,7 @@ TORCH_DEPARTURES = {
     ("g021_pos", 31): "segment_reduce 'sum' of bf16 accumulates in float32",
 }
 FLOW_RULES = ("G027", "G028", "G029", "G030", "G031")
-RULE_IDS = [r.upper() for r in RULES]
+RULE_IDS = sorted({r[:4].upper() for r in RULES})
 KERNEL_CU = os.path.join(PKG, "kernels", "csrc", "linear_scan.cu")
 KERNEL_PY = os.path.join(PKG, "kernels", "linear_scan.py")
 
@@ -137,10 +152,13 @@ def tree_findings():
 # ---------------------------------------------------------------------------
 
 def test_the_registry_holds_the_ports_rules():
-    """The registry holds the port's 30 rules: G001-G003, G005, G006,
-    G012-G036."""
-    assert len(RULE_IDS) == 30
+    """The registry holds every rule of the JAX package, G001-G036, each
+    in the reference's tier but G018 (a program rule in the port)."""
+    from hivemall_tpu.analysis.rules import ALL_RULES as REF_MODULE_RULES
+
+    assert RULE_IDS == [f"G{i:03d}" for i in range(1, 37)]
     assert sorted({**ALL_RULES, **PROGRAM_RULES}) == RULE_IDS
+    assert set(ALL_RULES) == set(REF_MODULE_RULES) - {"G018"}
 
 
 @pytest.mark.parametrize("kind", ["pos", "neg"])
@@ -509,6 +527,42 @@ def test_fixer_g024_declares_the_kernel_return_width(tmp_path):
            "lib.hm_linear_scan_max_k.argtypes = []" in fixed
     assert remaining == []
     assert analyze_paths([str(tmp_path / "binding.py")]) == []
+
+
+def test_fixer_round_trip_g009_tf32_helper(tmp_path):
+    """--fix rewrites the legacy TF32 flag's read in the G009 twin to the
+    compat helper and imports it; the moved spellings with no helper keep
+    their findings, without a fix."""
+    fixed, remaining = _fix_round_trip(
+        tmp_path, os.path.join(TWINS, "g009_pos.py"), "G009")
+    assert "    return tf32_matmul_enabled()" in fixed
+    assert "from hivemall_tpu_torch.runtime.torch_compat import " \
+        "tf32_matmul_enabled" in fixed
+    assert "allow_tf32" not in fixed
+    assert [f.snippet.split("  #")[0] for f in remaining] == [
+        "from torch._six import inf",
+        "with torch.cuda.amp.autocast(dtype=torch.bfloat16):"]
+
+
+def test_fixer_g009_routes_a_flag_write_to_the_setter(tmp_path):
+    """A one-line write of a legacy flag becomes the compat setter's call
+    with the written value; inside the package the import is relative."""
+    pkg = tmp_path / "hivemall_tpu_torch" / "knn"
+    pkg.mkdir(parents=True)
+    target = pkg / "probe.py"
+    target.write_text(
+        "import torch\n\n\ndef exact(flag):\n"
+        "    torch.backends.cuda.matmul.allow_tf32 = flag and False\n"
+        "    torch.backends.cudnn.allow_tf32 = False\n")
+    proc = _cli(str(target), "--fix", "--no-baseline", cwd=str(tmp_path))
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    fixed = target.read_text()
+    assert "    set_tf32_matmul(flag and False)\n" in fixed
+    assert "    set_tf32_cudnn(False)\n" in fixed
+    assert "from ..runtime.torch_compat import set_tf32_cudnn, " \
+        "set_tf32_matmul" in fixed
+    assert _cli(str(target), "--no-baseline",
+                cwd=str(tmp_path)).returncode == 0
 
 
 def test_sarif_output_is_valid_2_1_0(tmp_path):

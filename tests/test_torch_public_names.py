@@ -41,28 +41,23 @@ NOTHING_TO_PORT_NAMES = {
     ("native/__init__.py", "pack_block"):
         "core/batch.pack_rows packs blocks in vectorised numpy, measured "
         "against hm_pack_block by chip_smoke's phase native",
+    ("analysis/apicompat.py", "installed_jax_version"):
+        "the port's table holds torch's spellings: installed_torch_version "
+        "reads torch's version from package metadata the same way",
+    ("analysis/program.py", "ShardMapSite"):
+        "the port has no shard_map: mesh resolution follows the mesh each "
+        "collective receives (analysis/program.py's docstring)",
     ("analysis/config.py", "STEP_NAME_RE"):
         "read only by G005(a), a step-shaped jit without donate_argnums, "
         "which has no torch form: the port's steps update tables in place "
         "(analysis/traceflow.py's departures)",
 }
-# reference modules of a later slice of the port: graftcheck's collective
-# rules (G004, G007, G008, G010, G011) and its API-compatibility rule G009
-# with apicompat.py; the engine, retrace, dtype-flow, concurrency, FFI and
-# exception-flow layers are ported
-STILL_TO_PORT = {
-    "analysis/apicompat.py",
-    *(f"analysis/rules/{name}.py" for name in (
-        "g004_axis", "g007_collective_axis", "g008_spec_mesh",
-        "g009_api_compat", "g010_unreduced_output",
-        "g011_divergent_collective")),
-}
+# reference modules of a later slice of the port: none is left — the
+# collective rules, G009 and apicompat.py were the last
+STILL_TO_PORT = set()
 # names of a ported module that only a later slice's modules read, each
 # group with its reason
-_LATER_CONFIG = {
-    "read only by the collective rule G004 (g004_axis.py)": (
-        "MESH_FILE", "DEFAULT_AXIS_NAMES"),
-}
+_LATER_CONFIG = {}
 STILL_TO_PORT_NAMES = {("analysis/config.py", name): reason
                        for reason, names in _LATER_CONFIG.items()
                        for name in names}
