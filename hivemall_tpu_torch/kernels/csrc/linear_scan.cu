@@ -20,14 +20,30 @@
 //
 // Two kernels run per block.
 //
-// linear_scan_plan_kernel, parallel over all (row, lane) pairs on every SM,
-// reads only idx and writes three int32 [B, K] tables:
+// linear_scan_plan_kernel reads only idx and writes three int32 [B, K]
+// tables:
 //   lead[b,k] — the first lane of row b holding lane k's feature (-1: dead);
 //   next[b,k] — the next lane of row b holding it, in lane order (-1: none),
 //               so a leader folds its repeats without scanning the row;
 //   fwd[b,k]  — (delta << 16) | lane: the latest earlier row b-delta of the
 //               block, delta in 1..depth, that holds the feature, and that
 //               row's leader lane of it; -1 if no row within depth does.
+// What bounds it on an H100 is latency, not bytes (a main-path block's 2
+// MB move in 0.6 us at 3.35 TB/s) or compares. A thread a (row, lane) pair
+// scanning its row and the depth rows before it in device memory makes up
+// to 288 dependent loads, and the 32 threads of a row repeat each other's.
+// Instead a CTA takes a tile of consecutive rows: it copies their ids and
+// the depth rows before them into shared memory once (16-byte loads at K =
+// 32, each id read (tile + depth) / tile times), then a warp a row groups
+// equal ids with __match_any_sync (lead and next are bit tricks on the
+// group's mask) and its leader lanes insert id -> lane into the row's
+// open-addressed table in shared memory. Each lane then probes the tables
+// of the depth rows before it, their home slots loaded together: about
+// depth lookups in place of K * depth compares. What is left is the launch
+// and the CTA's three phases between barriers, each a short chain of
+// dependent loads. K == 32 at depth DEPTH, the main path's block, has its
+// own instance. Every scan depth's window fits in shared memory; a deeper
+// one at a wide row does not, and is refused.
 //
 // linear_scan_kernel runs the rows in order as ONE CTA of ONE warp: row b+1
 // reads what row b wrote. Thread `lane` owns lanes k = lane, lane+32, ...
@@ -61,6 +77,8 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <algorithm>
 #include <stdint.h>
 
 namespace {
@@ -458,32 +476,146 @@ struct ScanArgs {
 #define HM_SCAN_STAGES "wait,issue,select,reduce,rule,deltas,fold,end"
 constexpr int N_STAGES = 8;
 
-__global__ void __launch_bounds__(256)
+// ------------------------------------------------------------------ the plan
+
+// A row's table in shared memory: open addressing over plan_slots(K) slots,
+// linear probing, each slot one 64-bit word (id << 32) | (first lane << 16)
+// | last lane of the id in the row, PLAN_EMPTY while free. Live ids are in
+// [0, 2^31), so no live entry has PLAN_EMPTY's id bits.
+constexpr unsigned long long PLAN_EMPTY = ~0ull;
+// rows a plan CTA writes (where they fit) and its warps: the least time of
+// the shapes timed on an H100 (PERF.md, scripts/time_plan_kernel.py)
+constexpr int PLAN_TILE_ROWS = 16;
+constexpr int PLAN_WARPS = 16;
+
+// slots of a row's table: at most a quarter full up to 64 lanes, half above
+__host__ __device__ constexpr int plan_slots(int K) { return K <= 64 ? 4 * K : 2 * K; }
+// shared-memory bytes of one row of a plan CTA's window: its table, its ids
+__host__ __device__ constexpr long long plan_row_bytes(int K) {
+  return 8LL * plan_slots(K) + 4LL * K;
+}
+
+// the id's home slot: the high bits of a multiplicative hash, spread over S
+// slots without a power of two (ids equal modulo 2^n land apart)
+__device__ __forceinline__ unsigned plan_slot(int f, int S) {
+  return (unsigned)(((unsigned long long)((unsigned)f * 0x9E3779B1u) * (unsigned)S) >> 32);
+}
+
+// NARROW: K == 32 at depth DEPTH (the main path's block) with K and depth
+// compile-time constants and the ids loaded 16 bytes a thread. A CTA writes
+// rows [r0, r0 + tile) and holds the window [w0, r0 + tile) of them and the
+// depth rows before them.
+template <bool NARROW>
+__global__ void __launch_bounds__(PLAN_WARPS * 32)
 linear_scan_plan_kernel(const int32_t* __restrict__ idx, int32_t* __restrict__ lead,
                         int32_t* __restrict__ next, int32_t* __restrict__ fwd, int B,
-                        int K, long long D, int depth) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (long long)B * K) return;
-  const int b = (int)(i / K), k = (int)(i % K);
-  const int32_t* row = idx + (size_t)b * K;
-  const int f = row[k];
-  if (f < 0 || (long long)f >= D) {
-    lead[i] = -1; next[i] = -1; fwd[i] = -1;
-    return;
+                        int K_, long long D, int depth_, int tile) {
+  const int K = NARROW ? 32 : K_;
+  const int depth = NARROW ? DEPTH : depth_;
+  const int S = plan_slots(K);
+  const int r0 = blockIdx.x * tile;
+  const int r1 = min(B, r0 + tile);
+  const int w0 = max(0, r0 - depth);
+  const int nw = r1 - w0;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  extern __shared__ unsigned long long plan_smem[];
+  unsigned long long* tab = plan_smem;                       // [nw][S]
+  int* ids = reinterpret_cast<int*>(tab + (size_t)nw * S);  // [nw][K]
+
+  // 1. the window's ids in one coalesced sweep; every table empty
+  const size_t base = (size_t)w0 * K, n = (size_t)nw * K;
+  if (NARROW) {
+    const int4* src = reinterpret_cast<const int4*>(idx + base);
+    int4* dst = reinterpret_cast<int4*>(ids);
+    for (int i = threadIdx.x; i < (int)(n / 4); i += blockDim.x) dst[i] = src[i];
+  } else {
+    for (size_t i = threadIdx.x; i < n; i += blockDim.x) ids[i] = idx[base + i];
   }
-  int l = k;
-  for (int j = 0; j < k; ++j)
-    if (row[j] == f) { l = j; break; }
-  int n = -1;
-  for (int j = k + 1; j < K; ++j)
-    if (row[j] == f) { n = j; break; }
-  int e = -1;
-  for (int d = 1; d <= depth && d <= b && e < 0; ++d) {
-    const int32_t* p = row - (size_t)d * K;
-    for (int j = 0; j < K; ++j)
-      if (p[j] == f) { e = (d << FWD_SHIFT) | j; break; }
+  for (size_t i = threadIdx.x; i < (size_t)nw * S; i += blockDim.x) tab[i] = PLAN_EMPTY;
+  __syncthreads();
+
+  // 2. a warp a row: the row's table, and lead and next of the rows this CTA
+  // writes. 32 lanes at a time: __match_any_sync groups a chunk's equal ids
+  // (a live id never equals a dead one), the group's lowest lane finds or
+  // inserts the id; an id seen in an earlier chunk (K > 32) takes its first
+  // lane from the table, links its last lane there to this chunk's first
+  // and moves the last lane on.
+  for (int w = warp; w < nw; w += PLAN_WARPS) {
+    const int r = w0 + w;
+    const bool own = r >= r0;
+    const int* row = ids + (size_t)w * K;
+    unsigned long long* t = tab + (size_t)w * S;
+    const size_t g = (size_t)r * K;
+    for (int c = 0; c < K; c += 32) {
+      const int k = c + lane;
+      const int f = k < K ? row[k] : -1;
+      const bool live = k < K && f >= 0 && (long long)f < D;
+      const unsigned grp = __match_any_sync(FULL, f);
+      const int lo = __ffs(grp) - 1, hi = 31 - __clz(grp);
+      const unsigned above = grp & (0xfffffffeu << lane);
+      int first = c + lo;
+      if (live && lane == lo) {
+        const unsigned long long mine = ((unsigned long long)(unsigned)f << 32) |
+                                        ((unsigned long long)(c + lo) << 16) |
+                                        (unsigned)(c + hi);
+        unsigned s = plan_slot(f, S);
+        for (;;) {
+          const unsigned long long e = atomicCAS(&t[s], PLAN_EMPTY, mine);
+          if (e == PLAN_EMPTY) break;
+          if ((unsigned)(e >> 32) == (unsigned)f) {
+            first = (int)((e >> 16) & 0xffff);
+            t[s] = (e & ~0xffffull) | (unsigned)(c + hi);
+            if (own) next[g + (e & 0xffff)] = c + lo;
+            break;
+          }
+          if (++s == (unsigned)S) s = 0;
+        }
+      }
+      first = __shfl_sync(FULL, first, lo);
+      if (own && k < K) {
+        lead[g + k] = live ? first : -1;
+        next[g + k] = live && above ? c + __ffs(above) - 1 : -1;
+      }
+      __syncwarp();
+    }
   }
-  lead[i] = l; next[i] = n; fwd[i] = e;
+  __syncthreads();
+
+  // 3. fwd of the rows this CTA writes: each live lane loads its id's home
+  // slot in the tables of the depth rows before it together (one table
+  // size, one home slot), then walks them nearest first, probing on past
+  // a collision, and stops at the first row that holds the id
+  for (int w = r0 - w0 + warp; w < nw; w += PLAN_WARPS) {
+    const int r = w0 + w;
+    const int* row = ids + (size_t)w * K;
+    const size_t g = (size_t)r * K;
+    const int dmax = min(depth, r);
+    for (int k = lane; k < K; k += 32) {
+      const int f = row[k];
+      int e = -1;
+      if (f >= 0 && (long long)f < D) {
+        const unsigned home = plan_slot(f, S);
+        unsigned long long x[DEPTH];
+#pragma unroll
+        for (int d = 1; d <= DEPTH; ++d)
+          x[d - 1] = d <= dmax ? tab[(size_t)(w - d) * S + home] : PLAN_EMPTY;
+#pragma unroll
+        for (int d = 1; d <= DEPTH; ++d) {
+          unsigned long long y = x[d - 1];
+          unsigned s = home;
+          while (y != PLAN_EMPTY && (unsigned)(y >> 32) != (unsigned)f) {
+            if (++s == (unsigned)S) s = 0;
+            y = tab[(size_t)(w - d) * S + s];
+          }
+          if (y != PLAN_EMPTY) {
+            e = (d << FWD_SHIFT) | (int)((y >> 16) & 0xffff);
+            break;
+          }
+        }
+      }
+      fwd[g + k] = e;
+    }
+  }
 }
 
 // NARROW: K == 32 (the bucketed width of hashed CTR rows) at depth DEPTH,
@@ -855,20 +987,39 @@ int hm_linear_scan_stage_cycles(const float* hyper, int n_hyper, const int32_t* 
 
 const char* hm_linear_scan_stage_names() { return HM_SCAN_STAGES; }
 
+// 1 if hm_linear_scan_plan launches the narrow instance for these ids (K ==
+// 32 at depth DEPTH, ids 16-byte aligned), else 0.
+int hm_linear_scan_plan_narrow(const int32_t* idx, int K, int depth) {
+  return K == 32 && depth == DEPTH && (reinterpret_cast<uintptr_t>(idx) & 15) == 0;
+}
+
 // Build the plan of a block (int32 [B, K] lead, next, fwd; see the top of
-// this file) on `stream`, forwarding over at most `depth` rows. Returns the
+// this file) on `stream`, forwarding over at most `depth` rows. Refuses
+// (cudaErrorInvalidValue) a window of depth + 1 rows that does not fit in
+// shared memory: K (depth + 1) > 11,622 lanes above 64 lanes a row, past
+// every scan depth (scan_depth keeps K (depth + 1) <= 7,748). Returns the
 // launch's cudaError_t; does not synchronize.
 int hm_linear_scan_plan(const int32_t* idx, int32_t* lead, int32_t* next, int32_t* fwd,
                         int B, int K, long long D, int depth, void* stream) {
-  if (B < 0 || K < 1 || K > MAX_K || depth < 0 || depth > DEPTH)
+  const long long row_bytes = plan_row_bytes(K);
+  if (B < 0 || K < 1 || K > MAX_K || depth < 0 || depth > DEPTH ||
+      (long long)B * K > 0x7fffffffLL || (depth + 1) * row_bytes > SMEM_LIMIT_BYTES)
     return (int)cudaErrorInvalidValue;
-  const long long n = (long long)B * K;
-  if (n == 0) return 0;
-  const int threads = 256;
-  const long long blocks = (n + threads - 1) / threads;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  linear_scan_plan_kernel<<<(unsigned)blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      idx, lead, next, fwd, B, K, D, depth);
+  if (B == 0) return 0;
+  // rows a CTA writes: PLAN_TILE_ROWS, fewer where its window would not fit
+  const int tile = (int)std::min<long long>(PLAN_TILE_ROWS,
+                                            SMEM_LIMIT_BYTES / row_bytes - depth);
+  const size_t smem = (size_t)(std::min(tile + depth, B) * row_bytes);
+  const unsigned grid = (unsigned)((B + tile - 1) / tile);
+  auto kernel = hm_linear_scan_plan_narrow(idx, K, depth) ? linear_scan_plan_kernel<true>
+                                                          : linear_scan_plan_kernel<false>;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kernel<<<grid, PLAN_WARPS * 32, smem, static_cast<cudaStream_t>(stream)>>>(
+      idx, lead, next, fwd, B, K, D, depth, tile);
   return (int)cudaGetLastError();
 }
 

@@ -74,6 +74,9 @@ FWD_SHIFT = 16
 # kernel launches by this process; chip_smoke.py zeroes and reads it to show
 # that a run went through the kernels
 LAUNCHES = {"linear_scan": 0, "linear_scan_plan": 0}
+# the plan kernel's launches by instance: "narrow" is K = 32 at the full
+# depth, the main path's block
+PLAN_INSTANCES = {"narrow": 0, "general": 0}
 
 _lib = None
 
@@ -104,6 +107,9 @@ def _library():
         lib.hm_linear_scan_plan.argtypes = [ctypes.c_void_p] * 4 + [
             ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
             ctypes.c_void_p]
+        lib.hm_linear_scan_plan_narrow.restype = ctypes.c_int
+        lib.hm_linear_scan_plan_narrow.argtypes = [ctypes.c_void_p,
+                                                   ctypes.c_int, ctypes.c_int]
         lib.hm_linear_scan_depth.restype = ctypes.c_int
         lib.hm_linear_scan_depth.argtypes = [ctypes.c_int, ctypes.c_int]
         lib.hm_linear_scan_max_k.restype = ctypes.c_int
@@ -221,7 +227,9 @@ def linear_scan_plan_reference(indices: torch.Tensor, dims: int, depth: int):
 
 def linear_scan_plan(indices: torch.Tensor, dims: int, depth: int):
     """The block's plan (see `linear_scan_plan_reference`): the plan kernel
-    on a CUDA tensor, the plain version on a CPU tensor."""
+    on a CUDA tensor, the plain version on a CPU tensor. On the card a
+    window of depth + 1 rows must fit in shared memory, as at every
+    `scan_depth`; a deeper plan of wide rows raises."""
     if indices.device.type == "cpu":
         return linear_scan_plan_reference(indices, dims, depth)
     if indices.device.type != "cuda" or indices.dim() != 2:
@@ -236,6 +244,8 @@ def linear_scan_plan(indices: torch.Tensor, dims: int, depth: int):
         k, dims, depth, torch.cuda.current_stream(indices.device).cuda_stream),
         "linear_scan_plan")
     LAUNCHES["linear_scan_plan"] += 1
+    PLAN_INSTANCES["narrow" if lib.hm_linear_scan_plan_narrow(
+        idx32.data_ptr(), k, depth) else "general"] += 1
     return lead, nxt, fwd
 
 

@@ -17,13 +17,13 @@ its matmuls:
 - `gather` reads the table in sorted id order (each id's rows adjacent)
   and un-sorts by position: exactly ``table[ids]``, 0.0 for invalid ids.
 - `scatter_add` lines the updates up in the plan's order, sums each run
-  of equal ids in float64 (the difference of a float64 prefix sum at the
-  run's ends), then writes ONCE per unique id: ``table[id] + run sum``,
-  rounded to float32 once. Invalid ids are dropped. No float atomics, so
-  two runs on the card are bit-equal, and the card equals the CPU up to
-  the rounding of that float64 sum. Every shape is fixed by the block, so
-  a step built on these ops has no host sync and captures as one CUDA
-  graph.
+  of equal ids in float64 (`segment_reduce`s over the runs, each run
+  added on its own in slot order), then writes ONCE per unique id:
+  ``table[id] + run sum``, rounded to float32 once. Invalid ids are
+  dropped. No float atomics and no prefix sum, so two runs on the card
+  are bit-equal, a run of zeros adds exactly 0, and the card adds in the
+  CPU's order. Every shape is fixed by the block, so a step built on
+  these ops has no host sync and captures as one CUDA graph.
 
 Invalid ids deviate from wraparound indexing ON PURPOSE, as in the JAX
 module: the engine's padding protocol only produces ids in [0, dims], so
@@ -159,21 +159,49 @@ def gather(table: torch.Tensor, plan: WindowPlan,
     return out[:, 0] if squeeze else out
 
 
+RUN_CHUNK = 128  # slots of a run that one first-level partial sum adds
+
+
+def _offsets(seg: torch.Tensor, first: torch.Tensor, tail) -> torch.Tensor:
+    """The [len(seg) + 1] offsets of segments numbered `seg` (ascending)
+    whose first element is `first`; the segments past the last are empty
+    at `tail` (an int, or a 0-d tensor on seg's device). Every element of
+    a segment writes the same offset, so the scatter is deterministic; no
+    host sync and no host-to-device copy, so a CUDA graph captures it."""
+    m = seg.shape[0] + 1
+    out = tail.expand(m).clone() if torch.is_tensor(tail) else \
+        torch.full((m,), tail, dtype=seg.dtype, device=seg.device)
+    return out.scatter_(0, seg, first)
+
+
 def _run_sums(sid: torch.Tensor, su: torch.Tensor) -> torch.Tensor:
     """Each sorted slot's run total [N, kl]: the sum of `su` over the run
-    of equal ids it belongs to, in float64, from the ends of an exclusive
-    prefix sum (searchsorted finds each run's first and past-the-end
-    slots; fixed shapes, no host sync). The columns are laid end to end,
-    each after a zero, and scanned as ONE flat array: a 1-D scan is one
-    device-wide pass, where a scan down the rows of an [N, kl] tensor
-    runs each column serially."""
+    of equal ids it belongs to, in float64, in two `segment_reduce`s (on
+    CUDA a thread a segment and column, adding in slot order from 0.0, as
+    on the CPU): partial sums of at most RUN_CHUNK slots of a run, then
+    each run's partials. A run is summed on its own, so a run of zeros
+    sums to 0 exactly, two card runs are bit-equal and the card adds as
+    the CPU does; the two levels keep a head id's run (~20,000 slots at
+    the bench shape) off one thread's serial loop. The difference of a
+    prefix sum at a run's ends would be none of these: a parallel scan
+    associates the two ends' sums differently (on the card a run of zeros
+    came to +-1.5e-11, counting as updated a feature no lane updated).
+    Fixed shapes, no host sync."""
     n, kl = su.shape
-    cols = torch.cat([su.new_zeros((kl, 1), dtype=torch.float64),  # graftcheck: disable=G003 (float64 run sums: two card runs are bit-equal)
-                      su.t().double()], dim=1)  # [kl, N + 1]  # graftcheck: disable=G003 (float64 run sums: two card runs are bit-equal)
-    pre = torch.cumsum(cols.reshape(-1), dim=0).view(kl, n + 1)
+    if n == 0:
+        return su.double()  # graftcheck: disable=G003 (float64 run sums: two card runs are bit-equal)
+    i = torch.arange(n, device=sid.device)
     first = torch.searchsorted(sid, sid, side="left")
-    end = torch.searchsorted(sid, sid, side="right")
-    return (pre[:, end] - pre[:, first]).t()
+    lag = (i - first) % RUN_CHUNK
+    seg = torch.cumsum(lag == 0, 0) - 1  # each slot's partial
+    part = torch.segment_reduce(
+        su.double(), "sum", offsets=_offsets(seg, i - lag, n), axis=0,  # graftcheck: disable=G003 (float64 run sums: two card runs are bit-equal)
+        unsafe=True, initial=0.0)
+    run = torch.cumsum(i == first, 0) - 1
+    tot = torch.segment_reduce(
+        part, "sum", offsets=_offsets(run, seg[first], seg[-1] + 1), axis=0,
+        unsafe=True, initial=0.0)
+    return tot[run]
 
 
 def scatter_add(table: torch.Tensor, ids_flat, upd: torch.Tensor,

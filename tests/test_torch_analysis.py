@@ -368,7 +368,7 @@ def test_cli_exits_zero_against_baseline():
 
 def test_g025_compares_every_bound_symbol():
     """The symbols whose ctypes declarations G025 holds against a C
-    definition are all the hm_ symbols the port binds: 8 of the CUDA
+    definition are all the hm_ symbols the port binds: 9 of the CUDA
     kernels' extern "C" block, 14 of the host library — each with every
     argtype and the restype of a known width."""
     program = ProgramModel({})
@@ -390,7 +390,7 @@ def test_g025_compares_every_bound_symbol():
     per_file = {}
     for sym in bound:
         per_file[defined[sym]] = per_file.get(defined[sym], 0) + 1
-    assert per_file == {"linear_scan.cu": 8, "hivemall_native.cpp": 14}
+    assert per_file == {"linear_scan.cu": 9, "hivemall_native.cpp": 14}
     cdecls = scan_native_decls()
     for mod in get_ffi(program).modules.values():
         for sym, decl in mod.decls.items():

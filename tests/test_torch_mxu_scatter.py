@@ -32,7 +32,7 @@ from pallas_cases import generic_rules
 from torch_cases import (PORT_RULES, assert_ffm_match, assert_fm_match,
                          ffm_hypers, fm_hypers, jax_ffm_numpy, jax_ffm_state,
                          jax_fm_numpy, jax_fm_state, jax_state_numpy,
-                         warm_ffm_numpy, warm_fm_numpy)
+                         warm_ffm_numpy, warm_fm_numpy, warm_numpy)
 
 
 def _mask_ref_ids(ids: np.ndarray, e: int) -> jnp.ndarray:
@@ -325,6 +325,51 @@ def test_engine_minibatch_backend_parity(i):
                                                err_msg=f"{label} {g}")
                 np.testing.assert_array_equal(got["touched"], ref["touched"])
                 assert int(got["step"]) == int(ref["step"]) == b
+
+
+def test_arow_backends_fire_the_same_rows_from_a_common_state():
+    """One AROW minibatch step of each backend from a common state gives
+    the same `touched` and `step`, exactly: both score a row from the same
+    gathered weights (the engine's row context and the mxu step's packed
+    gather), so the same rows fire. chip_smoke.py's phase mxu holds the
+    card to this on each of main's blocks. Here: 8 seeded head-heavy
+    blocks (benchmark ids) from a warm state with nothing touched and
+    weights large enough that some rows clear the margin; the mxu step's
+    state carries on to the next block."""
+    from hivemall_tpu_torch.core.engine import make_train_fn
+    from hivemall_tpu_torch.core.state import (linear_state_from_numpy,
+                                               linear_state_to_numpy)
+    from hivemall_tpu_torch.runtime.benchmark import make_workload_ids
+
+    rule, hyper = PORT_RULES["arow"], {"r": 0.1}
+    d, b, k = 1 << 12, 512, 32
+    host = warm_numpy(rule, d, seed=3)
+    host["weights"] *= 5.0
+    host["touched"][:] = 0
+    steps = {be: make_train_fn(rule, hyper, mode="minibatch",
+                               update_backend=be, device="cpu")
+             for be in ("mxu", "xla")}
+    st = linear_state_from_numpy(host, "cpu")
+    touched = 0
+    for seed in range(8):
+        rng = np.random.RandomState(seed)
+        idx = make_workload_ids(rng, (b, k), d).astype(np.int32)
+        val = (2.0 * rng.rand(b, k)).astype(np.float32)
+        lab = np.where(rng.rand(b) < 0.5, -1.0, 1.0).astype(np.float32)
+        got = {be: linear_state_to_numpy(
+                   fn(linear_state_from_numpy(linear_state_to_numpy(st),
+                                              "cpu"), idx, val, lab)[0])
+               for be, fn in steps.items()}
+        np.testing.assert_array_equal(got["mxu"]["touched"],
+                                      got["xla"]["touched"],
+                                      err_msg=f"block {seed}")
+        assert int(got["mxu"]["step"]) == int(got["xla"]["step"]) \
+            == 500 + (seed + 1) * b
+        new = int(got["mxu"]["touched"].sum())
+        assert new > touched, f"block {seed} fired no new feature"
+        touched = new
+        st = linear_state_from_numpy(got["mxu"], "cpu")
+    assert touched < d  # some features never fired
 
 
 def test_engine_backend_validation():

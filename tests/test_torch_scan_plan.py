@@ -4,6 +4,11 @@
   hivemall_tpu_torch/kernels/csrc/linear_scan.cu) against a brute-force
   numpy plan, exactly, on seeded blocks with pad lanes, in-row duplicates
   and cross-row repeats.
+- The same against the blocks chip_smoke.py's phase stress aims at the
+  plan kernel's hashed, tiled design (`plan_adversarial_blocks`): a row of
+  one id, rows of dead lanes only, ids equal modulo 64 and 128, ids at
+  the edges of [0, D) and the int32 range; one row, fewer rows than the
+  depth, 13 rows; widths about one warp; every depth from 0 to 8.
 - The forwarding invariant the pipelined scan kernel rests on: for every
   live lane of row b, the value its plan selects — the value row b-delta
   left (the kernel's forwarding ring) or the table as it stood when row
@@ -32,6 +37,8 @@ from hivemall_tpu_torch.models import classifier as TC
 from hivemall_tpu_torch.models import regression as TR
 from hivemall_tpu_torch.ops import eta as TE
 
+from chip_smoke import (PLAN_EDGE_WIDTHS, PLAN_MAX_DEPTH,
+                        plan_adversarial_blocks)
 from pallas_cases import make_block_data
 from torch_cases import (assert_states_match, jax_state_from_numpy,
                          jax_state_numpy, warm_numpy)
@@ -82,6 +89,21 @@ def test_plan_reference_matches_brute_force(seed, depth):
                           brute_force_plan(idx, 24, depth)):
         assert g.dtype == torch.int32
         np.testing.assert_array_equal(g.numpy(), w, err_msg=name)
+
+
+@pytest.mark.parametrize("k", PLAN_EDGE_WIDTHS)
+@pytest.mark.parametrize("depth", range(PLAN_MAX_DEPTH + 1))
+def test_plan_reference_on_adversarial_blocks(depth, k):
+    dims = 1 << 14
+    for b in (1, 5, 13):
+        rng = np.random.RandomState(1000 * b + k)
+        for name, idx in plan_adversarial_blocks(rng, b, k, dims):
+            got = linear_scan_plan_reference(torch.from_numpy(idx), dims,
+                                             depth)
+            for table, g, w in zip(("lead", "next", "fwd"), got,
+                                   brute_force_plan(idx, dims, depth)):
+                np.testing.assert_array_equal(
+                    g.numpy(), w, err_msg=f"{name} B={b} {table}")
 
 
 def test_plan_on_cpu_is_the_plain_version():
