@@ -16,7 +16,9 @@ to powers of two, as in the JAX package, so both see the same shapes.
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional, Sequence
+from contextlib import nullcontext
+from typing import (Callable, ContextManager, List, NamedTuple, Optional,
+                    Sequence)
 
 import numpy as np
 import torch
@@ -111,22 +113,28 @@ def iter_blocks(
     dims: int,
     batch_size: int,
     width: Optional[int] = None,
+    pack_phase: Optional[Callable[[], ContextManager]] = None,
 ):
     """Yield fixed-shape FeatureBlocks over a dataset.
 
     The final partial block is emitted at its true size rather than padded
     with fake rows — fake rows would corrupt global scalars (running target
-    stats) and the example counter `t`.
+    stats) and the example counter `t`. ``pack_phase``, when given, makes
+    the context entered around each block's packing (the fit loop's
+    ``fit.pack`` timer), so the packing is timed once a block.
     """
     n = len(idx_rows)
     if width is None:
         max_nnz = max((len(r) for r in idx_rows), default=1)
         width = pad_to_bucket(max_nnz)
+    phase = pack_phase or nullcontext
     for start in range(0, n, batch_size):
         end = min(start + batch_size, n)
-        yield pack_rows(idx_rows[start:end], val_rows[start:end],
-                        labels[start:end], dims, width=width,
-                        batch_size=end - start)
+        with phase():
+            block = pack_rows(idx_rows[start:end], val_rows[start:end],
+                              labels[start:end], dims, width=width,
+                              batch_size=end - start)
+        yield block
 
 
 def pad_rows_to_multiple(indices: torch.Tensor, values: torch.Tensor,

@@ -26,11 +26,21 @@ Execution modes:
 - `-iters N` + `-cv_rate`: multi-epoch with convergence checking.
 
 Training runs on the CUDA device unless the caller passes `device="cpu"`.
+
+A fit through the shared loop (scan, `-pallas`, `-mini_batch`, `-batch`)
+commits one trace to `runtime/tracing.py`'s TRACER: a `fit` root, its
+`fit.stage` and `fit.init_state` children and one `fit.epoch` a pass, whose
+args count the pass's blocks and sum its phases: each block's `fit.pack`
+(`iter_blocks`' `pack_rows`), `fit.h2d` (the block's copies; under `-batch`
+also its plans, staged and uploaded in the first pass), `fit.step` and the
+pass's `fit.epoch_sync`. Under torch.profiler each span and each phase
+entry is also a host range of its name on the profiler's timeline.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -45,6 +55,7 @@ from ..core.state import LinearState, init_linear_state, model_rows
 from ..device import DeviceLike, resolve_device
 from ..ops.convergence import ConversionState
 from ..runtime.metrics import REGISTRY
+from ..runtime.tracing import TRACER
 from ..utils.feature import parse_features_batch
 from ..utils.options import CommandLine, Options
 
@@ -282,6 +293,10 @@ def _fit_native_batch(rule, hyper, cl, dims, idx_rows, val_rows, labels,
                               block_width=width)
 
 
+# the per-block phases of one epoch, in the order a block runs them
+_PHASES = ("fit.pack", "fit.h2d", "fit.step", "fit.epoch_sync")
+
+
 def fit_linear(
     rule: Rule,
     hyper: dict,
@@ -295,144 +310,166 @@ def fit_linear(
     device: DeviceLike = None,
 ) -> TrainedLinearModel:
     """The generic fit loop used by every classifier/regressor `train_*`."""
-    dev = resolve_device(device)
-    dims = cl.get_int("dims") or default_dims
-    mini_batch = cl.get_int("mini_batch", 1)
-    iters = cl.get_int("iters", 1)
-    block_size = cl.get_int("block_size", 4096)
-    labels = np.asarray(labels, dtype=np.float32)
-    if label_map is not None:
-        labels = label_map(labels)
+    with TRACER.span("fit") as root:
+        dev = resolve_device(device)
+        dims = cl.get_int("dims") or default_dims
+        mini_batch = cl.get_int("mini_batch", 1)
+        iters = cl.get_int("iters", 1)
+        block_size = cl.get_int("block_size", 4096)
+        with TRACER.span("fit.stage"):
+            labels = np.asarray(labels, dtype=np.float32)
+            if label_map is not None:
+                labels = label_map(labels)
 
-    if cl.has("loadmodel") and initial_weights is None:
-        from ..io.checkpoint import dense_from_rows, load_model_rows
+            if cl.has("loadmodel") and initial_weights is None:
+                from ..io.checkpoint import dense_from_rows, load_model_rows
 
-        feats0, w0, c0 = load_model_rows(cl.get("loadmodel"))
-        initial_weights, initial_covars = dense_from_rows(dims, feats0, w0, c0)
+                feats0, w0, c0 = load_model_rows(cl.get("loadmodel"))
+                initial_weights, initial_covars = dense_from_rows(
+                    dims, feats0, w0, c0)
 
-    idx_rows, val_rows = _stage_rows(features, dims)
-    n = len(idx_rows)
-    if n == 0:
-        raise ValueError("no training rows")
-    width = pad_to_bucket(max((len(r) for r in idx_rows), default=1))
+            idx_rows, val_rows = _stage_rows(features, dims)
+            n = len(idx_rows)
+            if n == 0:
+                raise ValueError("no training rows")
+            width = pad_to_bucket(max((len(r) for r in idx_rows), default=1))
 
-    batch_b = cl.get_int("batch", 0) if cl.has("batch") else 0
-    mode = "minibatch" if mini_batch > 1 else "scan"
-    if cl.has("batch"):
-        if batch_b < 1:
-            raise ValueError(f"-batch must be >= 1: {batch_b}")
-        if mini_batch > 1:
-            raise ValueError("-batch IS the mini-batch backend; drop "
-                             "-mini_batch (its size becomes -batch's B)")
-        if cl.has("native_scan") or cl.has("pallas") \
-                or cl.has("mxu_scatter"):
-            raise ValueError("-batch does not compose with -native_scan/"
-                             "-pallas/-mxu_scatter; pick one execution "
-                             "backend (docs/execution_backends.md)")
-        mode = "batch"
-    if cl.has("native_apply") and mode != "batch":
-        # -native_apply is a modifier of the batch backend, not a backend
-        # of its own
-        raise ValueError("-native_apply rides the -batch backend; add "
-                         "-batch B (docs/execution_backends.md)")
-    if mode == "minibatch":
-        block_size = mini_batch
-    if mode == "batch":
-        # a staged block holds whole minibatches: round the block up to a
-        # multiple of B (only the dataset's last block stages a tail chunk)
-        block_size = -(-max(block_size, batch_b) // batch_b) * batch_b
-    if cl.has("native_scan"):
-        if mode != "scan":
-            raise ValueError("-native_scan is the exact per-row path; "
-                             "drop -mini_batch or drop -native_scan")
-        return _fit_native_scan(rule, hyper, cl, dims, idx_rows, val_rows,
-                                labels, width, block_size, initial_weights,
-                                initial_covars, dev)
-    # SpaceEfficientDenseModel analog: above 2^24 dims the reference switches
-    # to half-float storage unless -disable_halffloat
-    # (ref: LearnerBaseUDTF.java:172-175); here that is bf16.
-    dtype = torch.float32
-    if dims > (1 << 24) and not cl.has("disable_halffloat"):
-        dtype = torch.bfloat16
-    if mode == "batch" and cl.has("native_apply"):
-        from ..core.native_batch import native_batch_unsupported_reason
+        batch_b = cl.get_int("batch", 0) if cl.has("batch") else 0
+        mode = "minibatch" if mini_batch > 1 else "scan"
+        if cl.has("batch"):
+            if batch_b < 1:
+                raise ValueError(f"-batch must be >= 1: {batch_b}")
+            if mini_batch > 1:
+                raise ValueError("-batch IS the mini-batch backend; drop "
+                                 "-mini_batch (its size becomes -batch's B)")
+            if cl.has("native_scan") or cl.has("pallas") \
+                    or cl.has("mxu_scatter"):
+                raise ValueError("-batch does not compose with -native_scan/"
+                                 "-pallas/-mxu_scatter; pick one execution "
+                                 "backend (docs/execution_backends.md)")
+            mode = "batch"
+        if cl.has("native_apply") and mode != "batch":
+            # -native_apply is a modifier of the batch backend, not a backend
+            # of its own
+            raise ValueError("-native_apply rides the -batch backend; add "
+                             "-batch B (docs/execution_backends.md)")
+        if mode == "minibatch":
+            block_size = mini_batch
+        if mode == "batch":
+            # a staged block holds whole minibatches: round the block up to a
+            # multiple of B (only the dataset's last block stages a tail chunk)
+            block_size = -(-max(block_size, batch_b) // batch_b) * batch_b
+        root.set(rule=rule.name, rows=n, epochs=iters, block_rows=block_size,
+                 mode="native_scan" if cl.has("native_scan")
+                 else "pallas" if cl.has("pallas") and mode == "scan"
+                 else mode)
+        if cl.has("native_scan"):
+            if mode != "scan":
+                raise ValueError("-native_scan is the exact per-row path; "
+                                 "drop -mini_batch or drop -native_scan")
+            return _fit_native_scan(rule, hyper, cl, dims, idx_rows, val_rows,
+                                    labels, width, block_size, initial_weights,
+                                    initial_covars, dev)
+        # SpaceEfficientDenseModel analog: above 2^24 dims the reference
+        # switches to half-float storage unless -disable_halffloat
+        # (ref: LearnerBaseUDTF.java:172-175); here that is bf16.
+        dtype = torch.float32
+        if dims > (1 << 24) and not cl.has("disable_halffloat"):
+            dtype = torch.bfloat16
+        if mode == "batch" and cl.has("native_apply"):
+            from ..core.native_batch import native_batch_unsupported_reason
 
-        reason = native_batch_unsupported_reason(
-            rule, table_dtype_is_f32=dtype == torch.float32)
-        if reason is None:
-            return _fit_native_batch(rule, hyper, cl, dims, idx_rows,
-                                     val_rows, labels, width, block_size,
-                                     batch_b, initial_weights,
-                                     initial_covars, dev)
-        # loud fallback, never silent: the -batch path has the same
-        # semantics, so training proceeds — but the caller asked for the
-        # native pass and learns why they did not get it
-        import warnings
+            reason = native_batch_unsupported_reason(
+                rule, table_dtype_is_f32=dtype == torch.float32)
+            if reason is None:
+                return _fit_native_batch(rule, hyper, cl, dims, idx_rows,
+                                         val_rows, labels, width, block_size,
+                                         batch_b, initial_weights,
+                                         initial_covars, dev)
+            # loud fallback, never silent: the -batch path has the same
+            # semantics, so training proceeds — but the caller asked for the
+            # native pass and learns why they did not get it
+            import warnings
 
-        warnings.warn(f"-native_apply unavailable ({reason}); falling "
-                      "back to the -batch backend", stacklevel=2)
-    if mode == "batch":
-        step = make_batch_train_step(rule, hyper, batch_size=batch_b,
-                                     device=dev)
-    elif cl.has("pallas") and mode == "scan":
-        from ..kernels.linear_scan import make_pallas_scan_step
+            warnings.warn(f"-native_apply unavailable ({reason}); falling "
+                          "back to the -batch backend", stacklevel=2)
+        if mode == "batch":
+            step = make_batch_train_step(rule, hyper, batch_size=batch_b,
+                                         device=dev)
+        elif cl.has("pallas") and mode == "scan":
+            from ..kernels.linear_scan import make_pallas_scan_step
 
-        step = make_pallas_scan_step(rule, hyper, device=dev)
-    else:
-        # the mxu backend runs only in minibatch mode; in scan mode the
-        # flag is ignored, as in the JAX package
-        backend = "mxu" if (cl.has("mxu_scatter") and mode == "minibatch") \
-            else "xla"
-        step = make_train_fn(rule, hyper, mode=mode, update_backend=backend,
-                             device=dev)
-    state = init_linear_state(
-        dims,
-        use_covariance=rule.use_covariance,
-        slot_names=rule.slot_names,
-        global_names=rule.global_names,
-        dtype=dtype,
-        initial_weights=initial_weights,
-        initial_covars=initial_covars,
-        device=dev,
-    )
+            step = make_pallas_scan_step(rule, hyper, device=dev)
+        else:
+            # the mxu backend runs only in minibatch mode; in scan mode the
+            # flag is ignored, as in the JAX package
+            backend = "mxu" if (cl.has("mxu_scatter")
+                                and mode == "minibatch") else "xla"
+            step = make_train_fn(rule, hyper, mode=mode,
+                                 update_backend=backend, device=dev)
+        with TRACER.span("fit.init_state"):
+            state = init_linear_state(
+                dims,
+                use_covariance=rule.use_covariance,
+                slot_names=rule.slot_names,
+                global_names=rule.global_names,
+                dtype=dtype,
+                initial_weights=initial_weights,
+                initial_covars=initial_covars,
+                device=dev,
+            )
 
-    conv = ConversionState(not cl.has("disable_cv"), cl.get_float("cv_rate", 0.005))
-    # progress counters, the Hadoop Reporter/Counter analog
-    # (ref: UDTFWithOptions.java:59-88, FM iteration counter :529-543)
-    iter_counter = REGISTRY.counter("hivemall", f"{rule.name}.iterations")
-    row_counter = REGISTRY.counter("hivemall", f"{rule.name}.examples")
-    # -batch: plans are a pure function of each block's indices, so they
-    # are staged on the host and uploaded once, then replayed every epoch
-    # (cleared when -shuffle re-deals the rows)
-    plan_cache: list = []
-    for it in range(max(1, iters)):
-        if cl.has("shuffle") and it > 0:
-            idx_rows, val_rows, labels = shuffle_rows(
-                idx_rows, val_rows, labels, cl.get_int("seed", 31) + it)
-            plan_cache = []
-        # losses stay on the device through the epoch; ONE transfer at the
-        # epoch boundary feeds the convergence check
-        epoch_losses = []
-        for bi, block in enumerate(iter_blocks(idx_rows, val_rows, labels,
-                                               dims, block_size, width)):
-            args = [state] + [
-                torch.from_numpy(a).to(dev, non_blocking=True)
-                for a in (block.indices, block.values, block.labels)]
-            if mode == "batch":
-                if bi >= len(plan_cache):
-                    plan_cache.append(upload_block_plans(
-                        stage_block_plans(block.indices, batch_b, dims),
-                        dims, dev))
-                args.append(plan_cache[bi])
-            state, loss = step(*args)
-            epoch_losses.append(loss)
-            row_counter.increment(block.batch_size)
-        iter_counter.increment()
-        epoch_loss = float(torch.stack(epoch_losses).sum().cpu())
-        conv.incr_loss(epoch_loss)
-        if iters > 1 and conv.is_converged(n):
-            break
-    return TrainedLinearModel(state=state, rule=rule, dims=dims, block_width=width)
+        conv = ConversionState(not cl.has("disable_cv"),
+                               cl.get_float("cv_rate", 0.005))
+        # progress counters, the Hadoop Reporter/Counter analog
+        # (ref: UDTFWithOptions.java:59-88, FM iteration counter :529-543)
+        iter_counter = REGISTRY.counter("hivemall", f"{rule.name}.iterations")
+        row_counter = REGISTRY.counter("hivemall", f"{rule.name}.examples")
+        # -batch: plans are a pure function of each block's indices, so they
+        # are staged on the host and uploaded once, then replayed every epoch
+        # (cleared when -shuffle re-deals the rows)
+        plan_cache: list = []
+        for it in range(max(1, iters)):
+            with TRACER.span("fit.epoch") as epoch:
+                phases: dict = {}
+                if cl.has("shuffle") and it > 0:
+                    with TRACER.phase("fit.pack", phases):
+                        idx_rows, val_rows, labels = shuffle_rows(
+                            idx_rows, val_rows, labels,
+                            cl.get_int("seed", 31) + it)
+                    plan_cache = []
+                # losses stay on the device through the epoch; ONE transfer
+                # at the epoch boundary feeds the convergence check
+                epoch_losses = []
+                for bi, block in enumerate(iter_blocks(
+                        idx_rows, val_rows, labels, dims, block_size, width,
+                        pack_phase=partial(TRACER.phase, "fit.pack", phases))):
+                    with TRACER.phase("fit.h2d", phases):
+                        args = [state] + [
+                            torch.from_numpy(a).to(dev, non_blocking=True)
+                            for a in (block.indices, block.values,
+                                      block.labels)]
+                        if mode == "batch":
+                            if bi >= len(plan_cache):
+                                plan_cache.append(upload_block_plans(
+                                    stage_block_plans(block.indices, batch_b,
+                                                      dims), dims, dev))
+                            args.append(plan_cache[bi])
+                    with TRACER.phase("fit.step", phases):
+                        state, loss = step(*args)
+                    epoch_losses.append(loss)
+                    row_counter.increment(block.batch_size)
+                iter_counter.increment()
+                with TRACER.phase("fit.epoch_sync", phases):
+                    epoch_loss = float(torch.stack(epoch_losses).sum().cpu())
+                epoch.set(blocks=len(epoch_losses),
+                          **{f"{p[4:]}_s": phases.get(p, 0) / 1e9
+                             for p in _PHASES})
+                conv.incr_loss(epoch_loss)
+                if iters > 1 and conv.is_converged(n):
+                    break
+        return TrainedLinearModel(state=state, rule=rule, dims=dims,
+                                  block_width=width)
 
 
 def binary_label_map(labels: np.ndarray) -> np.ndarray:

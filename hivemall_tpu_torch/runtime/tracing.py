@@ -2,8 +2,36 @@
 """End-to-end span tracing: request spans through serving, step timelines
 through training, one Perfetto-loadable export for both.
 
-A host-only copy of the JAX package's `runtime/tracing.py`: the same span,
-trace and export formats, and the same environment knobs. Only
+The JAX package's `runtime/tracing.py` ported: the same span and trace
+formats and environment knobs, with two additions for torch:
+
+- **The profiler bridge.** While a ``torch.profiler`` records the calling
+  thread, every span opened with ``span()`` and every phase entry also
+  opens a host range of the same name on the profiler's timeline, around
+  the torch ops and kernel launches it encloses: the fit loop's ``fit.*``
+  and the ``train.*`` of ``step_span`` appear in the trace of a profiler
+  started on their thread (``runtime/metrics.py::trace``'s included). The
+  profiler records per thread, so the spans of other threads (the batcher
+  worker's ``engine.*``) appear only in a profiler started there. A span
+  paired by hand with ``begin()``/``end()`` gets no range: its end may run
+  on another thread (the batcher's request roots end in a Future's
+  done-callback), and a range exited on a thread the profiler does not
+  record stays open until the profiler stops. The range is a ``cpu_op``
+  (``_RecordFunctionFast``), which the profiler keeps on the host: a
+  ``record_function`` range is a user annotation that the profiler also
+  copies onto the device's timeline around the kernels it encloses. With
+  no profiler recording, a span pays one check
+  (``torch.autograd._profiler_enabled``); while torch is not imported,
+  none (no profiler can record) and this module does not import it.
+- **The phase timer.** ``Tracer.phase(name, into)`` adds the
+  ``perf_counter_ns`` time of each entry into a caller's dict (and opens
+  the same host range under the profiler) without creating a span, for
+  work repeated per block: a fit of thousands of blocks commits a handful
+  of spans whose args carry the phases' sums.
+
+``chrome_trace`` stamps events in Unix-epoch microseconds, the clock of
+the profiler's own events: a ``/trace`` dump's ``ts`` is on the axis of a
+profiler trace file's ``ts`` plus its ``baseTimeNanoseconds`` / 1000. Only
 ``sync_ready`` touches the device (a ``torch.cuda.synchronize``).
 
 Aggregate counters and histograms (runtime/metrics.py) say THAT a p99
@@ -39,7 +67,8 @@ Sampling: the *decision* is made per root span with a seeded RNG
 regardless (they are cheap); the decision gates which traces are
 *committed* to the ring buffer — plus ``slow_ms``: a root slower than the
 threshold commits even when unsampled, so the tail is never invisible.
-``enabled=False`` turns span creation into a no-op entirely.
+``enabled=False`` turns span creation and phase timing into no-ops
+entirely.
 
 Usage::
 
@@ -53,6 +82,11 @@ Usage::
         state, loss = trainer.step(state, *block)
         sync_ready(loss)               # train.sync
 
+    phases = {}                        # per-block work: no span each
+    for block in blocks:
+        with TRACER.phase("fit.step", phases):
+            state, loss = step(state, *block)
+
     TRACER.export_chrome("trace.json")   # -> ui.perfetto.dev
 """
 
@@ -65,6 +99,7 @@ import json
 import os
 import random
 import re
+import sys
 import threading
 import time
 from collections import deque
@@ -99,6 +134,63 @@ def _w3c_hex(ident: Optional[str], width: int) -> str:
         v = int.from_bytes(h.encode(), "big")
     v %= 16 ** width
     return format(v or 1, f"0{width}x")
+
+
+# torch.autograd._profiler_enabled, bound once torch has been imported
+_profiling = None
+
+
+def _open_range(name: str):
+    """A host range named ``name``, entered, on the timeline of the torch
+    profiler that records this thread; None when none does (or torch is
+    not imported, when none can). Exit it on this thread."""
+    global _profiling
+    if _profiling is None:
+        torch = sys.modules.get("torch")
+        if torch is None:
+            return None
+        _profiling = torch.autograd._profiler_enabled
+    if not _profiling():
+        return None
+    return _profiler_range(name)
+
+
+def _profiler_range(name: str):
+    from torch._C._profiler import _RecordFunctionFast
+
+    rf = _RecordFunctionFast(name)
+    rf.__enter__()
+    return rf
+
+
+def _close_range(rf) -> None:
+    if rf is not None:
+        rf.__exit__(None, None, None)
+
+
+class _Phase:
+    """One entry of ``Tracer.phase``: adds its ``perf_counter_ns`` time to
+    ``into[name]``; under the profiler, a host range of the same name."""
+
+    __slots__ = ("name", "into", "_t0", "_range")
+
+    def __init__(self, name: str, into: Dict[str, int]) -> None:
+        self.name = name
+        self.into = into
+
+    def __enter__(self) -> "_Phase":
+        self._range = _open_range(self.name)
+        self._t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        into = self.into
+        into[self.name] = into.get(self.name, 0) \
+            + time.perf_counter_ns() - self._t0
+        _close_range(self._range)
+
+
+_NULL_PHASE = contextlib.nullcontext()
 
 
 class _NullSpan:
@@ -297,7 +389,8 @@ class Tracer:
         Span for cross-thread parenting or None to force a new root.
         ``remote`` (a parse_traceparent result) makes the new root adopt
         the client's trace id and parent the client's span — it applies
-        only when no local parent is in effect."""
+        only when no local parent is in effect. A span opened here gets no
+        profiler range (the module docstring says why)."""
         if not self.enabled:
             return NULL_SPAN
         if parent is _UNSET:
@@ -379,11 +472,25 @@ class Tracer:
             yield span
             return
         token = _current.set(span)
+        # the block opens and closes on this thread, as the profiler's
+        # range must: a span paired by hand may end on another thread
+        rf = _open_range(name)
         try:
             yield span
         finally:
+            _close_range(rf)
             _current.reset(token)
             self.end(span)
+
+    def phase(self, name: str, into: Dict[str, int]):
+        """Context manager timing one entry of a phase repeated per block:
+        adds the entry's ``perf_counter_ns`` time to ``into[name]`` and,
+        while a torch profiler records, opens a host range ``name`` on its
+        timeline. Creates no span, so a loop of any length commits no more
+        spans; the caller reports the sums (as span args)."""
+        if not self.enabled:
+            return _NULL_PHASE
+        return _Phase(name, into)
 
     def add_span(self, name: str, parent, start_ns: int, end_ns: int,
                  args: Optional[dict] = None) -> None:
@@ -467,17 +574,20 @@ class Tracer:
         """Chrome/Perfetto ``trace_event`` JSON (the dict; export_chrome
         writes it). Spans map to complete ("X") events, instant events to
         "i" events, all stamped with trace/span ids in args so Perfetto
-        queries can join them back to exemplars."""
+        queries can join them back to exemplars. ``ts`` is in Unix-epoch
+        microseconds, the torch profiler's clock: the spans' perf_counter
+        stamps plus the offset between the two clocks read at export."""
         pid = os.getpid()
         events = []
         committed = self.traces(n)  # ONE ring copy: count == events' source
+        offset_us = (time.time_ns() - time.perf_counter_ns()) / 1e3
         for t in committed:
             for s in t["spans"]:
                 events.append({
                     "name": s["name"],
                     "cat": "hivemall_tpu",
                     "ph": "X",
-                    "ts": s["start_us"],
+                    "ts": s["start_us"] + offset_us,
                     "dur": s["dur_us"],
                     "pid": pid,
                     "tid": s["tid"],
@@ -491,13 +601,14 @@ class Tracer:
                         "cat": "hivemall_tpu",
                         "ph": "i",
                         "s": "t",
-                        "ts": ev["ts_us"],
+                        "ts": ev["ts_us"] + offset_us,
                         "pid": pid,
                         "tid": s["tid"],
                         "args": {**ev["args"], "trace_id": s["trace_id"]},
                     })
         return {"traceEvents": events, "displayTimeUnit": "ms",
                 "otherData": {"source": "hivemall_tpu_torch.runtime.tracing",
+                              "clock": "unix_epoch_us",
                               "traces": len(committed)}}
 
     def export_chrome(self, path: str, n: Optional[int] = None) -> dict:
